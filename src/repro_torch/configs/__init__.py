@@ -1,0 +1,21 @@
+"""Architecture registry of the port: ``get(name)`` / ``ARCHS``.
+
+Only the architectures whose layers the port runs are registered; the
+others join with the slices that port their layers.
+"""
+
+from . import granite_moe_1b_a400m
+from .base import ArchConfig
+
+_MODULES = [granite_moe_1b_a400m]
+
+ARCHS: dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
+
+
+def get(name: str) -> ArchConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
+    return ARCHS[name]
+
+
+__all__ = ["ARCHS", "get", "ArchConfig"]

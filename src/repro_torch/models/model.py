@@ -1,0 +1,111 @@
+"""Model facade (port of ``repro/models/model.py``): init / forward /
+prefill / decode.
+
+``init_params`` returns a :class:`Model` module whose parameter names
+follow the JAX parameter tree (``embed``, ``final_norm``, ``lm_head``,
+``blocks.<layer>.{ln1,mix,ln2,ffn}.*``), so :mod:`repro_torch.convert`
+maps one onto the other. The functions take ``(params, cfg, ...)`` like
+the JAX ones, so the same weights can run under another config switch
+(for example ``moe_impl``). ``jax.random`` cannot be replayed in torch:
+weights come from a ``torch.Generator`` with the JAX package's scales,
+and equal weights for a comparison come through ``convert.from_jax``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch import default_device
+
+from . import layers, stack
+
+
+class Model(nn.Module):
+    """Embedding, the layer stack and the (tied) head of one architecture."""
+
+    def __init__(self, cfg, *, device):
+        super().__init__()
+        if cfg.embeds_input or cfg.num_media_tokens:
+            raise NotImplementedError("frontend embeddings and media join "
+                                      "with a later slice of the port")
+        dtype = cfg.param_dtype
+        D, V = cfg.d_model, cfg.vocab_size
+        self.embed = layers.new_param((V, D), device, dtype)
+        self.blocks = stack.build_layers(cfg, device=device, dtype=dtype)
+        self.final_norm = layers.new_param((D,), device, dtype, 1.0)
+        if not cfg.tie_embeddings:
+            self.lm_head = layers.new_param((D, V), device, dtype)
+
+    def init_weights(self, generator: torch.Generator):
+        layers.normal_(self.embed, 0.02, generator)
+        for blk in self.blocks:
+            blk.mix.init_weights(generator)
+            if blk.ffn_kind == "moe":
+                blk.ffn.init_weights(generator)
+        if hasattr(self, "lm_head"):
+            layers.normal_(self.lm_head, self.lm_head.shape[0] ** -0.5,
+                           generator)
+
+
+def init_params(cfg, generator: torch.Generator | None = None,
+                device=None) -> Model:
+    """Random weights from ``generator`` (seed 0 on ``device`` if None)."""
+    dev = default_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    model = Model(cfg, device=dev)
+    model.init_weights(generator)
+    return model
+
+
+def _embed(params: Model, tokens):
+    return params.embed[tokens.long()]
+
+
+def _head(params: Model, cfg, x):
+    x = layers.rmsnorm(x, params.final_norm, cfg.norm_eps)
+    w = params.embed.T if cfg.tie_embeddings else params.lm_head
+    return (x @ w).float()
+
+
+def _positions(B, S, start, device):
+    return (torch.arange(S, dtype=torch.int32, device=device) + start
+            ).expand(B, S)
+
+
+def forward(params: Model, cfg, tokens, steal_table=None):
+    """Full-sequence logits (teacher forcing). Returns (logits, aux_loss)."""
+    x = _embed(params, tokens)
+    B, S = x.shape[:2]
+    x, _, aux = stack.apply_stack(params.blocks, cfg, x,
+                                  positions=_positions(B, S, 0, x.device),
+                                  steal_table=steal_table, mode="train")
+    return _head(params, cfg, x), aux
+
+
+@torch.no_grad()
+def prefill(params: Model, cfg, tokens, max_len: int | None = None,
+            steal_table=None):
+    """Process a prompt, returning (last_logits (B, 1, V), caches)."""
+    x = _embed(params, tokens)
+    B, S = x.shape[:2]
+    caches = stack.init_caches(cfg, B, max_len or S, x.dtype, x.device)
+    x, caches, _ = stack.apply_stack(params.blocks, cfg, x,
+                                     positions=_positions(B, S, 0, x.device),
+                                     caches=caches, mode="prefill",
+                                     steal_table=steal_table)
+    return _head(params, cfg, x[:, -1:]), caches
+
+
+@torch.no_grad()
+def decode_step(params: Model, cfg, caches, tokens, steal_table=None):
+    """One decode step. tokens: (B, 1). Returns (logits, caches); the
+    caches' K/V buffers are updated in place."""
+    x = _embed(params, tokens)
+    B = x.shape[0]
+    pos = _positions(B, 1, caches["length"], x.device)
+    x, caches, _ = stack.apply_stack(params.blocks, cfg, x, positions=pos,
+                                     caches=caches, mode="decode",
+                                     steal_table=steal_table)
+    return _head(params, cfg, x), caches

@@ -1,0 +1,102 @@
+"""The layer stack (port of ``repro/models/stack.py``).
+
+The JAX package stacks each pattern slot's weights on a leading
+``repeats`` axis and runs the stack under ``jax.lax.scan``. Here every
+layer is its own :class:`Layer` module, held in an ``nn.ModuleList`` in
+execution order (layer ``r * len(pattern) + si`` is slot ``si`` of repeat
+``r``), and the stack is a Python loop. Caches are a per-layer list that
+shares one ``length`` counter, so train, prefill and decode share one
+code path. Sharding constraints, remat and ``serialize_slot_gathers``
+have no counterpart.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from . import layers
+
+
+class Layer(nn.Module):
+    """One (mixer, ffn) slot: pre-norm residual mixer, then pre-norm FFN."""
+
+    def __init__(self, cfg, kind: str, ffn: str, *, device, dtype):
+        super().__init__()
+        if kind != "attn":
+            raise NotImplementedError(f"{kind!r} layers join with a later "
+                                      "slice of the port")
+        if ffn not in ("moe", "none"):
+            raise NotImplementedError(f"{ffn!r} FFNs join with a later "
+                                      "slice of the port")
+        self.kind, self.ffn_kind = kind, ffn
+        D = cfg.d_model
+        self.ln1 = layers.new_param((D,), device, dtype, 1.0)
+        self.mix = layers.Attention(cfg, device=device, dtype=dtype)
+        if ffn == "moe":
+            self.ln2 = layers.new_param((D,), device, dtype, 1.0)
+            self.ffn = layers.MoE(cfg, device=device, dtype=dtype)
+
+    def forward(self, h, cfg, *, positions, cache=None, steal_table=None):
+        """Returns (h, new_cache, aux)."""
+        hin = layers.rmsnorm(h, self.ln1, cfg.norm_eps)
+        y, new_cache = self.mix(hin, cfg, positions=positions, cache=cache,
+                                causal=not cfg.is_encoder)
+        h = h + y
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        if self.ffn_kind == "moe":
+            hin = layers.rmsnorm(h, self.ln2, cfg.norm_eps)
+            y, aux = self.ffn(hin, cfg, steal_table)
+            h = h + y
+        return h, new_cache, aux
+
+
+def build_layers(cfg, *, device, dtype) -> nn.ModuleList:
+    return nn.ModuleList(
+        Layer(cfg, kind, ffn, device=device, dtype=dtype)
+        for _ in range(cfg.repeats) for kind, ffn in cfg.pattern)
+
+
+def init_caches(cfg, batch: int, max_len: int, dtype, device):
+    """Per-layer KV caches (None for stateless layers) and one ``length``."""
+    caches = []
+    for _ in range(cfg.repeats):
+        for kind, _ in cfg.pattern:
+            if kind != "attn":
+                raise NotImplementedError(f"{kind!r} caches join with a "
+                                          "later slice of the port")
+            c = layers.attn_cache_init(cfg, batch, max_len, dtype, device)
+            c.pop("length")
+            caches.append(c)
+    return dict(length=0, layers=caches)
+
+
+def apply_stack(blocks: nn.ModuleList, cfg, x, *, positions, caches=None,
+                steal_table=None, mode: str = "train"):
+    """Run the stack. mode: 'train' (no caches) | 'prefill' (fill caches)
+    | 'decode' (read + update caches). Returns (x, new_caches, aux).
+
+    The caches' K/V buffers are written in place; the returned dict holds
+    the same buffers and the advanced ``length``.
+    """
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "train":
+        caches = None
+    length = caches["length"] if caches is not None else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_layers = []
+    for i, layer in enumerate(blocks):
+        c = None
+        if caches is not None and caches["layers"][i] is not None:
+            c = dict(caches["layers"][i], length=length)
+        x, nc, a = layer(x, cfg, positions=positions, cache=c,
+                         steal_table=steal_table)
+        if nc is not None:
+            nc.pop("length")
+        aux = aux + a
+        new_layers.append(nc)
+    new_caches = None
+    if caches is not None:
+        new_caches = dict(length=length + x.shape[1], layers=new_layers)
+    return x, new_caches, aux
