@@ -1,4 +1,5 @@
-"""Weights from the JAX package: ``from_jax(params_np, cfg)``.
+"""Weights to and from the JAX package: ``from_jax(params_np, cfg)`` and
+its inverse ``to_jax(model, cfg)``.
 
 The input is the JAX parameter tree with its leaves as numpy arrays
 (``jax.tree.map(np.asarray, params)``): ``embed``, ``final_norm``,
@@ -10,7 +11,9 @@ which ``torch.from_numpy`` refuses; they are moved as ``uint16`` and
 viewed as ``torch.bfloat16``, bit for bit.
 
 ``jax.random`` cannot be replayed in torch, so this is how a test gives
-both packages the same weights.
+both packages the same weights; ``to_jax`` gives the port's weights (or
+gradients) back in the JAX tree's layout, so a test compares them leaf by
+leaf.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from repro_torch import default_device
 from repro_torch.models.model import Model
 
-__all__ = ["from_jax", "to_tensor"]
+__all__ = ["from_jax", "to_jax", "to_tensor", "to_numpy"]
 
 
 def to_tensor(arr) -> torch.Tensor:
@@ -32,6 +35,15 @@ def to_tensor(arr) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array, bit for bit; bf16 comes out as its
+    ``uint16`` bits (numpy has no bf16 of its own)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.uint16).numpy()
+    return t.numpy()
 
 
 def _leaves(tree, prefix=()):
@@ -80,3 +92,34 @@ def from_jax(params_np: dict, cfg, device=None) -> Model:
     if missing:
         raise ValueError(f"port parameters not in the JAX tree: {missing}")
     return model
+
+
+def to_jax(params, cfg) -> dict:
+    """The JAX parameter tree (numpy leaves) of a :class:`Model`, or of a
+    dict of tensors under its parameter names (gradients, for example):
+    per-layer weights stacked on a leading ``repeats`` axis per pattern
+    slot. bf16 leaves come out as their ``uint16`` bits (:func:`to_numpy`)."""
+    named = dict(params.named_parameters()) if isinstance(params, Model) \
+        else dict(params)
+    period = len(cfg.pattern)
+    out: dict = {"blocks": [{} for _ in range(period)]}
+    per_slot: dict = {}
+    for name, t in named.items():
+        arr = to_numpy(t)
+        parts = name.split(".")
+        if parts[0] != "blocks":
+            out[name] = arr
+            continue
+        layer = int(parts[1])
+        per_slot.setdefault((layer % period, tuple(parts[2:])), {})[
+            layer // period] = arr
+    for (si, path), by_repeat in per_slot.items():
+        if sorted(by_repeat) != list(range(cfg.repeats)):
+            raise ValueError(f"slot {si} {'.'.join(path)}: repeats "
+                             f"{sorted(by_repeat)} of {cfg.repeats}")
+        node = out["blocks"][si]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack([by_repeat[r]
+                                   for r in range(cfg.repeats)])
+    return out

@@ -13,9 +13,9 @@ victim. Expert and slot ids equal the JAX reference's exactly:
   * a dropped (token, k) pair carries expert = slot = -1, whose one-hot
     row is zero (see :func:`one_hot`).
 
-The steal table comes from the caller; ``ring_steal_table`` is the
-order the MoE layer falls back to when none is given. The topology-built
-table (``expert_steal_table``) joins with the training slice.
+The steal table comes from the caller: ``expert_steal_table`` builds it
+from a topology (the training launcher's), and ``ring_steal_table`` is the
+order the MoE layer falls back to when none is given.
 """
 
 from __future__ import annotations
@@ -25,8 +25,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from .topology import Topology
+
 __all__ = ["RoutingConfig", "route", "dispatch_combine_weights",
-           "ring_steal_table", "one_hot"]
+           "expert_steal_table", "ring_steal_table", "one_hot"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +38,36 @@ class RoutingConfig:
     capacity: int            # per-expert token slots (per routed batch)
     steal_attempts: int = 2  # 0 = vanilla GShard-style drop-on-overflow
     policy: str = "dfwspt"   # or 'dfwsrpt'
+
+
+def expert_steal_table(topo: Topology,
+                       expert_device: np.ndarray,
+                       policy: str = "dfwspt",
+                       seed: int = 0) -> np.ndarray:
+    """(E, E-1) steal order: row e = other experts by hop distance from
+    the device owning e (the paper's priority list, expert-granular).
+    Ties go to the lower expert id (DFWSPT) or to a permutation drawn
+    from ``seed`` (DFWSRPT), as in the JAX package.
+
+    expert_device: (E,) device (== core in the topology) owning each
+    expert.
+    """
+    expert_device = np.asarray(expert_device, np.int64)
+    E = expert_device.shape[0]
+    dist = topo.core_distance_matrix()
+    rng = np.random.RandomState(seed)
+    rows = []
+    for e in range(E):
+        others = [x for x in range(E) if x != e]
+        d = dist[expert_device[e], expert_device[others]]
+        if policy == "dfwspt":
+            key = np.lexsort((np.asarray(others), d))
+        elif policy == "dfwsrpt":
+            key = np.lexsort((rng.permutation(E - 1), d))
+        else:
+            raise ValueError(f"unknown policy {policy!r}")
+        rows.append([others[i] for i in key])
+    return np.asarray(rows, np.int64)
 
 
 def ring_steal_table(num_experts: int) -> np.ndarray:

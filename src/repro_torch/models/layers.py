@@ -15,9 +15,12 @@ either ``moe_impl``. Differences from the JAX package:
   * the KV cache is written in place at ``length`` (JAX returns a new
     buffer through ``dynamic_update_slice``); a write past the cache's
     end raises, where JAX clamps the start;
-  * ``attn_impl="kernel"`` (flash attention, training only) and the MLP,
-    cross-attention and Mamba2 layers join with later slices and raise
-    ``NotImplementedError`` until then.
+  * the MLP, cross-attention and Mamba2 layers join with later slices
+    and raise ``NotImplementedError`` until then.
+
+``attn_impl="kernel"`` sends attention without a cache (training) through
+the ``flash_attention`` kernel, as the JAX package does; cached attention
+(prefill, decode) takes the plain version on both routes.
 """
 
 from __future__ import annotations
@@ -54,9 +57,11 @@ def normal_(p: torch.Tensor, scale: float, generator: torch.Generator):
 # norms / rope
 # ----------------------------------------------------------------------
 
-def rmsnorm(x, w, eps=1e-6):
-    """RMSNorm through its plain version; no layer calls a kernel for it,
-    as in the JAX package (``use_kernel`` is never set there)."""
+def rmsnorm(x, w, eps=1e-6, use_kernel=False):
+    """RMSNorm; ``use_kernel`` sends it through the rmsnorm kernel. No
+    layer sets it, as in the JAX package."""
+    if use_kernel:
+        return kops.rmsnorm(x, w, eps)
     return kref.rmsnorm_ref(x, w, eps)
 
 
@@ -142,10 +147,9 @@ class Attention(nn.Module):
 
         causal = causal or cache is not None
         if cfg.attn_impl == "kernel" and cache is None:
-            raise NotImplementedError(
-                "the flash_attention kernel is ported with the training "
-                "slice; use attn_impl='ref'")
-        if S >= cfg.attn_chunk_threshold:
+            out = kops.flash_attention(q, kk, vv, causal=causal,
+                                       window=cfg.attn_window)
+        elif S >= cfg.attn_chunk_threshold:
             # long prefill/training: bound the score slab to (chunk × Skv)
             out = kref.attention_chunked_ref(
                 q, kk, vv, causal=causal, window=cfg.attn_window,

@@ -1,5 +1,5 @@
 """Model facade (port of ``repro/models/model.py``): init / forward /
-prefill / decode.
+train loss / prefill / decode.
 
 ``init_params`` returns a :class:`Model` module whose parameter names
 follow the JAX parameter tree (``embed``, ``final_norm``, ``lm_head``,
@@ -82,6 +82,26 @@ def forward(params: Model, cfg, tokens, steal_table=None):
                                   positions=_positions(B, S, 0, x.device),
                                   steal_table=steal_table, mode="train")
     return _head(params, cfg, x), aux
+
+
+def train_loss(params: Model, cfg, batch, steal_table=None):
+    """Cross-entropy (+ router aux + z-loss), as ``model.py:81-99`` of
+    the JAX package. batch: dict with ``tokens`` and ``labels`` (B, S)
+    (-100 = masked). Returns (loss, dict(ce, aux, z_loss))."""
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          steal_table=steal_table)
+    labels = batch["labels"].long()
+    valid = labels >= 0
+    labels_safe = torch.where(valid, labels, 0)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, labels_safe[..., None])[..., 0]
+    denom = torch.clamp(valid.sum(), min=1)
+    ce = -(ll * valid).sum() / denom
+    # z-loss stabilises the softmax normaliser at scale
+    zl = torch.square(torch.logsumexp(logits, dim=-1))
+    z_loss = (zl * valid).sum() / denom
+    loss = ce + cfg.router_aux_weight * aux + cfg.z_loss_weight * z_loss
+    return loss, dict(ce=ce, aux=aux, z_loss=z_loss)
 
 
 @torch.no_grad()

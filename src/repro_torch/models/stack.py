@@ -6,14 +6,22 @@ layer is its own :class:`Layer` module, held in an ``nn.ModuleList`` in
 execution order (layer ``r * len(pattern) + si`` is slot ``si`` of repeat
 ``r``), and the stack is a Python loop. Caches are a per-layer list that
 shares one ``length`` counter, so train, prefill and decode share one
-code path. Sharding constraints, remat and ``serialize_slot_gathers``
-have no counterpart.
+code path. Sharding constraints and ``serialize_slot_gathers`` have no
+counterpart.
+
+Remat: in ``mode="train"`` with ``cfg.remat != "none"`` each layer runs
+under ``torch.utils.checkpoint`` (non-reentrant), keeping only its input
+for the backward, as the JAX package checkpoints each pattern period
+(one layer for a one-slot pattern). Routing is deterministic, so the
+recompute routes the same way. ``"dots"`` (save matmul outputs) is not
+ported yet and raises.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers
 
@@ -84,14 +92,23 @@ def apply_stack(blocks: nn.ModuleList, cfg, x, *, positions, caches=None,
     if mode == "train":
         caches = None
     length = caches["length"] if caches is not None else None
+    remat = mode == "train" and cfg.remat != "none"
+    if remat and cfg.remat != "full":
+        raise NotImplementedError(f"remat={cfg.remat!r} joins with a later "
+                                  "slice of the port")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_layers = []
     for i, layer in enumerate(blocks):
         c = None
         if caches is not None and caches["layers"][i] is not None:
             c = dict(caches["layers"][i], length=length)
-        x, nc, a = layer(x, cfg, positions=positions, cache=c,
-                         steal_table=steal_table)
+        if remat:
+            x, nc, a = checkpoint(layer, x, cfg, positions=positions,
+                                  steal_table=steal_table,
+                                  use_reentrant=False)
+        else:
+            x, nc, a = layer(x, cfg, positions=positions, cache=c,
+                             steal_table=steal_table)
         if nc is not None:
             nc.pop("length")
         aux = aux + a

@@ -1,0 +1,119 @@
+"""The port's kernels on the card: each kernel (forward and backward)
+against its plain version, with its launch counter. Marked ``cuda``;
+they skip on a host without a CUDA device. This file imports no JAX, so
+it runs where only PyTorch is installed:
+
+    REPRO_SIM_CACHE=0 PYTHONPATH=src python -m pytest -q -m cuda \
+        tests/test_torch_cuda.py
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import moe_gmm as gmm_mod  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv,Hq,Hkv,D,causal,window,off", [
+    (100, 100, 4, 2, 32, True, None, 0),
+    (130, 130, 6, 3, 48, True, 64, 0),
+    (96, 96, 4, 4, 128, False, None, 0),
+    (1, 24, 4, 2, 64, True, None, 9),
+])
+def test_flash_attention_kernel_on_card(dtype, Sq, Skv, Hq, Hkv, D, causal,
+                                        window, off):
+    """Forward and backward kernels against the plain version's autograd."""
+    from repro_torch.kernels import flash_attention as fa
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((2, Sq, Hq, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((2, Skv, Hkv, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((2, Skv, Hkv, D), generator=g, device="cuda").to(dtype)
+    do = torch.randn((2, Sq, Hq, D), generator=g, device="cuda").to(dtype)
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fa.fwd_launches, fa.bwd_launches)
+    out = ops.flash_attention(*ts, causal=causal, window=window,
+                              kv_offset=off)
+    got = torch.autograd.grad(out, ts, do)
+    assert (fa.fwd_launches, fa.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 3)
+    rs = [t.float().requires_grad_() for t in (q, k, v)]
+    ref_out = fa.flash_attention_plain(*rs, causal=causal, window=window,
+                                       kv_offset=off)
+    want = torch.autograd.grad(ref_out, rs, do.float())
+    tol = 3e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float(), ref_out, rtol=tol, atol=tol)
+    gtol = 1e-3 if dtype == torch.float32 else 3e-2
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b, rtol=gtol, atol=gtol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_refuses_wide_heads():
+    _card()
+    q = torch.zeros((1, 8, 4, 160), device="cuda")
+    k = torch.zeros((1, 8, 2, 160), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, k, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_on_card(dtype):
+    from repro_torch.kernels import rmsnorm as rms_mod
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((31, 96), generator=g, device="cuda").to(dtype)
+    w = torch.randn((96,), generator=g, device="cuda").to(dtype)
+    before = rms_mod.launches
+    got = ops.rmsnorm(x, w, 1e-5)
+    assert rms_mod.launches == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(),
+                               rms_mod.rmsnorm_plain(x, w, 1e-5).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_backward_kernel_on_card(dtype):
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((6, 40, 48), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((3, 48, 24), generator=g, device="cuda") / 7).to(dtype)
+    gy = torch.randn((6, 40, 24), generator=g, device="cuda").to(dtype)
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = (gmm_mod.launches, gmm_mod.bwd_launches)
+    got = torch.autograd.grad(ops.moe_gmm(xs, ws, 3), (xs, ws), gy)
+    assert (gmm_mod.launches, gmm_mod.bwd_launches) == (before[0] + 1,
+                                                        before[1] + 2)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    want = torch.autograd.grad(gmm_mod.moe_gmm_plain(xr, wr, 3), (xr, wr), gy)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_forward_kernel_on_card(dtype):
+    """Ragged and grouped forward, one counted launch."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((6, 100, 48), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((3, 48, 72), generator=g, device="cuda") / 7).to(dtype)
+    before = gmm_mod.launches
+    got = ops.moe_gmm(x, w, expert_period=3)
+    assert gmm_mod.launches == before + 1
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(),
+                               gmm_mod.moe_gmm_plain(x, w, 3).float(),
+                               rtol=tol, atol=tol)

@@ -8,6 +8,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
@@ -155,3 +156,155 @@ def test_attention_chunked_ref_vs_jax(S, chunk):
     got = ref.attention_chunked_ref(tq, tk, tv, window=12, chunk=chunk)
     want = jref.attention_chunked_ref(jq, jk, jv, window=12, chunk=chunk)
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-5, atol=1e-5)
+
+
+# ----------------------------------------------------------------------
+# flash attention (CPU: the wrapper's plain route against the Pallas
+# kernel in interpret mode; gradients against jax.grad of the JAX op)
+# ----------------------------------------------------------------------
+
+def _qkv(B, Sq, Skv, Hq, Hkv, D, dtype, seed):
+    jq, tq = _inputs((B, Sq, Hq, D), seed, dtype)
+    jk, tk = _inputs((B, Skv, Hkv, D), seed + 1, dtype)
+    jv, tv = _inputs((B, Skv, Hkv, D), seed + 2, dtype)
+    return (jq, jk, jv), (tq, tk, tv)
+
+
+@pytest.mark.parametrize("S,Hq,Hkv,D,causal", [
+    (128, 4, 4, 32, True),       # MHA causal
+    (256, 8, 2, 64, True),       # GQA causal
+    (256, 8, 2, 64, False),      # bidirectional (encoder)
+    (128, 6, 3, 48, True),       # non-pow2 heads
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_vs_jax(S, Hq, Hkv, D, causal, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _qkv(2, S, S, Hq, Hkv, D, dtype, 20)
+    want = jops.flash_attention(jq, jk, jv, causal=causal, block_q=64,
+                                block_k=64)
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    tol = 3e-4 if dtype == "float32" else 3e-2      # test_kernels.py:63
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+def test_flash_attention_window_vs_jax():
+    (jq, jk, jv), (tq, tk, tv) = _qkv(1, 256, 256, 4, 4, 32, "float32", 23)
+    want = jops.flash_attention(jq, jk, jv, causal=True, window=64)
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=64)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=3e-4, atol=3e-5)
+
+
+@pytest.mark.parametrize("off", [0, 9, 100, 192])
+def test_flash_attention_decode_offsets_vs_jax(off):
+    (jq, jk, jv), (tq, tk, tv) = _qkv(2, 1, 256, 4, 2, 32, "float32", off)
+    want = jops.flash_attention(jq, jk, jv, causal=True, kv_offset=off,
+                                block_k=64)
+    got = ops.flash_attention(tq, tk, tv, causal=True, kv_offset=off)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=3e-4, atol=3e-5)
+
+
+@pytest.mark.parametrize("Sq,Skv,Hq,Hkv,causal,window,off", [
+    (64, 64, 4, 2, True, None, 0),
+    (64, 64, 4, 4, False, None, 0),
+    (64, 64, 4, 1, True, 16, 0),
+    (1, 24, 4, 2, True, None, 9),
+])
+def test_flash_attention_grads_vs_jax(Sq, Skv, Hq, Hkv, causal, window,
+                                      off):
+    (jq, jk, jv), (tq, tk, tv) = _qkv(2, Sq, Skv, Hq, Hkv, 16, "float32", 30)
+    _, tg = _inputs((2, Sq, Hq, 16), 33, "float32")
+    jg = jnp.asarray(tg.numpy())
+
+    def jloss(q, k, v):
+        o = jops.flash_attention(q, k, v, causal=causal, window=window,
+                                 kv_offset=off, block_q=Sq, block_k=Skv)
+        return jnp.sum(o * jg)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    ts = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out = ops.flash_attention(*ts, causal=causal, window=window,
+                              kv_offset=off)
+    got = torch.autograd.grad(out, ts, tg)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_f32(g), _f32(w), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["rank", "heads", "dtype"])
+def test_flash_attention_rejects_bad_inputs(case):
+    q, k = torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 2, 16)
+    if case == "rank":
+        q = q[0]
+    elif case == "heads":
+        k = torch.zeros(1, 8, 3, 16)
+    else:
+        q = q.double()
+    with pytest.raises((ValueError, TypeError)):
+        ops.flash_attention(q, k, k)
+
+
+# ----------------------------------------------------------------------
+# moe_gmm gradients, rmsnorm wrapper
+# ----------------------------------------------------------------------
+
+def test_moe_gmm_grads_vs_jax():
+    """test_kernels.py:174-180: dx and dw of the wrapper against jax.grad
+    of the JAX op (the VJP of the oracle)."""
+    jx, tx = _inputs((2, 64, 32), 40, "float32")
+    jw, tw = _inputs((2, 32, 64), 41, "float32")
+    _, tg = _inputs((2, 64, 64), 42, "float32")
+    jg = jnp.asarray(tg.numpy())
+    want = jax.grad(lambda x, w: jnp.sum(jops.moe_gmm(x, w) * jg),
+                    argnums=(0, 1))(jx, jw)
+    x, w = tx.clone().requires_grad_(), tw.clone().requires_grad_()
+    got = torch.autograd.grad(ops.moe_gmm(x, w), (x, w), tg)
+    for g, wa in zip(got, want):
+        np.testing.assert_allclose(_f32(g), _f32(wa), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("G,E,C,D,F", [(2, 4, 16, 32, 24), (3, 2, 10, 8, 12)])
+def test_moe_gmm_grouped_period_grads_vs_tiled_jax(G, E, C, D, F):
+    """With shared expert weights, dw sums over the groups: the gradient
+    of JAX's call on weights tiled G times, summed over the tiles."""
+    jx, tx = _inputs((G * E, C, D), 43, "float32")
+    jw, tw = _inputs((E, D, F), 44, "float32")
+    _, tg = _inputs((G * E, C, F), 45, "float32")
+    jg = jnp.asarray(tg.numpy())
+    want = jax.grad(lambda x, w: jnp.sum(
+        jops.moe_gmm(x, jnp.tile(w, (G, 1, 1))) * jg), argnums=(0, 1))(jx, jw)
+    x, w = tx.clone().requires_grad_(), tw.clone().requires_grad_()
+    got = torch.autograd.grad(ops.moe_gmm(x, w, expert_period=E), (x, w), tg)
+    for g, wa in zip(got, want):
+        np.testing.assert_allclose(_f32(g), _f32(wa), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows,d", [(64, 128), (256, 512), (31, 96)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_wrapper_vs_jax(rows, d, dtype):
+    jx, tx = _inputs((rows, d), 50, dtype)
+    jw, tw = _inputs((d,), 51, dtype)
+    want = jops.rmsnorm(jx, jw)
+    got = ops.rmsnorm(tx, tw)
+    assert got.dtype == tx.dtype
+    tol = 1e-5 if dtype == "float32" else 2e-2      # test_kernels.py:30
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+def test_rmsnorm_grad_vs_jax():
+    jx, tx = _inputs((128, 64), 52, "float32")
+    jw = jnp.ones((64,))
+    want = jax.grad(lambda x: jops.rmsnorm(x, jw).sum())(jx)
+    x = tx.clone().requires_grad_()
+    got, = torch.autograd.grad(ops.rmsnorm(x, torch.ones(64)).sum(), x)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-4, atol=1e-5)
+
+
+def test_layers_rmsnorm_use_kernel_flag():
+    from repro_torch.kernels import rmsnorm as rms_mod
+    from repro_torch.models import layers
+    _, tx = _inputs((4, 6, 32), 53, "float32")
+    _, tw = _inputs((32,), 54, "float32")
+    before = rms_mod.launches
+    a = layers.rmsnorm(tx, tw, 1e-5)
+    b = layers.rmsnorm(tx, tw, 1e-5, use_kernel=True)
+    assert rms_mod.launches == before          # CPU: the plain version
+    assert torch.equal(a, b)
