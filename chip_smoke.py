@@ -32,7 +32,18 @@ imports nothing of JAX or of the JAX package. It
 5. trains it again from fresh weights for 100 steps of the launcher's
    own schedule (lr 3e-4, warm-up 20) through the kernels: the loss on a
    batch never trained on must fall;
-6. prints the ``kernels`` JSON line and, last, the device JSON line.
+6. holds the ``ssd_scan`` kernels (forward and backward) against the
+   plain version's autograd on the card (the training shape in bf16 and
+   f32, partial chunks, two groups, widths that do not tile, chunk == S,
+   large decays), then trains full-width, full-depth mamba2-1.3b (48
+   layers, bf16, remat full) for 10 steps at batch 2 x 4096 through the
+   ``ssd_scan`` kernels with the launch counts asserted, profiles one
+   step, runs the same 10 steps through the plain route, holds layer 0's
+   mixer (output and gradients) against the plain route in situ and 5
+   steps of the reduced f32 model on the card against the host, and
+   serves it at full width (prefill and decode logits against a
+   full-sequence forward);
+7. prints the ``kernels`` JSON line and, last, the device JSON line.
 
 Any failure raises and exits non-zero before the last line is printed.
 """
@@ -92,6 +103,35 @@ FLASH_CASES = [
 FLASH_REPORT = ("train causal", torch.bfloat16)
 RMS_CASES = [(8192, 1024), (31, 96)]
 RMS_REPORT = ((8192, 1024), torch.bfloat16)
+# ssd_scan: tests/test_kernels.py's SSD tolerance for f32 (rtol 2e-3, atol
+# 2e-4; for gradients atol 2e-4 of the gradient's largest element, since
+# da and db sum over whole chunks and over the group's 64 heads), 3e-2
+# for bf16 as for flash attention
+SSD_TOL = {torch.float32: (2e-3, 2e-4), torch.bfloat16: (3e-2, 3e-2)}
+# (label, B, S, H, P, G, N, chunk, |a| scale): the training path's shape
+# first (mamba2-1.3b at batch 2 x 4096), in both dtypes; the others small
+SSD_CASES = [
+    ("train", 2, 4096, 64, 64, 1, 128, 128, 1.0),
+    ("S 100 one partial chunk", 2, 100, 4, 64, 1, 128, 128, 1.0),
+    ("S 300 partial last", 2, 300, 4, 64, 1, 128, 128, 1.0),
+    ("H 4 G 2", 2, 256, 4, 64, 2, 128, 128, 1.0),
+    ("P 48 N 16", 2, 256, 4, 48, 1, 16, 128, 1.0),
+    ("chunk == S", 2, 128, 4, 64, 1, 128, 128, 1.0),
+    ("large |a|", 2, 512, 4, 64, 1, 128, 128, 40.0),
+]
+SSD_REPORT = ("train", torch.bfloat16)
+MAMBA = "mamba2-1.3b"
+MAMBA_GEN = 8                              # serve: batch 4, prompt 64
+# Prefill/decode logits (sequential scans with carried state) against a
+# full-sequence forward (the ssd_scan kernel), bf16 at full width, as the
+# relative L2 norm of the difference. The two sum each scan in another
+# order and round y to bf16 apart in a few elements; through 48 layers
+# that grows beyond an element-wise 3e-2 on logits of a few units. The
+# phase prints the same comparison between two plain routes that differ
+# only in their chunk length, the spread bf16 alone gives. A wrong scan
+# gives a relative L2 near 1. The bound is the granite serve's
+# (LOGIT_REL_L2_TOL).
+MAMBA_LOGIT_REL_L2_TOL = 0.15
 
 ARCH = "granite-moe-1b-a400m"
 BATCH, PROMPT, GEN, SEED = 4, 64, 32, 0
@@ -192,16 +232,18 @@ def roof(nbytes: float, ops: float, peak: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def close_or_raise(what: str, got, want, tol: float) -> float:
-    """max |got - want|, raising unless |got - want| <= tol + tol*|want|
-    everywhere (both finite)."""
+def close_or_raise(what: str, got, want, tol: float,
+                   atol: float | None = None) -> float:
+    """max |got - want|, raising unless |got - want| <= atol + tol*|want|
+    everywhere (both finite); atol defaults to tol."""
     got, want = got.float(), want.float()
+    atol = tol if atol is None else atol
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{what}: bad output {tuple(got.shape)}")
     diff = (got - want).abs()
-    if (diff - tol - tol * want.abs()).max().item() > 0:
+    if (diff - atol - tol * want.abs()).max().item() > 0:
         raise AssertionError(f"{what}: max |err| {diff.max().item():.3e} "
-                             f"beyond tolerance {tol}")
+                             f"beyond tolerance rtol {tol} atol {atol:.3e}")
     return diff.max().item()
 
 
@@ -459,6 +501,104 @@ def rmsnorm_phase(rms) -> dict:
     return results
 
 
+def ssd_work(B, S, H, P, G, N, L, size):
+    """(bytes, operations) of one ssd_scan forward and backward: each
+    input read once and each output written once; the operations of the
+    dual form at the kernel's chunk L, causal triangle only (C B^T and its
+    products once per head, the state terms once per chunk)."""
+    nc, tri = -(-S // L), L * (L + 1) // 2
+    io_in = (B * S * H * P + 2 * B * S * G * N) * size + 4 * B * S * H
+    fwd_bytes = io_in + B * S * H * P * size + 4 * B * H * N * P
+    bwd_bytes = (2 * io_in + B * S * H * P * size + 4 * B * H * N * P)
+    per = B * H * nc
+    fwd_ops = per * (2 * tri * (N + P) + 4 * L * N * P)
+    bwd_ops = per * (2 * tri * (2 * P + 2 * N) + 8 * L * N * P)
+    return fwd_bytes, fwd_ops, bwd_bytes, bwd_ops
+
+
+def ssd_phase(ssd) -> dict:
+    """ssd_scan's forward and backward kernels against the plain version
+    (ssd_chunked_ref and its autograd, in f32) on the same inputs; at the
+    training shape also the times of kernels and plain version. No single
+    PyTorch call computes the scan: library_ms is null."""
+    import torch.nn.functional as F
+    log("[kernels] ssd_scan vs the plain version's autograd in f32 "
+        "(tolerance |k - p| <= atol + rtol*|p|: f32 rtol 2e-3, atol 2e-4, "
+        "bf16 3e-2, 3e-2; gradients atol x max|p|)")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    results = {}
+    for label, B, S, H, P, G, N, chunk, a_scale in SSD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            L = ssd.kernel_chunk(chunk)
+            size = torch.tensor([], dtype=dtype).element_size()
+            decay = torch.exp(torch.linspace(0.0, math.log(16.0), H,
+                                             device="cuda"))
+
+            def draw():
+                x = (torch.randn((B, S, H, P), generator=g, device="cuda")
+                     * 0.5).to(dtype)
+                a = -F.softplus(torch.randn((B, S, H), generator=g,
+                                            device="cuda")) * decay * a_scale
+                b, c = ((torch.randn((B, S, G, N), generator=g,
+                                     device="cuda") * 0.5).to(dtype)
+                        for _ in range(2))
+                return x, a, b, c
+            timed = label == SSD_REPORT[0]
+            sets = [draw() for _ in range(2 if timed else 1)]
+            x, a, b, c = sets[0]
+            gy = torch.randn((B, S, H, P), generator=g,
+                             device="cuda").to(dtype)
+            gh = torch.randn((B, H, N, P), generator=g, device="cuda")
+            y, hT, states = ssd.ssd_scan_fwd(x, a, b, c, L, True)
+            grads = ssd.ssd_scan_bwd(x, a, b, c, states, gy, gh, L)
+            rs = [t.float().requires_grad_() for t in (x, a, b, c)]
+            ry, rh = ssd.ssd_scan_plain(*rs, chunk=chunk)
+            want = torch.autograd.grad((ry, rh), rs, (gy.float(), gh),
+                                       retain_graph=True)
+            torch.cuda.synchronize()
+            rtol, atol = SSD_TOL[dtype]
+            dt = str(dtype).removeprefix("torch.")
+            shape = (f"x({B},{S},{H},{P}) b,c({B},{S},{G},{N}) {dt} chunk "
+                     f"{chunk} (kernel rows {L})")
+            name = f"ssd_scan {label} {dt}"
+            f_err = max(close_or_raise(f"{name} y", y, ry, rtol, atol),
+                        close_or_raise(f"{name} state", hT, rh, rtol, atol))
+            b_err = max(close_or_raise(f"{name} d{n}", u, v, rtol,
+                                       atol * v.abs().max().item())
+                        for n, u, v in zip("xabc", grads, want))
+            fb, fo, bb, bo = ssd_work(B, S, H, P, G, N, L, size)
+            f_bound = roof(fb, fo, PEAK_FLOPS[dtype])
+            b_bound = roof(bb, bo, PEAK_FLOPS[dtype])
+            res = dict(fwd=dict(shape=shape, max_abs_err=f_err,
+                                bound_ms=f_bound[0], bound_by=f_bound[1],
+                                library_ms=None),
+                       bwd=dict(shape="dx, da, db, dc of " + shape,
+                                max_abs_err=b_err, bound_ms=b_bound[0],
+                                bound_by=b_bound[1], library_ms=None))
+            line = (f"[kernels] ssd_scan {label:23s} {shape}: max|err| fwd "
+                    f"{f_err:.3e} bwd {b_err:.3e}")
+            if timed:
+                res["fwd"]["ms"] = graph_ms(
+                    lambda *t: ssd.ssd_scan_fwd(*t, L, True), sets)
+                res["fwd"]["plain_ms"] = graph_ms(
+                    lambda *t: ssd.ssd_scan_plain(*t, chunk=chunk), sets)
+                res["bwd"]["ms"] = event_ms(lambda: ssd.ssd_scan_bwd(
+                    x, a, b, c, states, gy, gh, L))
+                res["bwd"]["plain_ms"] = event_ms(
+                    lambda: torch.autograd.grad(
+                        (ry, rh), rs, (gy.float(), gh), retain_graph=True))
+                line += "".join(
+                    f"; {k} kernel_ms {r['ms']:.4f} plain_ms "
+                    f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+                    f"({r['bound_by']}-bound)" for k, r in res.items())
+            log(line)
+            results[(label, dtype)] = res
+            del sets, x, a, b, c, gy, gh, y, hT, states, grads, rs, ry, rh
+            del want
+            torch.cuda.empty_cache()
+    return results
+
+
 def decode_breakdown(model_lib, params, cfg, prompts, steps: int = 3):
     """Where a decode step's time goes: torch.profiler over ``steps``
     steps after the prefill and two warm steps; device kernels by name,
@@ -633,15 +773,19 @@ def reduced_phase() -> None:
 
 
 def _counts(gmm, fa, rms) -> dict:
+    from repro_torch.kernels import ssd_scan as ssd
     return dict(moe_gmm=gmm.launches, moe_gmm_bwd=gmm.bwd_launches,
                 flash_fwd=fa.fwd_launches, flash_bwd=fa.bwd_launches,
-                rmsnorm=rms.launches)
+                rmsnorm=rms.launches, ssd_fwd=ssd.fwd_launches,
+                ssd_bwd=ssd.bwd_launches)
 
 
 def _reset(gmm, fa, rms) -> None:
+    from repro_torch.kernels import ssd_scan as ssd
     gmm.launches = gmm.bwd_launches = 0
     fa.fwd_launches = fa.bwd_launches = 0
     rms.launches = 0
+    ssd.fwd_launches = ssd.bwd_launches = 0
 
 
 def train_step_breakdown(step_fn, params, opt_state, batch):
@@ -675,18 +819,20 @@ def train_step_breakdown(step_fn, params, opt_state, batch):
         end = max(end, t)
     busy_ms = busy / 1e3
     families = {"moe_gmm kernel": 0.0, "flash kernels": 0.0,
-                "cuBLAS GEMMs": 0.0, "other": 0.0}
+                "SSD kernels": 0.0, "cuBLAS GEMMs": 0.0, "elementwise and other": 0.0}
     for name, us in by_name.items():
         low = name.lower()
         if "moe_gmm" in low:
             families["moe_gmm kernel"] += us
         elif "flash_" in low:
             families["flash kernels"] += us
+        elif "ssd_" in low:
+            families["SSD kernels"] += us
         elif any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma",
                                     "sm90_")):
             families["cuBLAS GEMMs"] += us
         else:
-            families["other"] += us
+            families["elementwise and other"] += us
     log(f"[profile] train step under torch.profiler: wall {wall_ms:.3f} ms, "
         f"device busy {busy_ms:.3f} ms ({100*busy_ms/wall_ms:.1f}%), "
         f"{len(spans)} kernels/step")
@@ -760,13 +906,13 @@ def train_phase(gmm, fa, rms) -> dict:
     step_fn = train_mod.build_train_step(cfg, opt_cfg, 1, steal)
     L = cfg.num_layers
     per_step = dict(moe_gmm=2 * 3 * L, moe_gmm_bwd=6 * L, flash_fwd=2 * L,
-                    flash_bwd=3 * L, rmsnorm=0)
+                    flash_bwd=3 * L, rmsnorm=0, ssd_fwd=0, ssd_bwd=0)
     log(f"[train] launches per step the code implies: moe_gmm 3 x {L} "
         f"forward + 3 x {L} recompute = {per_step['moe_gmm']}, moe_gmm "
         f"backward 6 x {L} = {per_step['moe_gmm_bwd']}; flash forward "
         f"{L} + {L} recompute = {per_step['flash_fwd']}; flash backward "
         f"3 x {L} (delta pre-pass, dK/dV, dQ) = {per_step['flash_bwd']}; "
-        "rmsnorm 0 (no layer calls it)")
+        "rmsnorm 0 (no layer calls it); ssd_scan 0 (no Mamba2 layer)")
 
     init_state = {k: v.clone() for k, v in params.state_dict().items()}
     held_before = held_loss()
@@ -1017,6 +1163,243 @@ def train_learning_phase() -> None:
                              f"{LEARN_STEPS} steps")
 
 
+def mamba_train_phase(gmm, fa, rms) -> dict:
+    """Full-width, full-depth mamba2 training through the ssd_scan
+    kernels: 10 steps of ``repro_torch.launch.train``'s step function at
+    the granite train phase's batch and schedule, launch counts per step,
+    times, peak memory, one profiled step; then the same 10 steps through
+    the plain route from the same weights and batches."""
+    from repro_torch import configs
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(configs.get(MAMBA), ssm_impl="kernel",
+                              remat="full")
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    nparams = sum(p.numel() for p in params.parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[mamba] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} SSM heads of "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, groups "
+        f"{cfg.ssm_groups}, vocab {cfg.vocab_size}, {nparams/1e9:.3f} B "
+        f"params in {cfg.dtype}, ssm_impl=kernel (chunk {cfg.ssm_chunk}), "
+        f"remat=full; batch {TRAIN_BATCH} x {TRAIN_SEQ}, lr {TRAIN_LR}, "
+        f"warmup 2, {TRAIN_STEPS} steps")
+    opt_cfg = AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=2,
+                          total_steps=TRAIN_STEPS)
+    opt_state = adamw_init(dict(params.named_parameters()), opt_cfg)
+    pipe = TokenPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=SEED))
+    batches = [train_mod.to_device(pipe.batch_at(s), dev)
+               for s in range(TRAIN_STEPS + 1)]
+    step_fn = train_mod.build_train_step(cfg, opt_cfg, 1, None)
+    L = cfg.num_layers
+    per_step = dict(moe_gmm=0, moe_gmm_bwd=0, flash_fwd=0, flash_bwd=0,
+                    rmsnorm=0, ssd_fwd=2 * L, ssd_bwd=2 * L)
+    log(f"[mamba] launches per step the code implies: ssd_scan forward {L} "
+        f"+ {L} recompute = {2 * L}; backward {L} calls x 2 launches "
+        f"(carried state gradient, chunks) = {2 * L}; nothing else")
+
+    init_state = {k: v.clone() for k, v in params.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(gmm, fa, rms)
+    losses, times = [], []
+    for s in range(TRAIN_STEPS):
+        before = _counts(gmm, fa, rms)
+        t0 = time.perf_counter()
+        params, opt_state, _, loss, gnorm = step_fn(params, opt_state, None,
+                                                    batches[s])
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+        got = {k: v - before[k] for k, v in _counts(gmm, fa, rms).items()}
+        log(f"[mamba] step {s + 1:2d} loss {losses[-1]:.4f} gnorm "
+            f"{float(gnorm):.3f} {times[-1]*1e3:9.1f} ms  launches "
+            f"ssd_fwd {got['ssd_fwd']} ssd_bwd {got['ssd_bwd']}")
+        if got != per_step:
+            raise AssertionError(f"step {s + 1}: launches {got}, expected "
+                                 f"{per_step}")
+    counts = _counts(gmm, fa, rms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steady = times[2:]
+    ms = 1e3 * sum(steady) / len(steady)
+    log(f"[mamba] steps 3-{TRAIN_STEPS}: {ms:.3f} ms/step, "
+        f"{tokens / (ms / 1e3):.1f} tokens/s; peak memory {peak:.3f} GiB; "
+        f"launches over the run ssd_fwd {counts['ssd_fwd']} ssd_bwd "
+        f"{counts['ssd_bwd']}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    params, opt_state = train_step_breakdown(step_fn, params, opt_state,
+                                             batches[TRAIN_STEPS])
+
+    del opt_state
+    params.load_state_dict(init_state)
+    del init_state
+    cfg_plain = dataclasses.replace(cfg, ssm_impl="ref")
+    opt_state = adamw_init(dict(params.named_parameters()), opt_cfg)
+    step_plain = train_mod.build_train_step(cfg_plain, opt_cfg, 1, None)
+    plain = []
+    t0 = time.perf_counter()
+    for s in range(TRAIN_STEPS):
+        params, opt_state, _, loss, _ = step_plain(params, opt_state, None,
+                                                   batches[s])
+        plain.append(float(loss))
+    plain_ms = 1e3 * (time.perf_counter() - t0) / TRAIN_STEPS
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+    log(f"[mamba] plain route (ssm_impl=ref), same weights and batches: "
+        f"{plain_ms:.1f} ms/step; losses {['%.4f' % x for x in plain]}; "
+        f"kernel route {['%.4f' % x for x in losses]}; relative diff per "
+        f"step {['%.1e' % x for x in rel]} (tol {TRAIN_TRACK_RTOL})")
+    if not all(math.isfinite(x) for x in plain) \
+            or max(rel) > TRAIN_TRACK_RTOL:
+        raise AssertionError("training through ssd_scan departs from the "
+                             "plain route")
+    del opt_state
+    return dict(counts=counts, cfg=cfg, params=params, batch=batches[0])
+
+
+def mamba_check_in_situ(cfg, params, batch) -> None:
+    """Layer 0's Mamba2 mixer on the same input, bf16: the ssd_scan route
+    against the plain route; outputs and gradients."""
+    from repro_torch.models import layers
+    from repro_torch.models import model as model_lib
+
+    blk = params.blocks[0]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    with torch.no_grad():
+        x = model_lib._embed(params, batch["tokens"])
+        hin = layers.rmsnorm(x, blk.ln1, cfg.norm_eps)
+    gy = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
+    names = ["in_proj", "conv_w", "conv_b", "A_log", "dt_bias", "D_skip",
+             "out_norm", "out_proj"]
+    weights = [getattr(blk.mix, n) for n in names]
+    res = {}
+    for impl in ("kernel", "ref"):
+        c = dataclasses.replace(cfg, ssm_impl=impl)
+        xi = hin.detach().clone().requires_grad_()
+        y, _ = blk.mix(xi, c)
+        res[impl] = [y.detach()] + list(torch.autograd.grad(
+            y, [xi] + weights, gy))
+    log("[check] layer 0 Mamba2 mixer, ssd_scan vs plain route (bf16, tol "
+        f"{TRAIN_CHECK_TOL}): "
+        + _compare("mamba", ["output", "input grad"] + names, res["kernel"],
+                   res["ref"]))
+
+
+def mamba_check_reduced() -> None:
+    """Reduced float32 mamba2: 5 training steps on the card (ssd_scan
+    kernels) against 5 on the host (plain version), same weights and
+    batches; losses within REDUCED_LOSS_RTOL."""
+    from repro_torch import configs
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(configs.get(MAMBA).reduced(),
+                              ssm_impl="kernel")
+    host = model_lib.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                 "cpu")
+    card = copy.deepcopy(host).to("cuda")
+    opt_cfg = AdamWConfig(lr_peak=2e-3, warmup_steps=2, total_steps=5)
+    pipe = TokenPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=72, global_batch=4,
+                                        seed=SEED))
+    losses = {}
+    for dev, params in (("cuda", card), ("cpu", host)):
+        step_fn = train_mod.build_train_step(cfg, opt_cfg, 1, None)
+        state = adamw_init(dict(params.named_parameters()), opt_cfg)
+        out = []
+        for s in range(5):
+            params, state, _, loss, _ = step_fn(
+                params, state, None, train_mod.to_device(pipe.batch_at(s),
+                                                         dev))
+            out.append(float(loss))
+        losses[dev] = out
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    log(f"[check] reduced {cfg.name} f32 (chunk {cfg.ssm_chunk}, seq 72: a "
+        f"partial last chunk), 5 steps: card (ssd_scan) "
+        f"{['%.6f' % x for x in losses['cuda']]} vs host (plain) "
+        f"{['%.6f' % x for x in losses['cpu']]}: max relative diff "
+        f"{rel:.3e} (tol {REDUCED_LOSS_RTOL})")
+    if rel > REDUCED_LOSS_RTOL:
+        raise AssertionError("reduced mamba2 training: card and host "
+                             "disagree")
+
+
+def mamba_serve_phase() -> None:
+    """Full-width mamba2 served on the card (batch 4, prompt 64, gen 8;
+    prefill and decode take the plain scans with carried state, as in the
+    JAX package): the last prompt logits and each decode step's logits
+    against a full-sequence forward (ssd_scan kernel) of the same tokens."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import model as model_lib
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(configs.get(MAMBA), ssm_impl="kernel")
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    prompts = make_prompts(cfg, BATCH, PROMPT, SEED).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model_lib.prefill(params, cfg, prompts,
+                                       max_len=PROMPT + MAMBA_GEN)
+    step_logits = [logits[:, -1]]
+    tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    toks = [tok]
+    t0 = time.perf_counter()
+    for _ in range(MAMBA_GEN - 1):
+        logits, caches = model_lib.decode_step(params, cfg, caches, tok)
+        step_logits.append(logits[:, -1])
+        tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t0) / (MAMBA_GEN - 1)
+    seq = torch.cat([prompts] + toks[:-1], dim=1)
+    with torch.no_grad():
+        full, _ = model_lib.forward(params, cfg, seq)
+    errs, rels = [], []
+    for i, lg in enumerate(step_logits):
+        want = full[:, PROMPT - 1 + i]
+        if lg.shape != want.shape or not torch.isfinite(lg).all():
+            raise AssertionError(f"mamba serve step {i}: bad logits")
+        errs.append((lg - want).abs().max().item())
+        rels.append(((lg - want).norm() / want.norm()).item())
+    agree = (torch.stack(step_logits, 1).argmax(-1)
+             == full[:, PROMPT - 1:].argmax(-1)).float().mean().item()
+    with torch.no_grad():                  # bf16's own spread: two plain
+        spread = [model_lib.forward(params, dataclasses.replace(
+            cfg, ssm_impl="ref", ssm_chunk=ch), prompts)[0][:, -1]
+            for ch in (16, 64)]
+    spread_rel = ((spread[0] - spread[1]).norm() / spread[1].norm()).item()
+    spread_max = (spread[0] - spread[1]).abs().max().item()
+    log(f"[mamba-serve] {cfg.name} bf16 batch {BATCH} prompt {PROMPT} gen "
+        f"{MAMBA_GEN}: prefill {t_prefill*1e3:.3f} ms, decode "
+        f"{t_decode*1e3:.3f} ms/token; cache length {caches['length']}; "
+        f"prefill and decode logits vs a full-sequence forward (ssd_scan): "
+        f"relative L2 per position {['%.2e' % e for e in rels]} (tol "
+        f"{MAMBA_LOGIT_REL_L2_TOL}), max|diff| {['%.2e' % e for e in errs]} "
+        f"(max|logit| {full.abs().max().item():.3f}), argmax agreement "
+        f"{agree:.2f}; tokens row 0 {torch.cat(toks, 1)[0].tolist()}")
+    log(f"[mamba-serve] bf16's own spread: the prompt's last logits through "
+        f"the plain route at chunk 16 vs chunk 64: relative L2 "
+        f"{spread_rel:.2e}, max|diff| {spread_max:.2e}")
+    if caches["length"] != PROMPT + MAMBA_GEN - 1:
+        raise AssertionError(f"cache length {caches['length']}")
+    if max(rels) > MAMBA_LOGIT_REL_L2_TOL:
+        raise AssertionError("mamba2 prefill/decode logits depart from the "
+                             "full-sequence forward")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1025,6 +1408,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import ssd_scan as ssd
 
     t_all = time.perf_counter()
     log(card_line())
@@ -1042,6 +1426,7 @@ def main() -> int:
     gmm_bwd_res = gmm_backward_phase(gmm)
     flash_res = flash_phase(fa)
     rms_res = rmsnorm_phase(rms)
+    ssd_res = ssd_phase(ssd)
     log(f"[time] kernel phase done at {time.perf_counter()-t_all:.1f} s")
 
     _reset(gmm, fa, rms)
@@ -1066,6 +1451,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[time] learning run done at {time.perf_counter()-t_all:.1f} s")
 
+    mamba = mamba_train_phase(gmm, fa, rms)
+    mamba_counts = mamba["counts"]
+    mamba_check_in_situ(mamba["cfg"], mamba["params"], mamba["batch"])
+    del mamba
+    torch.cuda.empty_cache()
+    mamba_check_reduced()
+    mamba_serve_phase()
+    torch.cuda.empty_cache()
+    log(f"[time] mamba2 phases done at {time.perf_counter()-t_all:.1f} s")
+
     def entry(name, source, replaces, launches, rep):
         return dict(name=name, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{source}",
@@ -1083,11 +1478,19 @@ def main() -> int:
               counts["flash_bwd"], flash_res[("bwd",) + FLASH_REPORT]),
         entry("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:27",
               counts["rmsnorm"], rms_res[RMS_REPORT]),
+        entry("ssd_scan_fwd", "ssd_scan.cu",
+              "src/repro/kernels/ssd_scan.py:75", mamba_counts["ssd_fwd"],
+              ssd_res[SSD_REPORT]["fwd"]),
+        entry("ssd_scan_bwd", "ssd_scan.cu",
+              "src/repro/kernels/ssd_scan.py:75", mamba_counts["ssd_bwd"],
+              ssd_res[SSD_REPORT]["bwd"]),
     ]
     log(f"[done] moe_gmm launches: serve {serve_launches} + train "
         f"{counts['moe_gmm']} forward, {counts['moe_gmm_bwd']} backward; "
         f"rmsnorm is on no path (no layer calls it), held above on its "
-        f"own; total {time.perf_counter()-t_all:.1f} s")
+        f"own; ssd_scan {mamba_counts['ssd_fwd']} forward, "
+        f"{mamba_counts['ssd_bwd']} backward launches in the mamba2 train "
+        f"run; total {time.perf_counter()-t_all:.1f} s")
     log(card_line())                        # again, beside the results
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

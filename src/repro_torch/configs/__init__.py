@@ -4,10 +4,10 @@ Only the architectures whose layers the port runs are registered; the
 others join with the slices that port their layers.
 """
 
-from . import granite_moe_1b_a400m
+from . import granite_moe_1b_a400m, mamba2_1_3b
 from .base import ArchConfig
 
-_MODULES = [granite_moe_1b_a400m]
+_MODULES = [granite_moe_1b_a400m, mamba2_1_3b]
 
 ARCHS: dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

@@ -8,7 +8,10 @@ leaves carry a leading ``repeats`` axis. Those are unstacked into the
 port's per-layer modules, layer ``r * len(pattern) + si`` taking index
 ``r`` of slot ``si``. bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays,
 which ``torch.from_numpy`` refuses; they are moved as ``uint16`` and
-viewed as ``torch.bfloat16``, bit for bit.
+viewed as ``torch.bfloat16``, bit for bit. Each leaf keeps its own dtype
+(a bf16 Mamba2 model holds float32 ``A_log``, ``dt_bias`` and ``D_skip``,
+as the JAX tree does); a leaf whose shape or dtype differs from the
+port's parameter raises.
 
 ``jax.random`` cannot be replayed in torch, so this is how a test gives
 both packages the same weights; ``to_jax`` gives the port's weights (or

@@ -7,8 +7,8 @@ JAX package's:
   attention  — BSHD: q (B, S, Hq, D), k/v (B, S, Hkv, D), GQA via repeat.
   moe_gmm    — x (E, C, D), w (E, D, F).
   rmsnorm    — x (..., D), w (D,).
-
-The Mamba2 ``ssd_*`` oracles join with the Mamba2 slice.
+  ssd        — x (B, S, H, P), a (B, S, H), b/c (B, S, G, N), state
+               (B, H, N, P) f32.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["rmsnorm_ref", "attention_ref", "attention_chunked_ref",
-           "moe_gmm_ref"]
+           "moe_gmm_ref", "ssd_ref", "ssd_chunked_ref"]
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
@@ -83,3 +83,81 @@ def attention_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def moe_gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Grouped expert GEMM: x (E, C, D) @ w (E, D, F) -> (E, C, F)."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def ssd_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor, h0: torch.Tensor | None = None,
+            return_state: bool = False):
+    """Mamba2 SSD (state-space dual) semantics via the sequential scan.
+
+    x: (B, S, H, P) inputs (already multiplied by dt).
+    a: (B, S, H) per-head log decay (a = -exp(A_log)·dt, <= 0).
+    b, c: (B, S, G, N) input/output projections, G groups (H % G == 0).
+    h0: optional initial state (B, H, N, P).
+
+    h_t = exp(a_t)·h_{t-1} + B_t ⊗ x_t ;  y_t = C_t · h_t
+    """
+    B, S, H, P = x.shape
+    _, _, G, N = b.shape
+    if H % G:
+        raise ValueError(f"H={H} not a multiple of G={G}")
+    rep = H // G
+    bb = b.repeat_interleave(rep, dim=2).float()          # (B,S,H,N)
+    cc = c.repeat_interleave(rep, dim=2).float()
+    xf, af = x.float(), a.float()
+    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    ys = []
+    for t in range(S):
+        h = torch.exp(af[:, t])[..., None, None] * h \
+            + bb[:, t, :, :, None] * xf[:, t, :, None, :]
+        ys.append(torch.einsum("bhn,bhnp->bhp", cc[:, t], h))
+    y = (torch.stack(ys, dim=1) if ys else xf.new_zeros(x.shape)
+         ).to(x.dtype)
+    if return_state:
+        return y, h
+    return y
+
+
+def ssd_chunked_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                    c: torch.Tensor, h0: torch.Tensor | None = None,
+                    chunk: int = 128, return_state: bool = False):
+    """Chunked (dual-form) SSD: the semantics of :func:`ssd_ref`, as dense
+    intra-chunk products and a loop over the S/chunk chunk states (the
+    mirror of the kernel's math, and the training/prefill path of the
+    Mamba2 layers' plain route). S % chunk != 0 takes :func:`ssd_ref`."""
+    B, S, H, P = x.shape
+    _, _, G, N = b.shape
+    if S == 0 or S % chunk:
+        return ssd_ref(x, a, b, c, h0=h0, return_state=return_state)
+    rep = H // G
+    L = chunk
+    nc = S // L
+    bb = b.repeat_interleave(rep, dim=2).float()
+    cc = c.repeat_interleave(rep, dim=2).float()
+    xf, af = x.float(), a.float()
+    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    ys = []
+    for i in range(nc):
+        sl = slice(i * L, (i + 1) * L)
+        xc, ac, bc, cx = xf[:, sl], af[:, sl], bb[:, sl], cc[:, sl]
+        acum = torch.cumsum(ac, dim=1)                  # inclusive (B,L,H)
+        a_tot = acum[:, -1]                             # (B,H)
+        y_inter = torch.exp(acum)[..., None] * torch.einsum(
+            "blhn,bhnp->blhp", cx, h)
+        logdecay = acum[:, :, None, :] - acum[:, None, :, :]   # (B,L,L,H)
+        # mask BEFORE exp: the upper triangle holds positive values whose
+        # exp overflows; inf·0 in the backward would produce NaN grads.
+        decay = torch.exp(logdecay.masked_fill(~tri[None, :, :, None],
+                                               float("-inf")))
+        scores = torch.einsum("blhn,bmhn->blmh", cx, bc) * decay
+        ys.append(y_inter + torch.einsum("blmh,bmhp->blhp", scores, xc))
+        w = torch.exp(a_tot[:, None] - acum)[..., None] * bc  # (B,L,H,N)
+        h = torch.exp(a_tot)[..., None, None] * h + torch.einsum(
+            "blhn,blhp->bhnp", w, xc)
+    y = torch.cat(ys, dim=1).to(x.dtype)
+    if return_state:
+        return y, h
+    return y

@@ -5,6 +5,9 @@ gradient compression, and the paper's topology-aware MoE steal table.
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch granite-moe-1b-a400m --steps 10 --global-batch 2 \
         --seq-len 4096 --attn-impl kernel --moe-impl kernel
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch mamba2-1.3b --steps 10 --global-batch 2 --seq-len 4096 \
+        --ssm-impl kernel
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \
         --device cpu --steps 30 --global-batch 4 --seq-len 32
 
@@ -88,6 +91,8 @@ def main(argv=None):
                     help="attention route (default: the config's)")
     ap.add_argument("--moe-impl", choices=("einsum", "kernel"), default=None,
                     help="expert FFN route (default: the config's)")
+    ap.add_argument("--ssm-impl", choices=("ref", "kernel"), default=None,
+                    help="Mamba2 scan route (default: the config's)")
     ap.add_argument("--device", default=None,
                     help="'cpu' for the host; default the CUDA device")
     args = ap.parse_args(argv)
@@ -100,6 +105,8 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     if args.moe_impl:
         cfg = dataclasses.replace(cfg, moe_impl=args.moe_impl)
+    if args.ssm_impl:
+        cfg = dataclasses.replace(cfg, ssm_impl=args.ssm_impl)
 
     dev = default_device(args.device)
     steal = steal_table_for(cfg, dev)

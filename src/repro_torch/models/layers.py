@@ -1,5 +1,6 @@
 """Model building blocks (port of ``repro/models/layers.py``): norms, RoPE,
-GQA attention with a KV cache, MoE with locality-aware routing.
+GQA attention with a KV cache, MoE with locality-aware routing, the Mamba2
+(SSD) mixer with its conv and SSM state.
 
 Conventions, as in the JAX package:
   * activations (B, S, D); attention BSHD; weights stored (d_in, d_out)
@@ -15,12 +16,15 @@ either ``moe_impl``. Differences from the JAX package:
   * the KV cache is written in place at ``length`` (JAX returns a new
     buffer through ``dynamic_update_slice``); a write past the cache's
     end raises, where JAX clamps the start;
-  * the MLP, cross-attention and Mamba2 layers join with later slices
-    and raise ``NotImplementedError`` until then.
+  * the MLP and cross-attention layers join with later slices and raise
+    ``NotImplementedError`` until then.
 
 ``attn_impl="kernel"`` sends attention without a cache (training) through
 the ``flash_attention`` kernel, as the JAX package does; cached attention
-(prefill, decode) takes the plain version on both routes.
+(prefill, decode) takes the plain version on both routes. Likewise
+``ssm_impl="kernel"`` sends the Mamba2 scan without a cache through the
+``ssd_scan`` kernel; prefill with a carried state and single-step decode
+take the plain ``ssd_chunked_ref`` / ``ssd_ref`` on both routes.
 """
 
 from __future__ import annotations
@@ -257,3 +261,119 @@ class MoE(nn.Module):
             raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
         y = torch.einsum("gsec,gecd->gsd", combine, eout)
         return y.reshape(B, S, D), aux.mean()
+
+
+# ----------------------------------------------------------------------
+# Mamba2 (SSD) mixer
+# ----------------------------------------------------------------------
+
+def mamba_split(cfg):
+    """(d_inner, G, N, H) of a config's Mamba2 mixer."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    return d_inner, cfg.ssm_groups, cfg.ssm_state, \
+        d_inner // cfg.ssm_head_dim
+
+
+def causal_conv(xbc, w, b, conv_state=None):
+    """Depthwise causal conv1d as the JAX package's sum over K shifted
+    slices (no cuDNN, which would run it in TF32), plus the bias, then
+    silu. xbc: (B, S, C); w: (K, C); conv_state: (B, K-1, C) previous
+    inputs for decode. Returns (out, new_state)."""
+    K = w.shape[0]
+    if conv_state is None:
+        pad = torch.zeros((xbc.shape[0], K - 1, xbc.shape[2]),
+                          dtype=xbc.dtype, device=xbc.device)
+    else:
+        pad = conv_state
+    full = torch.cat([pad, xbc], dim=1)                  # (B, S+K-1, C)
+    S = xbc.shape[1]
+    out = sum(full[:, i:i + S] * w[i] for i in range(K)) + b
+    new_state = full[:, full.shape[1] - (K - 1):] if K > 1 else pad
+    return F.silu(out), new_state
+
+
+class Mamba(nn.Module):
+    """Mamba2 block (``layers.py:324-412`` of the JAX package).
+
+    ``A_log``, ``dt_bias`` and ``D_skip`` are float32 whatever the model's
+    dtype, as the JAX package creates them; the other weights take it.
+    """
+
+    def __init__(self, cfg, *, device, dtype):
+        super().__init__()
+        D = cfg.d_model
+        d_inner, G, N, H = mamba_split(cfg)
+        conv_dim = d_inner + 2 * G * N
+        self.in_proj = new_param((D, 2 * d_inner + 2 * G * N + H), device,
+                                 dtype)
+        self.conv_w = new_param((cfg.ssm_conv, conv_dim), device, dtype)
+        self.conv_b = new_param((conv_dim,), device, dtype, 0.0)
+        self.A_log = nn.Parameter(torch.log(torch.linspace(
+            1.0, 16.0, H, dtype=torch.float32, device=device)))
+        self.dt_bias = new_param((H,), device, torch.float32, 0.0)
+        self.D_skip = new_param((H,), device, torch.float32, 1.0)
+        self.out_norm = new_param((d_inner,), device, dtype, 1.0)
+        self.out_proj = new_param((d_inner, D), device, dtype)
+
+    def init_weights(self, generator: torch.Generator):
+        normal_(self.in_proj, 1.0 / math.sqrt(self.in_proj.shape[0]),
+                generator)
+        normal_(self.conv_w, 0.1, generator)
+        normal_(self.out_proj, 1.0 / math.sqrt(self.out_proj.shape[0]),
+                generator)
+
+    def forward(self, x, cfg, cache=None):
+        """cache: None (training) | dict(conv, ssm) for prefill (S > 1,
+        chunked scan from the carried state) and decode (S == 1, one
+        recurrence step). Returns (y, new_cache)."""
+        B, S, _ = x.shape
+        d_inner, G, N, H = mamba_split(cfg)
+        P = cfg.ssm_head_dim
+        proj = x @ self.in_proj
+        z, xbc, dtp = torch.split(proj, [d_inner, d_inner + 2 * G * N, H],
+                                  dim=-1)
+        conv_state = cache["conv"] if cache is not None else None
+        xbc, new_conv = causal_conv(xbc, self.conv_w, self.conv_b,
+                                    conv_state)
+        xs, bmat, cmat = torch.split(xbc, [d_inner, G * N, G * N], dim=-1)
+        xs = xs.reshape(B, S, H, P)
+        bmat = bmat.reshape(B, S, G, N)
+        cmat = cmat.reshape(B, S, G, N)
+        dt = F.softplus(dtp.float() + self.dt_bias)              # (B,S,H)
+        a = -torch.exp(self.A_log)[None, None, :] * dt
+        x_dt = xs * dt[..., None].to(xs.dtype)
+
+        if cache is None:
+            if cfg.ssm_impl == "kernel":
+                y, _ = kops.ssd_scan(x_dt, a, bmat, cmat,
+                                     chunk=cfg.ssm_chunk)
+            elif cfg.ssm_impl == "ref":
+                y = kref.ssd_chunked_ref(x_dt, a, bmat, cmat,
+                                         chunk=cfg.ssm_chunk)
+            else:
+                raise ValueError(f"unknown ssm_impl {cfg.ssm_impl!r}")
+            new_cache = None
+        elif S > 1:
+            y, hT = kref.ssd_chunked_ref(x_dt, a, bmat, cmat,
+                                         h0=cache["ssm"],
+                                         chunk=cfg.ssm_chunk,
+                                         return_state=True)
+            new_cache = dict(conv=new_conv, ssm=hT)
+        else:
+            y, hT = kref.ssd_ref(x_dt, a, bmat, cmat, h0=cache["ssm"],
+                                 return_state=True)
+            new_cache = dict(conv=new_conv, ssm=hT)
+        y = y + xs * self.D_skip[None, None, :, None].to(xs.dtype)
+        y = y.reshape(B, S, d_inner)
+        y = rmsnorm(y * F.silu(z), self.out_norm, cfg.norm_eps)
+        return y @ self.out_proj, new_cache
+
+
+def mamba_cache_init(cfg, batch, dtype, device):
+    d_inner, G, N, H = mamba_split(cfg)
+    conv_dim = d_inner + 2 * G * N
+    return dict(
+        conv=torch.zeros((batch, cfg.ssm_conv - 1, conv_dim), dtype=dtype,
+                         device=device),
+        ssm=torch.zeros((batch, H, N, cfg.ssm_head_dim),
+                        dtype=torch.float32, device=device))

@@ -59,6 +59,12 @@ def init_params(cfg, generator: torch.Generator | None = None,
     return model
 
 
+def param_count(cfg) -> int:
+    """Parameters of a config, counted on the meta device (nothing is
+    allocated), as ``param_count`` of the JAX package."""
+    return sum(p.numel() for p in Model(cfg, device="meta").parameters())
+
+
 def _embed(params: Model, tokens):
     return params.embed[tokens.long()]
 

@@ -31,7 +31,7 @@ class Layer(nn.Module):
 
     def __init__(self, cfg, kind: str, ffn: str, *, device, dtype):
         super().__init__()
-        if kind != "attn":
+        if kind not in ("attn", "mamba"):
             raise NotImplementedError(f"{kind!r} layers join with a later "
                                       "slice of the port")
         if ffn not in ("moe", "none"):
@@ -40,7 +40,8 @@ class Layer(nn.Module):
         self.kind, self.ffn_kind = kind, ffn
         D = cfg.d_model
         self.ln1 = layers.new_param((D,), device, dtype, 1.0)
-        self.mix = layers.Attention(cfg, device=device, dtype=dtype)
+        mixer = layers.Attention if kind == "attn" else layers.Mamba
+        self.mix = mixer(cfg, device=device, dtype=dtype)
         if ffn == "moe":
             self.ln2 = layers.new_param((D,), device, dtype, 1.0)
             self.ffn = layers.MoE(cfg, device=device, dtype=dtype)
@@ -48,8 +49,11 @@ class Layer(nn.Module):
     def forward(self, h, cfg, *, positions, cache=None, steal_table=None):
         """Returns (h, new_cache, aux)."""
         hin = layers.rmsnorm(h, self.ln1, cfg.norm_eps)
-        y, new_cache = self.mix(hin, cfg, positions=positions, cache=cache,
-                                causal=not cfg.is_encoder)
+        if self.kind == "attn":
+            y, new_cache = self.mix(hin, cfg, positions=positions,
+                                    cache=cache, causal=not cfg.is_encoder)
+        else:
+            y, new_cache = self.mix(hin, cfg, cache=cache)
         h = h + y
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if self.ffn_kind == "moe":
@@ -66,15 +70,19 @@ def build_layers(cfg, *, device, dtype) -> nn.ModuleList:
 
 
 def init_caches(cfg, batch: int, max_len: int, dtype, device):
-    """Per-layer KV caches (None for stateless layers) and one ``length``."""
+    """Per-layer caches (KV for attention, conv and SSM state for Mamba2)
+    and one ``length``."""
     caches = []
     for _ in range(cfg.repeats):
         for kind, _ in cfg.pattern:
-            if kind != "attn":
+            if kind == "attn":
+                c = layers.attn_cache_init(cfg, batch, max_len, dtype, device)
+                c.pop("length")
+            elif kind == "mamba":
+                c = layers.mamba_cache_init(cfg, batch, dtype, device)
+            else:
                 raise NotImplementedError(f"{kind!r} caches join with a "
                                           "later slice of the port")
-            c = layers.attn_cache_init(cfg, batch, max_len, dtype, device)
-            c.pop("length")
             caches.append(c)
     return dict(length=0, layers=caches)
 
@@ -85,7 +93,8 @@ def apply_stack(blocks: nn.ModuleList, cfg, x, *, positions, caches=None,
     | 'decode' (read + update caches). Returns (x, new_caches, aux).
 
     The caches' K/V buffers are written in place; the returned dict holds
-    the same buffers and the advanced ``length``.
+    the same buffers (and each Mamba2 layer's new conv and SSM state) and
+    the advanced ``length``.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -110,7 +119,7 @@ def apply_stack(blocks: nn.ModuleList, cfg, x, *, positions, caches=None,
             x, nc, a = layer(x, cfg, positions=positions, cache=c,
                              steal_table=steal_table)
         if nc is not None:
-            nc.pop("length")
+            nc.pop("length", None)
         aux = aux + a
         new_layers.append(nc)
     new_caches = None

@@ -117,3 +117,63 @@ def test_moe_gmm_forward_kernel_on_card(dtype):
     torch.testing.assert_close(got.float(),
                                gmm_mod.moe_gmm_plain(x, w, 3).float(),
                                rtol=tol, atol=tol)
+
+
+def _ssd_inputs(B, S, H, P, G, N, dtype, a_scale=0.3, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn((B, S, H, P), generator=g, device="cuda") * 0.5
+         ).to(dtype)
+    a = -(torch.randn((B, S, H), generator=g, device="cuda") * a_scale).abs()
+    b = (torch.randn((B, S, G, N), generator=g, device="cuda") * 0.3
+         ).to(dtype)
+    c = (torch.randn((B, S, G, N), generator=g, device="cuda") * 0.3
+         ).to(dtype)
+    return x, a, b, c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,P,G,N,chunk", [
+    (256, 4, 64, 1, 128, 128),     # the path's widths, short
+    (100, 2, 32, 1, 16, 128),      # one partial chunk
+    (300, 4, 16, 2, 8, 128),       # a partial last chunk, two groups
+    (130, 3, 48, 3, 16, 32),       # widths that do not tile
+])
+def test_ssd_scan_kernel_on_card(dtype, S, H, P, G, N, chunk):
+    """Forward and backward kernels against the plain version's autograd
+    in f32 (test_kernels.py's SSD tolerance; bf16 3e-2)."""
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    _card()
+    x, a, b, c = _ssd_inputs(2, S, H, P, G, N, dtype)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    gy = torch.randn((2, S, H, P), generator=g, device="cuda").to(dtype)
+    gh = torch.randn((2, H, N, P), generator=g, device="cuda")
+    ts = [t.clone().requires_grad_() for t in (x, a, b, c)]
+    before = (ssd_mod.fwd_launches, ssd_mod.bwd_launches)
+    y, h = ops.ssd_scan(*ts, chunk=chunk)
+    got = torch.autograd.grad((y.float() * gy.float()).sum()
+                              + (h * gh).sum(), ts)
+    assert (ssd_mod.fwd_launches, ssd_mod.bwd_launches) == (before[0] + 1,
+                                                            before[1] + 2)
+    rs = [t.float().requires_grad_() for t in (x, a, b, c)]
+    ry, rh = ssd_mod.ssd_scan_plain(*rs, chunk=chunk)
+    want = torch.autograd.grad((ry * gy.float()).sum() + (rh * gh).sum(), rs)
+    tol = dict(rtol=2e-3, atol=2e-4) if dtype == torch.float32 else \
+        dict(rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(y.float(), ry, **tol)
+    torch.testing.assert_close(h, rh, **tol)
+    for a_, b_ in zip(got, want):
+        scale = float(b_.abs().max())
+        torch.testing.assert_close(a_.float(), b_, rtol=tol["rtol"],
+                                   atol=tol["atol"] * max(scale, 1.0))
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_refuses_wide_states():
+    _card()
+    x, a, b, c = _ssd_inputs(1, 8, 2, 16, 1, 160, torch.float32)
+    with pytest.raises(ValueError, match="state width"):
+        ops.ssd_scan(x, a, b, c)
+    x, a, b, c = _ssd_inputs(1, 8, 2, 16, 1, 16, torch.float32)
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x, a.double(), b, c)
