@@ -13,8 +13,10 @@ imports nothing of JAX or of the JAX package. It
    times kernel, plain version and library call: ``moe_gmm`` forward at
    the serving and training shapes and its backward at the training
    shapes, ``flash_attention`` forward and backward at the training
-   shape plus ragged, windowed, bidirectional, decode and odd-width
-   cases, ``rmsnorm``; in bf16 and f32;
+   shape (and at D 128) plus ragged, windowed, bidirectional, decode and
+   odd-width cases, with its achieved TFLOP/s, its ratio to the library
+   call and a check that two backward runs give the same bits,
+   ``rmsnorm``; in bf16 and f32;
 3. serves full-width granite-moe-1b-a400m in bf16 (random weights from a
    seed) at batch 4, prompt 64, gen 32 with ``moe_impl="kernel"``, counts
    the kernel launches of that run, then checks the result: the same
@@ -94,6 +96,7 @@ GMM_BWD_CASES = [c for c in GMM_CASES if c[0].startswith("train")]
 # (label, B, Sq, Skv, Hq, Hkv, D, causal, window, kv_offset)
 FLASH_CASES = [
     ("train causal", 2, 4096, 4096, 16, 8, 64, True, None, 0),
+    ("train causal D128", 2, 4096, 4096, 32, 8, 128, True, None, 0),
     ("ragged", 2, 100, 100, 4, 2, 64, True, None, 0),
     ("window 64", 1, 512, 512, 4, 2, 64, True, 64, 0),
     ("bidirectional", 1, 256, 256, 4, 2, 64, False, None, 0),
@@ -370,7 +373,8 @@ def flash_phase(fa) -> dict:
     the kernels, the plain version and F.scaled_dot_product_attention."""
     import torch.nn.functional as F
     log("[kernels] flash_attention vs the plain version (tolerance abs + "
-        "rel: forward f32 3e-4, bf16 3e-2; dq/dk/dv f32 1e-3, bf16 3e-2)")
+        "rel: forward f32 3e-4, bf16 3e-2; dq/dk/dv f32 1e-3, bf16 3e-2); "
+        "two backward runs must give the same bits (no atomics)")
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -390,6 +394,11 @@ def flash_phase(fa) -> dict:
             args = (causal, scale, window, off)
             out, lse = fa.flash_attention_fwd(q, k, v, *args)
             dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
+            again = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
+            if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
+                raise AssertionError(f"flash {label} {dtype}: two backward "
+                                     "runs on the same inputs differ")
+            del again
             qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
             ref = fa.flash_attention_plain(qr, kr, vr, causal=causal,
                                            window=window, kv_offset=off)
@@ -431,22 +440,27 @@ def flash_phase(fa) -> dict:
             pairs = int(_mask(Sq, Skv, causal, window, off).sum()) \
                 * B * Hq
             io = (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D) * size
-            f_bound = roof(io + 4 * B * Hq * Sq, 4.0 * pairs * D,
-                           PEAK_FLOPS[dtype])
+            f_ops, b_ops = 4.0 * pairs * D, 10.0 * pairs * D
+            f_bound = roof(io + 4 * B * Hq * Sq, f_ops, PEAK_FLOPS[dtype])
             b_bound = roof(2 * io + B * Sq * Hq * D * size + 4 * B * Hq * Sq,
-                           10.0 * pairs * D, PEAK_FLOPS[dtype])
+                           b_ops, PEAK_FLOPS[dtype])
             dt = str(dtype).removeprefix("torch.")
             shape = (f"q({B},{Sq},{Hq},{D}) kv({B},{Skv},{Hkv},{D}) {dt} "
                      f"causal={causal} window={window} kv_offset={off}")
-            log(f"[kernels] flash fwd {label:13s} {shape}: max|err| "
+            # achieved rate: the operations the bound counts (the visible
+            # pairs' products) over the kernel's time
+            log(f"[kernels] flash fwd {label:17s} {shape}: max|err| "
                 f"{f_err:.3e} kernel_ms {fwd_ms:.4f} plain_ms "
                 f"{fwd_plain:.4f} library_ms {fwd_lib:.4f} bound_ms "
-                f"{f_bound[0]:.4f} ({f_bound[1]}-bound)")
-            log(f"[kernels] flash bwd {label:13s} {shape}: max|err| "
+                f"{f_bound[0]:.4f} ({f_bound[1]}-bound) "
+                f"{f_ops / fwd_ms / 1e9:.1f} TFLOP/s, kernel/library "
+                f"{fwd_ms / fwd_lib:.2f}")
+            log(f"[kernels] flash bwd {label:17s} {shape}: max|err| "
                 f"{b_err:.3e} kernel_ms {bwd_ms:.4f} plain_ms "
                 f"{bwd_plain:.4f} library_ms {bwd_lib:.4f} (library fwd+bwd "
                 f"{fwd_lib + bwd_lib:.4f}) bound_ms {b_bound[0]:.4f} "
-                f"({b_bound[1]}-bound)")
+                f"({b_bound[1]}-bound) {b_ops / bwd_ms / 1e9:.1f} TFLOP/s, "
+                f"kernel/library {bwd_ms / bwd_lib:.2f}")
             results[("fwd", label, dtype)] = dict(
                 shape=shape, max_abs_err=f_err, ms=fwd_ms, plain_ms=fwd_plain,
                 library_ms=fwd_lib, bound_ms=f_bound[0],

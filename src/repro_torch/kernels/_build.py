@@ -7,9 +7,13 @@ use into its own shared library,
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 under ``kernels/build/`` (listed in ``.gitignore``), keyed by a hash of
-the sources and the flags, then loaded with ``ctypes``. Nothing is built
-when a module is imported. ``build`` starts one ``nvcc`` per source, all
-together, and waits for them all. A failed compile, and a launch that
+the sources (with every ``csrc/*.cuh`` header) and the flags, then loaded
+with ``ctypes``. The libraries link against the CUDA runtime alone: the
+flash kernels' TMA maps come from ``cuTensorMapEncodeTiled``, a libcuda
+function, reached through ``cudaGetDriverEntryPoint`` (no ``-lcuda``), and
+no source includes CUTLASS. Nothing is built when a module is imported.
+``build`` starts one ``nvcc`` per source, all together, and waits for
+them all. A failed compile, and a launch that
 returns a non-zero ``cudaError_t``, raise.
 """
 

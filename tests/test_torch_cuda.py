@@ -27,6 +27,18 @@ def _card():
     (130, 130, 6, 3, 48, True, 64, 0),
     (96, 96, 4, 4, 128, False, None, 0),
     (1, 24, 4, 2, 64, True, None, 9),
+    # the bf16 kernels' tile edges: interior and diagonal tiles, a partial
+    # last q tile, the 128-wide tiles, zero-padded columns (D 48), the
+    # element-load variant (D 36), chunked prefill, a window off the tile
+    # grid
+    (1024, 1024, 16, 8, 64, True, None, 0),
+    (1000, 1000, 16, 8, 64, True, None, 0),
+    (512, 512, 8, 4, 128, True, None, 0),
+    (300, 300, 6, 3, 48, True, None, 0),
+    (200, 200, 4, 2, 36, True, None, 0),
+    (64, 320, 8, 4, 64, True, None, 256),
+    (700, 700, 8, 2, 64, True, 200, 0),
+    (384, 384, 4, 4, 128, False, None, 0),
 ])
 def test_flash_attention_kernel_on_card(dtype, Sq, Skv, Hq, Hkv, D, causal,
                                         window, off):
@@ -54,6 +66,24 @@ def test_flash_attention_kernel_on_card(dtype, Sq, Skv, Hq, Hkv, D, causal,
     gtol = 1e-3 if dtype == torch.float32 else 3e-2
     for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b, rtol=gtol, atol=gtol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_repeats_bits():
+    """The backward has no atomics: two runs give the same bits."""
+    from repro_torch.kernels import flash_attention as fa
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((2, 1000, 16, 64), generator=g, device="cuda").bfloat16()
+    k = torch.randn((2, 1000, 8, 64), generator=g, device="cuda").bfloat16()
+    v = torch.randn((2, 1000, 8, 64), generator=g, device="cuda").bfloat16()
+    do = torch.randn((2, 1000, 16, 64), generator=g, device="cuda").bfloat16()
+    args = (True, 0.125, None, 0)
+    out, lse = fa.flash_attention_fwd(q, k, v, *args)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
