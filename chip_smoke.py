@@ -10,13 +10,16 @@ imports nothing of JAX or of the JAX package. It
    CUDA versions, and builds every kernel from ``csrc/`` (one ``nvcc``
    per source, all together);
 2. holds each kernel against its plain PyTorch version on the card and
-   times kernel, plain version and library call: ``moe_gmm`` forward at
-   the serving and training shapes and its backward at the training
-   shapes, ``flash_attention`` forward and backward at the training
-   shape (and at D 128) plus ragged, windowed, bidirectional, decode and
-   odd-width cases, with its achieved TFLOP/s, its ratio to the library
-   call and a check that two backward runs give the same bits,
-   ``rmsnorm``; in bf16 and f32;
+   times kernel, plain version and library call, with the achieved
+   TFLOP/s and the ratio to the library call: ``moe_gmm`` forward at
+   the serving and training shapes and at the wgmma route's tile edges,
+   its backward at the training shapes and a grouped ragged one (two
+   runs must give the same bits; a bf16 backward under torch.profiler
+   must launch its two kernels and no copy), ``flash_attention``
+   forward and backward at the training shape (and at D 128) plus
+   ragged, windowed, bidirectional, decode and odd-width cases, with a
+   check that two backward runs give the same bits, ``rmsnorm``; in
+   bf16 and f32;
 3. serves full-width granite-moe-1b-a400m in bf16 (random weights from a
    seed) at batch 4, prompt 64, gen 32 with ``moe_impl="kernel"``, counts
    the kernel launches of that run, then checks the result: the same
@@ -89,9 +92,18 @@ GMM_CASES = [
     # training at batch 2 x seq 4096: 2 groups x 32 experts, capacity 1280
     ("train gate/up", 64, 1280, 1024, 512, 32),
     ("train down", 64, 1280, 512, 1024, 32),
+    # the bf16 wgmma route's 128-row tiles: C at and around one
+    # consumer's 64 rows and a whole tile, F 136 a ragged column tile
+    ("tile edge C 64", 4, 64, 256, 136, 2),
+    ("tile edge C 65", 4, 65, 256, 136, 2),
+    ("tile edge C 127", 4, 127, 256, 136, 2),
+    ("tile edge C 129", 4, 129, 256, 136, 2),
 ]
 REPORT_CASE = ("train gate/up", torch.bfloat16)    # 2 of 3 calls a layer
-GMM_BWD_CASES = [c for c in GMM_CASES if c[0].startswith("train")]
+# the training shapes, and dw's group walk crossing a ragged C (100 rows:
+# the rows past C must read 0, not the next expert's)
+GMM_BWD_CASES = [c for c in GMM_CASES if c[0].startswith("train")] + [
+    ("grouped ragged", 6, 100, 264, 200, 3)]
 
 # (label, B, Sq, Skv, Hq, Hkv, D, causal, window, kv_offset)
 FLASH_CASES = [
@@ -289,15 +301,16 @@ def kernel_phase(gmm) -> dict:
                 def lib(a, b, G=Z // P):
                     return torch.matmul(a.view(G, P, C, D), b)
             lib_ms = graph_ms(lib, sets)
+            ops = 2.0 * Z * C * D * F
             bound_ms, bound_by = roof((Z * C * D + P * D * F + Z * C * F)
-                                      * size, 2.0 * Z * C * D * F,
-                                      PEAK_FLOPS[dtype])
+                                      * size, ops, PEAK_FLOPS[dtype])
             dt = str(dtype).removeprefix("torch.")
             log(f"[kernels] {label:17s} {dt:8s} x({Z},{C},{D}) "
                 f"w({P},{D},{F}): max|err| {err:.3e} (tol {tol}) "
                 f"kernel_ms {kern_ms:.4f} plain_ms {plain_ms:.4f} "
                 f"library_ms {lib_ms:.4f} bound_ms {bound_ms:.4f} "
-                f"({bound_by}-bound)")
+                f"({bound_by}-bound) {ops / kern_ms / 1e9:.1f} TFLOP/s, "
+                f"kernel/library {kern_ms / lib_ms:.2f}")
             results[(label, dtype)] = dict(
                 shape=f"x({Z},{C},{D}) w({P},{D},{F}) {dt}",
                 max_abs_err=err, ms=kern_ms, plain_ms=plain_ms,
@@ -307,11 +320,14 @@ def kernel_phase(gmm) -> dict:
 
 
 def gmm_backward_phase(gmm) -> dict:
-    """moe_gmm's backward (dx, dw: two kernel launches with the
-    transposed copies) against the plain version's autograd, at the
-    training shapes."""
+    """moe_gmm's backward (dx, dw: two kernel launches; in bf16 they read
+    x, w and g as stored, in f32 the forward kernel runs on transposed
+    copies) against the plain version's autograd, at the training shapes
+    and a grouped ragged one; two runs must give the same bits, and a bf16
+    backward must launch the two kernels and nothing else."""
     log("[kernels] moe_gmm backward (dx, dw) vs the plain version's "
-        "autograd (tolerance: tol f32 1e-4, bf16 3e-2, abs + rel)")
+        "autograd (tolerance: tol f32 1e-4, bf16 3e-2, abs + rel); two "
+        "runs must give the same bits")
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -321,6 +337,10 @@ def gmm_backward_phase(gmm) -> dict:
                  / math.sqrt(D)).to(dtype)
             gy = torch.randn((Z, C, F), generator=g, device="cuda").to(dtype)
             dx, dw = gmm.moe_gmm_bwd(x, w, gy, P)
+            if not all(torch.equal(a, b) for a, b in
+                       zip(gmm.moe_gmm_bwd(x, w, gy, P), (dx, dw))):
+                raise AssertionError(f"moe_gmm bwd {label} {dtype}: two "
+                                     "runs on the same inputs differ")
             xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
             yr = gmm.moe_gmm_plain(xr, wr, P)
             dxr, dwr = torch.autograd.grad(yr, (xr, wr), gy,
@@ -341,19 +361,46 @@ def gmm_backward_phase(gmm) -> dict:
                              gy.view(G, P, C, F)).sum(0)))
             size = x.element_size()
             nbytes = (2 * Z * C * D + 2 * P * D * F + Z * C * F) * size
-            bound_ms, bound_by = roof(nbytes, 4.0 * Z * C * D * F,
-                                      PEAK_FLOPS[dtype])
+            ops = 4.0 * Z * C * D * F
+            bound_ms, bound_by = roof(nbytes, ops, PEAK_FLOPS[dtype])
             dt = str(dtype).removeprefix("torch.")
-            log(f"[kernels] moe_gmm bwd {label:13s} {dt:8s} x({Z},{C},{D}) "
+            log(f"[kernels] moe_gmm bwd {label:14s} {dt:8s} x({Z},{C},{D}) "
                 f"w({P},{D},{F}): max|err| {err:.3e} (tol {tol}) kernel_ms "
                 f"{kern_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                f"{lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}-bound)")
+                f"{lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}-bound) "
+                f"{ops / kern_ms / 1e9:.1f} TFLOP/s, kernel/library "
+                f"{kern_ms / lib_ms:.2f}")
             results[(label, dtype)] = dict(
                 shape=f"dx, dw of x({Z},{C},{D}) w({P},{D},{F}) {dt}",
                 max_abs_err=err, ms=kern_ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
             del x, w, gy, dx, dw, xr, wr, yr, dxr, dwr
+    gmm_backward_copies(gmm)
     return results
+
+
+def gmm_backward_copies(gmm) -> None:
+    """One bf16 backward at the train gate/up shape under torch.profiler:
+    the two moe_gmm kernels and no other kernel (no transposed copy)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _, Z, C, D, F, P = GMM_BWD_CASES[0]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x, gy = (torch.randn(s, generator=g, device="cuda").bfloat16()
+             for s in ((Z, C, D), (Z, C, F)))
+    w = (torch.randn((P, D, F), generator=g, device="cuda")
+         / math.sqrt(D)).bfloat16()
+    gmm.moe_gmm_bwd(x, w, gy, P)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gmm.moe_gmm_bwd(x, w, gy, P)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    log(f"[kernels] moe_gmm bwd bf16 x({Z},{C},{D}) under torch.profiler: "
+        f"{len(names)} device operations: {[n[:60] for n in names]}")
+    if len(names) != 2 or not all("moe_gmm" in n for n in names):
+        raise AssertionError("the bf16 moe_gmm backward launched other "
+                             f"device work than its two kernels: {names}")
 
 
 def _mask(Sq, Skv, causal, window, off):

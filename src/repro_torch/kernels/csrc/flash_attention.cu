@@ -75,9 +75,12 @@
 #include <cstdint>
 #include <initializer_list>
 
+#include "sm90_async.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
+
+using namespace sm90;
 
 using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;              // f32 kernels: 4 warps
@@ -548,44 +551,6 @@ constexpr int kWsThreads = kConsumers + 128;  // and the producer's
 // 40 and the consumers rise to 232 (128 * 128 = 256 * 64)
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-// arrives on `bar` once this thread's cp.async copies so far have landed
-__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-// arrives on `bar` and expects `bytes` more from TMA copies
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-// waits for the completion of the phase of parity `parity`
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
 // The ring's barriers: `full` completes when a stage is filled, `empty`
 // when the 8 consumer warps are done with it; `once` for the tiles loaded
 // once per block. The fill counts are the producer's arrivals: 1 where
@@ -659,10 +624,6 @@ __device__ __forceinline__ void load_elems(unsigned char* s, const bf16* g,
     *reinterpret_cast<bf16*>(s + wgmma::sw_offset<ROWS>(r, c)) =
         ok ? g[(row0 + r) * stride + c] : __float2bfloat16_rn(0.f);
   }
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + (1024 - smem_u32(p) % 1024) % 1024;
 }
 
 // The consumer thread's place in its warpgroup's accumulator fragment: its
@@ -1294,15 +1255,6 @@ cudaError_t fwd_f32(const void* q, const void* k, const void* v, void* out,
                 static_cast<float*>(out), lse, p);
 }
 
-// cuTensorMapEncodeTiled, a libcuda function, through the runtime's entry
-// point (so the library links against the runtime alone)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
 // A TMA map of a contiguous (B, S, H, D) bf16 tensor as 4-D (D, H, S, B),
 // read in boxes of 64 columns x `rows` rows of one head, 128-byte
 // swizzled; out-of-range elements read 0. Built on the host for every
@@ -1311,17 +1263,9 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
 // 16-byte aligned base).
 cudaError_t bshd_map(CUtensorMap* map, const void* base, int B, int S, int H,
                      int D, int rows) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
+  EncodeTiled encode;
+  const cudaError_t e = encode_tiled(&encode);
+  if (e != cudaSuccess) return e;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S),

@@ -1,48 +1,80 @@
-// Grouped expert GEMM for Hopper (sm_90a): out[z] = x[z] @ w[z mod period].
+// Grouped expert GEMM for Hopper (sm_90a): out[z] = x[z] @ w[z mod period],
+// with the two grouped GEMMs of its backward.
 //
 // Replaces: src/repro/kernels/moe_gmm.py:43 `moe_gmm_kernel_call` (the
 // Pallas TPU kernel; body `_kernel` at :27), reached through
 // `repro.kernels.ops.moe_gmm` (ops.py:172) from the MoE layer
-// (repro/models/layers.py:299-305): three calls per MoE layer.
+// (repro/models/layers.py:299-305): three calls per MoE layer. The JAX
+// package's backward is the VJP of the oracle (ops.py:165), two more
+// grouped GEMMs; here they are kernels too:
+//   dx[z] = g[z] @ w[e]^T,   dw[e] = sum over groups of x[z]^T @ g[z],
+// z = group * period + e.
 //
-// What bounds it: on the serving path the tokens per expert are few
-// (capacity C = 80 at prefill batch 4 x prompt 64, C = 8 at decode), so
-// each call reads every expert's weights once (E*D*F elements, 33.5 MB in
-// bf16 for granite-moe's 32 x 1024 x 512) and does 2*Z*C*D*F operations:
-// about 12 us of H100 memory traffic (3.35 TB/s) against about 3 us of
-// bf16 tensor-core work at prefill, and about 10 us against nothing at
-// decode. The call is memory-bound; the weights are the bytes that count.
+// What bounds it. Training (granite-moe at batch 2 x 4096: x (64, 1280,
+// 1024) @ w (32, 1024, 512) and (64, 1280, 512) @ (32, 512, 1024), bf16):
+// 85.9 GFLOP a call, 0.087 ms at 989 TFLOP/s against 0.085 ms for its
+// 285 MB at 3.35 TB/s; the call sits on the ridge, so it needs both full
+// tensor-core issue and no redundant traffic; the backward is twice the
+// work. Prefill (C = 80): memory-bound, the 33.5 MB of expert weights
+// (12 us) against 3 us of products. Decode (C = 8): the weights alone.
 //
-// Design (simple first kernels; wgmma/TMA and a persistent schedule are
-// later work). Common to both paths:
-//  * one block per (F tile, C tile, z); z runs over groups x experts, and
-//    the block reads expert e = z mod period, so the expert weights are
-//    shared by every group and never copied per group (the JAX layer
-//    jnp.tile's them `ngroups` times, layers.py:300-303);
-//  * the block loops over D itself (the TPU kernel carried the D loop in
-//    VMEM scratch across sequential grid steps; Hopper's blocks run in no
-//    order, so the loop lives inside the block);
-//  * x and w tiles are staged through shared memory, the sum is kept in
-//    f32 registers and rounded once to the input type;
-//  * ragged edges in C, D and F are masked in the kernel: out-of-range
-//    loads read 0 and out-of-range stores are skipped, so any shape runs;
-//  * small C (decode, C <= 16) takes 16-row tiles so the block does not
-//    multiply rows of padding.
-// bf16 with D and F multiples of 8 (every shape of the serving path):
-//  * tensor cores through WMMA (16x16x16 bf16 -> f32); four warps, each
-//    owning a 16-column slice of a 64-column tile;
-//  * tiles arrive by 16-byte cp.async copies, two stages deep, so the next
-//    tile's weights stream in while the current one is multiplied; copies
-//    past the ragged edge zero-fill.
-// f32 (and bf16 with other widths): plain FMAs on tiles staged as float,
-// TM x 4 outputs per thread; no TF32, so f32 holds 1e-4 against the plain
-// version.
+// Routes, chosen before launch:
+//  * bf16, D and F multiples of 8, 16-byte aligned pointers, C > 32 (every
+//    train and prefill shape), and the backward at every such C: wgmma
+//    fed by a TMA ring (below);
+//  * bf16 at C <= 32 (decode), same widths: WMMA 16x16x16 tiles, 16 or
+//    32 rows, two cp.async stages (decode is host-bound);
+//  * f32 (the reduced checks) and bf16 of other widths: FMAs on tiles
+//    staged as float, no TF32, so f32 holds 1e-4 against the plain
+//    version. Their backward runs the forward kernel on transposed copies
+//    made by the wrapper.
+// The WMMA and FMA kernels run one block per (F tile, C tile, z) with the
+// D loop inside the block and mask ragged C, D and F themselves.
+//
+// The wgmma route (wgmma_bf16.cuh has the operand layouts, sm90_async.cuh
+// the TMA and mbarrier helpers). One kernel, three modes:
+//   forward  out (Z, C, F) = x[z] (C x D, K-major) @ w[e] (D x F, read as
+//            stored: MN-major B);
+//   dx       dx (Z, C, D) = g[z] (C x F, K-major) @ w[e]^T (w as stored is
+//            the K-major B: no transposed copy);
+//   dw       dw (P, D, F): A = x[z]^T and B = g[z], both read as stored
+//            (MN-major A and B), depth = groups x C, walked group by group
+//            and 64 rows of C at a time; the sum over groups stays in
+//            registers, so no atomics and no split: the bits repeat.
+//  * A block is three warpgroups: two consumers, each owning 64 rows of a
+//    128 x BN output tile with its f32 accumulator in registers, and a
+//    producer whose first lane keeps TMA copies of 64-deep stages (A 16
+//    KB, B BN x 128 bytes, 128-byte-swizzled 64-column panels) in flight
+//    through a ring (4 stages at BN 128, 3 at BN 256) with full / empty
+//    mbarriers. setmaxnreg gives the producer 40 registers and each
+//    consumer 232. BN is 256 where 256-wide tiles still give every SM one
+//    (every training shape: A is re-read half as often), else 128
+//    (prefill: 128 tiles for gate/up and 256 for down, so the weight
+//    reads spread over all the SMs).
+//  * TMA maps are 3-D over the tensors as stored, (D, C, Z), (F, C, Z) and
+//    (F, D, P), built on the host per call; the expert e = z mod P is a
+//    map coordinate. Their bounds zero the rows past C (of that z alone)
+//    and the columns past D or F, so ragged tiles need no code.
+//  * Epilogue: each consumer rounds its accumulator to bf16 into its own
+//    swizzled tile in shared memory and its first thread stores it by TMA
+//    (the map's bounds clip the ragged edge); the stores run on while the
+//    next tile's products start (stores straight from registers kept the
+//    tensor cores idle through every epilogue, which all blocks reach at
+//    about the same time).
+//  * Persistent: one block per SM walks the tiles in the order (expert,
+//    group, C tile, N tile), so the blocks in flight share one expert's
+//    weight panel (1 MB) in L2 while both groups' row tiles use it, and
+//    the producer loads the next tile's stages during the epilogue.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include <cstdint>
+
+#include "sm90_async.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -274,6 +306,271 @@ moe_gmm_tc_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------
+// bf16 wgmma route: persistent warp-specialised blocks, TMA ring
+// ---------------------------------------------------------------------
+using namespace sm90;
+
+enum Mode { kFwd = 0, kDx = 1, kDw = 2 };
+
+constexpr int kWsBM = 128;                 // output tile rows (columns: BN)
+constexpr int kWsBK = 64;                  // depth of one stage
+constexpr int kPanel = 64 * 128;           // bytes: 64 rows x 64 bf16
+constexpr int kConsumers = 256;            // two warpgroups
+constexpr int kWsThreads = kConsumers + 128;  // and the producer's
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+// Shared memory of a block with BN-wide tiles: the ring's stages (A, 128
+// rows, then B, BN columns, 64 deep), each consumer's epilogue tile (64 x
+// BN bf16) and the ring's barriers (full: the stage landed, armed by the
+// producer's lane with the bytes; empty: the 8 consumer warps are done).
+template <int BN>
+struct WsCfg {
+  static constexpr int kStages = BN == 256 ? 3 : 4;
+  static constexpr int kA = 2 * kPanel, kStage = kA + BN * 128;
+  static constexpr int kEpi = BN / 64 * kPanel;
+  struct Ring {
+    uint64_t full[kStages], empty[kStages];
+  };
+  static constexpr size_t bytes =
+      1024 + kStages * kStage + 2 * kEpi + sizeof(Ring);
+};
+
+// The tile space of one launch. Forward and dx: out (Z, M = C, N), ksteps
+// stages over the depth (D or F). dw: out (P, M = D, N = F), ksteps over
+// groups x C.
+struct Gemm {
+  int Z, P, C, M, N;
+  int tm, tn, ksteps, ntiles;
+};
+
+// Tile t -> expert e, the z it reads (forward, dx) and its first output
+// row and column; the N tile runs fastest, then the C (or D) tile, then
+// the group, then the expert.
+template <int kMode, int BN>
+__device__ __forceinline__ void tile_coords(const Gemm& p, int t, int& e,
+                                            int& z, int& m0, int& n0) {
+  n0 = (t % p.tn) * BN;
+  t /= p.tn;
+  m0 = (t % p.tm) * kWsBM;
+  t /= p.tm;
+  if (kMode == kDw) {
+    e = t;
+    z = e;
+  } else {
+    const int groups = p.Z / p.P;
+    e = t / groups;
+    z = (t % groups) * p.P + e;
+  }
+}
+
+// the 128 threads of consumer warpgroup wg (barrier 0 is __syncthreads)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// BN: the output tile's columns, 128 or 256 (a consumer's m64nBN product).
+template <int kMode, int BN>
+__global__ void __launch_bounds__(kWsThreads, 1)
+moe_gmm_ws_kernel(Gemm p, const __grid_constant__ CUtensorMap ta,
+                  const __grid_constant__ CUtensorMap tb,
+                  const __grid_constant__ CUtensorMap to) {
+  using Cfg = WsCfg<BN>;
+  constexpr int kStages = Cfg::kStages, kStage = Cfg::kStage;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring_smem = align1024(smem_raw);   // stage s: A, then B
+  unsigned char* epi = ring_smem + kStages * kStage;
+  auto& ring = *reinterpret_cast<typename Cfg::Ring*>(epi + 2 * Cfg::kEpi);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.empty[s], kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {         // the producer warpgroup
+    wgmma::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      const int csteps = (p.C + kWsBK - 1) / kWsBK;   // dw: stages a group
+      int it = 0;
+      for (int t = blockIdx.x; t < p.ntiles; t += gridDim.x) {
+        int e, z, m0, n0;
+        tile_coords<kMode, BN>(p, t, e, z, m0, n0);
+        for (int s = 0; s < p.ksteps; ++s, ++it) {
+          unsigned char* a = ring_smem + (it % kStages) * kStage;
+          unsigned char* b = a + Cfg::kA;
+          uint64_t* full = &ring.full[it % kStages];
+          if (it >= kStages)               // the consumers released it
+            mbar_wait(&ring.empty[it % kStages], (it / kStages - 1) & 1);
+          mbar_expect(full, kStage);
+          if (kMode == kDw) {
+            // x[z] rows c0.. x columns m0.. and g[z] rows c0.. x columns
+            // n0.., both as stored (MN-major): 64-column panels
+            const int zz = (s / csteps) * p.P + e, c0 = (s % csteps) * kWsBK;
+            for (int c = 0; c < 2; ++c)
+              tma_load_3d(a + c * kPanel, ta, full, m0 + 64 * c, c0, zz);
+            for (int c = 0; c < BN / 64; ++c)
+              tma_load_3d(b + c * kPanel, tb, full, n0 + 64 * c, c0, zz);
+          } else {
+            // A: rows m0.. x depth k0.. (K-major, 128 rows)
+            tma_load_3d(a, ta, full, s * kWsBK, m0, z);
+            if (kMode == kFwd) {           // w[e] rows k0.., columns n0..
+              for (int c = 0; c < BN / 64; ++c)
+                tma_load_3d(b + c * kPanel, tb, full, n0 + 64 * c, s * kWsBK,
+                            e);
+            } else {                       // w[e] rows n0.., columns k0..
+              tma_load_3d(b, tb, full, s * kWsBK, n0, e);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+  wgmma::setmaxnreg_inc<kConsumerRegs>();
+
+  const int wg = threadIdx.x / 128;
+  const bool leader = threadIdx.x % 128 == 0;
+  const int lane = threadIdx.x % 32;
+  const int frow = 16 * ((threadIdx.x / 32) % 4) + lane / 4;
+  const int fcol = 2 * (lane % 4);
+  unsigned char* ep = epi + wg * Cfg::kEpi;
+  constexpr int TA = kMode == kDw ? 1 : 0, TB = kMode == kDx ? 0 : 1;
+  float acc[BN / 2];
+  int it = 0;
+  for (int t = blockIdx.x; t < p.ntiles; t += gridDim.x) {
+    int e, z, m0, n0;
+    tile_coords<kMode, BN>(p, t, e, z, m0, n0);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int s = 0; s < p.ksteps; ++s, ++it) {
+      const unsigned char* a = ring_smem + (it % kStages) * kStage;
+      const unsigned char* b = a + Cfg::kA;
+      mbar_wait(&ring.full[it % kStages], (it / kStages) & 1);
+      wgmma::fence();
+#pragma unroll
+      for (int kk = 0; kk < kWsBK / 16; ++kk) {
+        const uint64_t da = TA ? wgmma::mnmajor<64>(a + wg * kPanel, kk)
+                               : wgmma::kmajor<kWsBM>(a, 64 * wg, kk);
+        const uint64_t db = TB ? wgmma::mnmajor<64>(b, kk)
+                               : wgmma::kmajor<BN>(b, 0, kk);
+        wgmma::wgmma_ss_acc<TA, TB>(acc, da, db);
+      }
+      wgmma::commit();
+      wgmma::wait<1>();                    // the previous stage is read
+      if (s > 0 && lane == 0) mbar_arrive(&ring.empty[(it - 1) % kStages]);
+    }
+    wgmma::wait<0>();
+    wgmma::fence_operand(acc);
+    if (lane == 0) mbar_arrive(&ring.empty[(it - 1) % kStages]);
+
+    // epilogue: the warpgroup's 64 rows as bf16 into its swizzled tile
+    // (64-column panels, conflict-free), then TMA stores that clip the
+    // ragged edge and run on while the next tile's products start
+    if (leader) bulk_wait_read();          // the last tile's stores read it
+    warpgroup_sync(wg);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = frow + 8 * hf;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(
+            ep + (j / 8) * kPanel + r * 128 + (((j % 8) ^ (r % 8)) * 16) +
+            fcol * 2) = __floats2bfloat162_rn(acc[4 * j + 2 * hf],
+                                              acc[4 * j + 2 * hf + 1]);
+    }
+    wgmma::fence_proxy();                  // visible to the TMA stores
+    warpgroup_sync(wg);
+    if (leader && m0 + 64 * wg < p.M) {
+      for (int c = 0; c < BN / 64; ++c)
+        tma_store_3d(to, ep + c * kPanel, n0 + 64 * c, m0 + 64 * wg,
+                     kMode == kDw ? e : z);
+      bulk_commit();
+    }
+  }
+  if (leader) bulk_wait_read();            // before the block's memory goes
+}
+
+// A TMA map of a contiguous bf16 tensor (d2, d1, d0) as 3-D (d0, d1, d2),
+// read in boxes of 64 x `rows` x 1, 128-byte swizzled; out-of-range
+// elements read 0. d0 must be a multiple of 8 and the base 16-byte
+// aligned.
+cudaError_t map3(CUtensorMap* map, const void* base, int d0, int d1, int d2,
+                 int rows) {
+  EncodeTiled encode;
+  const cudaError_t e = encode_tiled(&encode);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
+                              static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d0) * 2,
+                                 static_cast<cuuint64_t>(d0) * d1 * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// One launch of mode kMode with BN-wide tiles: a persistent grid of
+// min(tiles, SMs) blocks; the shared-memory limit is raised on the first
+// launch.
+template <int kMode, int BN>
+cudaError_t launch_ws_bn(Gemm p, const void* a, const void* b, void* out,
+                         int D, int F, int sms, cudaStream_t s) {
+  CUtensorMap ta, tb, to;
+  cudaError_t e = map3(&to, out, p.N, p.M, kMode == kDw ? p.P : p.Z, 64);
+  if (e != cudaSuccess) return e;
+  if (kMode == kFwd) {                     // a = x, b = w
+    e = map3(&ta, a, D, p.C, p.Z, kWsBM);
+    if (e == cudaSuccess) e = map3(&tb, b, F, D, p.P, 64);
+  } else if (kMode == kDx) {               // a = g, b = w
+    e = map3(&ta, a, F, p.C, p.Z, kWsBM);
+    if (e == cudaSuccess) e = map3(&tb, b, F, D, p.P, BN);
+  } else {                                 // a = x, b = g
+    e = map3(&ta, a, D, p.C, p.Z, 64);
+    if (e == cudaSuccess) e = map3(&tb, b, F, p.C, p.Z, 64);
+  }
+  if (e != cudaSuccess) return e;
+  p.tn = cdiv(p.N, BN);
+  p.ntiles = (kMode == kDw ? p.P : p.Z) * p.tm * p.tn;
+  static bool smem_set = false;
+  if (!smem_set) {
+    e = cudaFuncSetAttribute(moe_gmm_ws_kernel<kMode, BN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(WsCfg<BN>::bytes));
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  moe_gmm_ws_kernel<kMode, BN><<<p.ntiles < sms ? p.ntiles : sms,
+                                 kWsThreads, WsCfg<BN>::bytes, s>>>(p, ta,
+                                                                   tb, to);
+  return cudaGetLastError();
+}
+
+// 256-wide tiles re-read A half as often as 128-wide ones; they are taken
+// where they still give every SM a tile.
+template <int kMode>
+cudaError_t launch_ws(Gemm p, const void* a, const void* b, void* out,
+                      int D, int F, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  p.tm = cdiv(p.M, kWsBM);
+  const int wide = (kMode == kDw ? p.P : p.Z) * p.tm * cdiv(p.N, 256);
+  return wide >= sms ? launch_ws_bn<kMode, 256>(p, a, b, out, D, F, sms, s)
+                     : launch_ws_bn<kMode, 128>(p, a, b, out, D, F, sms, s);
+}
+
 template <int MF>
 void launch_tc(const __nv_bfloat16* x, const __nv_bfloat16* w,
                __nv_bfloat16* out, int Z, int C, int D, int F, int period,
@@ -283,11 +580,12 @@ void launch_tc(const __nv_bfloat16* x, const __nv_bfloat16* w,
                                                          period);
 }
 
-bool tc_ok(const void* x, const void* w, const void* out, int D, int F) {
+bool tc_ok(const void* a, const void* b, const void* c, int D, int F) {
   const auto addr = [](const void* p) {
     return reinterpret_cast<std::uintptr_t>(p);
   };
-  return D % 8 == 0 && F % 8 == 0 && (addr(x) | addr(w) | addr(out)) % 16 == 0;
+  return D % 8 == 0 && F % 8 == 0 &&
+         (addr(a) | addr(b) | addr(c)) % 16 == 0;
 }
 
 template <typename T>
@@ -310,6 +608,11 @@ cudaError_t launch(const void* x, const void* w, void* out, int Z, int C,
   return cudaGetLastError();
 }
 
+bool bad_shape(int Z, int C, int D, int F, int period) {
+  return Z <= 0 || C <= 0 || D <= 0 || F <= 0 || period <= 0 || Z % period ||
+         Z > 65535;
+}
+
 }  // namespace
 
 // x: (Z, C, D), w: (period, D, F), out: (Z, C, F), all contiguous, on the
@@ -317,8 +620,7 @@ cudaError_t launch(const void* x, const void* w, void* out, int Z, int C,
 extern "C" int moe_gmm_launch(const void* x, const void* w, void* out, int Z,
                               int C, int D, int F, int period, int dtype,
                               void* stream) {
-  if (Z <= 0 || C <= 0 || D <= 0 || F <= 0 || period <= 0 || Z % period ||
-      Z > 65535)
+  if (bad_shape(Z, C, D, F, period))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
@@ -334,7 +636,9 @@ extern "C" int moe_gmm_launch(const void* x, const void* w, void* out, int Z,
         else if (C <= 32)
           launch_tc<2>(xb, wb, ob, Z, C, D, F, period, s);
         else
-          launch_tc<4>(xb, wb, ob, Z, C, D, F, period, s);
+          return static_cast<int>(launch_ws<kFwd>(
+              Gemm{Z, period, C, C, F, 0, 0, cdiv(D, kWsBK), 0}, x,
+              w, out, D, F, s));
         return static_cast<int>(cudaGetLastError());
       }
       return static_cast<int>(
@@ -342,6 +646,31 @@ extern "C" int moe_gmm_launch(const void* x, const void* w, void* out, int Z,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The backward of moe_gmm_launch in bf16 with D and F multiples of 8 and
+// 16-byte aligned pointers, reading x, w and the output gradient g (Z, C,
+// F) as stored: dx (Z, C, D) = g[z] @ w[e]^T, and dw (period, D, F) =
+// sum over groups of x[z]^T @ g[z]. cudaErrorInvalidValue for another
+// shape (the wrapper takes its transposed-copy route there).
+extern "C" int moe_gmm_dx_launch(const void* g, const void* w, void* dx,
+                                 int Z, int C, int D, int F, int period,
+                                 void* stream) {
+  if (bad_shape(Z, C, D, F, period) || !tc_ok(g, w, dx, D, F))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_ws<kDx>(
+      Gemm{Z, period, C, C, D, 0, 0, cdiv(F, kWsBK), 0}, g, w, dx,
+      D, F, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int moe_gmm_dw_launch(const void* x, const void* g, void* dw,
+                                 int Z, int C, int D, int F, int period,
+                                 void* stream) {
+  if (bad_shape(Z, C, D, F, period) || !tc_ok(x, g, dw, D, F))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_ws<kDw>(
+      Gemm{Z, period, C, D, F, 0, 0, Z / period * cdiv(C, kWsBK), 0},
+      x, g, dw, D, F, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* moe_gmm_error_string(int code) {

@@ -4,23 +4,37 @@ Computes ``out[z] = x[z] @ w[z mod P]`` for x (Z, C, D) and w (P, D, F)
 with P = ``expert_period`` (default Z): Z runs over groups × experts and
 every group reads the same P expert weights, which are never copied per
 group. It replaces the Pallas TPU kernel
-``repro/kernels/moe_gmm.py:moe_gmm_kernel_call``; see the CUDA source for
-the design and what bounds it.
+``src/repro/kernels/moe_gmm.py:43`` ``moe_gmm_kernel_call``.
+
+What bounds it: at the training shapes (x (64, 1280, 1024) @ w (32, 1024,
+512) and (64, 1280, 512) @ (32, 512, 1024), bf16) a call is 85.9 GFLOP,
+0.087 ms of tensor-core work against 0.085 ms of memory traffic: on the
+ridge, so it needs full wgmma issue and no redundant bytes. At prefill
+(C 80) it is memory-bound by the 33.5 MB of expert weights. The CUDA
+source has the design: for bf16 with D and F multiples of 8, 16-byte
+aligned pointers and C > 32, persistent warp-specialised blocks run wgmma
+products fed by a TMA ring; decode (C <= 32) takes WMMA tiles; f32 and
+other widths take FMA tiles.
 
 A CPU tensor takes the plain version (:func:`moe_gmm_plain`) under
-autograd. A CUDA tensor launches the kernel on the current stream or
+autograd. A CUDA tensor launches a kernel on the current stream or
 raises: there is no fallback. On CUDA the gradient is a
-``torch.autograd.Function`` whose backward is two more launches of the
-same kernel (the JAX package takes the VJP of the oracle, i.e. the same
-two grouped GEMMs):
+``torch.autograd.Function`` whose backward is two more launches (the
+JAX package takes the VJP of the oracle, i.e. the same two grouped
+GEMMs):
 
-  * dx = moe_gmm(g, w^T) with the same period, w^T (P, F, D) contiguous;
-  * dw[e] = sum over groups of x[g, e]^T g[g, e]: one call with Z = P on
-    x^T laid out (P, D, groups*C) and g laid out (P, groups*C, F).
+  * bf16 with D and F multiples of 8 and 16-byte aligned tensors: two
+    kernels that read x, w and g as stored, with no copy:
+    dx[z] = g[z] @ w[e]^T, and dw[e] = the sum over groups of
+    x[z]^T @ g[z], summed in registers in a fixed order (the bits repeat
+    from run to run);
+  * f32 and other widths: the forward kernel on transposed copies,
+    dx = moe_gmm(g, w^T) with w^T (P, F, D) contiguous, and dw in one
+    call with Z = P on x^T laid out (P, D, groups*C) and g laid out
+    (P, groups*C, F).
 
-The transposed copies cost memory traffic that a kernel reading
-transposed operands would not (later work). ``launches`` counts forward
-kernel launches and ``bwd_launches`` backward ones, and nothing else.
+``launches`` counts forward kernel launches and ``bwd_launches`` backward
+ones, and nothing else.
 """
 
 from __future__ import annotations
@@ -41,7 +55,8 @@ bwd_launches = 0
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-_MAX_Z = 65535            # gridDim.z
+_BWD_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+_MAX_Z = 65535            # gridDim.z of the WMMA and FMA kernels
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, expert_period: int | None):
@@ -90,14 +105,42 @@ def _launch(x: torch.Tensor, w: torch.Tensor, period: int) -> torch.Tensor:
     return out
 
 
+def _in_place(x, w, g) -> bool:
+    """Whether the backward kernels that read x, w and g as stored take
+    these tensors: bf16, D and F multiples of 8, 16-byte aligned."""
+    return (x.dtype == torch.bfloat16 and x.shape[2] % 8 == 0
+            and w.shape[2] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, w, g)))
+
+
+def _launch_bwd(symbol, a, b, out, Z, C, D, F, period):
+    """One launch of a backward kernel into ``out`` (uncounted)."""
+    launch = _build.kernel_function("moe_gmm", symbol, _BWD_ARGTYPES)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), Z, C, D, F,
+               period, stream)
+    return out
+
+
 def moe_gmm_bwd(x, w, g, period, need_dx=True, need_dw=True):
     """The gradients (dx, dw) of ``moe_gmm(x, w, period)`` for the output
-    gradient g, by two launches of the kernel on contiguous CUDA tensors
-    (None for a gradient not asked for)."""
+    gradient g, by two kernel launches on contiguous CUDA tensors (None
+    for a gradient not asked for)."""
     global bwd_launches
     Z, C, D = x.shape
     F = w.shape[2]
     dx = dw = None
+    if _in_place(x, w, g):
+        if need_dx:
+            dx = _launch_bwd("moe_gmm_dx_launch", g, w, torch.empty_like(x),
+                             Z, C, D, F, period)
+            bwd_launches += 1
+        if need_dw:
+            dw = _launch_bwd("moe_gmm_dw_launch", x, g, torch.empty_like(w),
+                             Z, C, D, F, period)
+            bwd_launches += 1
+        return dx, dw
     if need_dx:
         dx = _launch(g, w.transpose(1, 2).contiguous(), period)
         bwd_launches += 1

@@ -149,6 +149,83 @@ def test_moe_gmm_forward_kernel_on_card(dtype):
                                rtol=tol, atol=tol)
 
 
+def _gmm_inputs(Z, C, D, F, P, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((Z, C, D), generator=g, device="cuda").to(dtype)
+    w = (torch.randn((P, D, F), generator=g, device="cuda") / D ** 0.5
+         ).to(dtype)
+    gy = torch.randn((Z, C, F), generator=g, device="cuda").to(dtype)
+    return x, w, gy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [64, 65, 127, 129])
+def test_moe_gmm_forward_tile_edges_on_card(dtype, C):
+    """The wgmma route's 128 x 128 tiles: C at and around a tile's rows
+    (one consumer's 64, 128), F 136 a ragged column tile."""
+    _card()
+    x, w, _ = _gmm_inputs(4, C, 256, 136, 2, dtype)
+    got = ops.moe_gmm(x, w, expert_period=2)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(),
+                               gmm_mod.moe_gmm_plain(x, w, 2).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Z,C,D,F,P", [
+    (1, 64, 64, 64, 1),            # one tile of each product
+    (4, 100, 264, 200, 2),         # G = 2, ragged C inside dw's group walk
+    (6, 100, 264, 200, 3),
+    (64, 72, 1024, 512, 32),       # the train shapes' widths, small C
+    (64, 72, 512, 1024, 32),
+])
+def test_moe_gmm_backward_shapes_on_card(dtype, Z, C, D, F, P):
+    """dx and dw against the plain version's autograd; two launches."""
+    _card()
+    x, w, gy = _gmm_inputs(Z, C, D, F, P, dtype)
+    before = gmm_mod.bwd_launches
+    dx, dw = gmm_mod.moe_gmm_bwd(x, w, gy, P)
+    assert gmm_mod.bwd_launches == before + 2
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    want = torch.autograd.grad(gmm_mod.moe_gmm_plain(xr, wr, P), (xr, wr),
+                               gy)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for a, b in zip((dx, dw), want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_moe_gmm_backward_repeats_bits():
+    """dw sums over the groups in registers in a fixed order: two runs
+    give the same bits."""
+    _card()
+    x, w, gy = _gmm_inputs(6, 100, 264, 200, 3, torch.bfloat16)
+    first = gmm_mod.moe_gmm_bwd(x, w, gy, 3)
+    again = gmm_mod.moe_gmm_bwd(x, w, gy, 3)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_moe_gmm_backward_makes_no_copy():
+    """A bf16 backward of aligned widths reads x, w and g as stored: the
+    profiler sees the two moe_gmm kernels and no other kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    _card()
+    x, w, gy = _gmm_inputs(4, 100, 264, 200, 2, torch.bfloat16)
+    gmm_mod.moe_gmm_bwd(x, w, gy, 2)        # build and load outside
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gmm_mod.moe_gmm_bwd(x, w, gy, 2)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 2 and all("moe_gmm" in n for n in names), names
+
+
 def _ssd_inputs(B, S, H, P, G, N, dtype, a_scale=0.3, seed=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn((B, S, H, P), generator=g, device="cuda") * 0.5

@@ -261,10 +261,13 @@ def test_moe_gmm_grads_vs_jax():
         np.testing.assert_allclose(_f32(g), _f32(wa), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("G,E,C,D,F", [(2, 4, 16, 32, 24), (3, 2, 10, 8, 12)])
+@pytest.mark.parametrize("G,E,C,D,F", [(2, 4, 16, 32, 24), (3, 2, 10, 8, 12),
+                                       (2, 3, 100, 24, 40)])
 def test_moe_gmm_grouped_period_grads_vs_tiled_jax(G, E, C, D, F):
     """With shared expert weights, dw sums over the groups: the gradient
-    of JAX's call on weights tiled G times, summed over the tiles."""
+    of JAX's call on weights tiled G times, summed over the tiles. C 100
+    is ragged against the card's 64-row steps of dw's group walk; this
+    holds the plain version that the card compares the kernel against."""
     jx, tx = _inputs((G * E, C, D), 43, "float32")
     jw, tw = _inputs((E, D, F), 44, "float32")
     _, tg = _inputs((G * E, C, F), 45, "float32")
