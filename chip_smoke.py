@@ -39,15 +39,17 @@ imports nothing of JAX or of the JAX package. It
    batch never trained on must fall;
 6. holds the ``ssd_scan`` kernels (forward and backward) against the
    plain version's autograd on the card (the training shape in bf16 and
-   f32, partial chunks, two groups, widths that do not tile, chunk == S,
-   large decays), then trains full-width, full-depth mamba2-1.3b (48
-   layers, bf16, remat full) for 10 steps at batch 2 x 4096 through the
-   ``ssd_scan`` kernels with the launch counts asserted, profiles one
-   step, runs the same 10 steps through the plain route, holds layer 0's
-   mixer (output and gradients) against the plain route in situ and 5
-   steps of the reduced f32 model on the card against the host, and
-   serves it at full width (prefill and decode logits against a
-   full-sequence forward);
+   f32, partial chunks, S 127, 128 and 129 at the training widths, two
+   groups, widths that do not tile, chunk == S, large decays), with a
+   check that two backward runs give the same bits, and prints the bytes
+   of the saved chunk states beside the bound, then trains full-width,
+   full-depth mamba2-1.3b (48 layers, bf16, remat full) for 10 steps at
+   batch 2 x 4096 through the ``ssd_scan`` kernels with the launch
+   counts asserted, profiles one step, runs the same 10 steps through
+   the plain route, holds layer 0's mixer (output and gradients) against
+   the plain route in situ and 5 steps of the reduced f32 model on the
+   card against the host, and serves it at full width (prefill and
+   decode logits against a full-sequence forward);
 7. prints the ``kernels`` JSON line and, last, the device JSON line.
 
 Any failure raises and exits non-zero before the last line is printed.
@@ -133,6 +135,12 @@ SSD_CASES = [
     ("P 48 N 16", 2, 256, 4, 48, 1, 16, 128, 1.0),
     ("chunk == S", 2, 128, 4, 64, 1, 128, 128, 1.0),
     ("large |a|", 2, 512, 4, 64, 1, 128, 128, 40.0),
+    # the 128-row tile's edges at the training widths, and a head sum over
+    # more than one head per group
+    ("S 127", 2, 127, 4, 64, 1, 128, 128, 1.0),
+    ("S 128", 2, 128, 4, 64, 1, 128, 128, 1.0),
+    ("S 129", 2, 129, 4, 64, 1, 128, 128, 1.0),
+    ("H 8 G 2", 2, 512, 8, 64, 2, 128, 128, 1.0),
 ]
 SSD_REPORT = ("train", torch.bfloat16)
 MAMBA = "mamba2-1.3b"
@@ -577,20 +585,28 @@ def ssd_work(B, S, H, P, G, N, L, size):
     return fwd_bytes, fwd_ops, bwd_bytes, bwd_ops
 
 
+def ssd_saved_bytes(B, S, H, N, P, L):
+    """Bytes of the f32 state at every chunk's start (``states``, written
+    by the forward); ``dstates`` in the backward is as large. Neither is
+    in the bound, which counts the function's own inputs and outputs."""
+    return 4 * B * H * (-(-S // L)) * N * P
+
+
 def ssd_phase(ssd) -> dict:
     """ssd_scan's forward and backward kernels against the plain version
-    (ssd_chunked_ref and its autograd, in f32) on the same inputs; at the
-    training shape also the times of kernels and plain version. No single
-    PyTorch call computes the scan: library_ms is null."""
+    (ssd_chunked_ref and its autograd, in f32) on the same inputs, and two
+    backward runs against each other (the same bits); at the training
+    shape also the times of kernels and plain version. No single PyTorch
+    call computes the scan: library_ms is null."""
     import torch.nn.functional as F
     log("[kernels] ssd_scan vs the plain version's autograd in f32 "
         "(tolerance |k - p| <= atol + rtol*|p|: f32 rtol 2e-3, atol 2e-4, "
-        "bf16 3e-2, 3e-2; gradients atol x max|p|)")
+        "bf16 3e-2, 3e-2; gradients atol x max|p|); two backward runs "
+        "must give the same bits")
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     results = {}
     for label, B, S, H, P, G, N, chunk, a_scale in SSD_CASES:
         for dtype in (torch.bfloat16, torch.float32):
-            L = ssd.kernel_chunk(chunk)
             size = torch.tensor([], dtype=dtype).element_size()
             decay = torch.exp(torch.linspace(0.0, math.log(16.0), H,
                                              device="cuda"))
@@ -607,11 +623,14 @@ def ssd_phase(ssd) -> dict:
             timed = label == SSD_REPORT[0]
             sets = [draw() for _ in range(2 if timed else 1)]
             x, a, b, c = sets[0]
+            kind = ssd.route(x, b)
+            L = ssd.kernel_rows(chunk, kind)
             gy = torch.randn((B, S, H, P), generator=g,
                              device="cuda").to(dtype)
             gh = torch.randn((B, H, N, P), generator=g, device="cuda")
-            y, hT, states = ssd.ssd_scan_fwd(x, a, b, c, L, True)
-            grads = ssd.ssd_scan_bwd(x, a, b, c, states, gy, gh, L)
+            y, hT, saved = ssd.ssd_scan_fwd(x, a, b, c, chunk, True)
+            grads = ssd.ssd_scan_bwd(x, a, b, c, saved, gy, gh, chunk)
+            again = ssd.ssd_scan_bwd(x, a, b, c, saved, gy, gh, chunk)
             rs = [t.float().requires_grad_() for t in (x, a, b, c)]
             ry, rh = ssd.ssd_scan_plain(*rs, chunk=chunk)
             want = torch.autograd.grad((ry, rh), rs, (gy.float(), gh),
@@ -620,13 +639,17 @@ def ssd_phase(ssd) -> dict:
             rtol, atol = SSD_TOL[dtype]
             dt = str(dtype).removeprefix("torch.")
             shape = (f"x({B},{S},{H},{P}) b,c({B},{S},{G},{N}) {dt} chunk "
-                     f"{chunk} (kernel rows {L})")
+                     f"{chunk} ({kind} route, kernel rows {L})")
             name = f"ssd_scan {label} {dt}"
             f_err = max(close_or_raise(f"{name} y", y, ry, rtol, atol),
                         close_or_raise(f"{name} state", hT, rh, rtol, atol))
             b_err = max(close_or_raise(f"{name} d{n}", u, v, rtol,
                                        atol * v.abs().max().item())
                         for n, u, v in zip("xabc", grads, want))
+            for n, u, v in zip("xabc", grads, again):
+                if not torch.equal(u, v):
+                    raise AssertionError(f"{name} d{n}: two backward runs "
+                                         f"give different bits")
             fb, fo, bb, bo = ssd_work(B, S, H, P, G, N, L, size)
             f_bound = roof(fb, fo, PEAK_FLOPS[dtype])
             b_bound = roof(bb, bo, PEAK_FLOPS[dtype])
@@ -637,25 +660,33 @@ def ssd_phase(ssd) -> dict:
                                 max_abs_err=b_err, bound_ms=b_bound[0],
                                 bound_by=b_bound[1], library_ms=None))
             line = (f"[kernels] ssd_scan {label:23s} {shape}: max|err| fwd "
-                    f"{f_err:.3e} bwd {b_err:.3e}")
+                    f"{f_err:.3e} bwd {b_err:.3e}; bits repeat")
             if timed:
                 res["fwd"]["ms"] = graph_ms(
-                    lambda *t: ssd.ssd_scan_fwd(*t, L, True), sets)
+                    lambda *t: ssd.ssd_scan_fwd(*t, chunk, True), sets)
                 res["fwd"]["plain_ms"] = graph_ms(
                     lambda *t: ssd.ssd_scan_plain(*t, chunk=chunk), sets)
                 res["bwd"]["ms"] = event_ms(lambda: ssd.ssd_scan_bwd(
-                    x, a, b, c, states, gy, gh, L))
+                    x, a, b, c, saved, gy, gh, chunk))
                 res["bwd"]["plain_ms"] = event_ms(
                     lambda: torch.autograd.grad(
                         (ry, rh), rs, (gy.float(), gh), retain_graph=True))
+                saved_mb = ssd_saved_bytes(B, S, H, N, P, L) / 1e6
                 line += "".join(
                     f"; {k} kernel_ms {r['ms']:.4f} plain_ms "
                     f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
-                    f"({r['bound_by']}-bound)" for k, r in res.items())
+                    f"({r['bound_by']}-bound), "
+                    f"{ops / (r['ms'] * 1e-3) / 1e12:.1f} TFLOP/s"
+                    for (k, r), ops in zip(res.items(), (fo, bo)))
+                line += (f"; outside the bound: states {saved_mb:.1f} MB "
+                         f"written by the forward, dstates {saved_mb:.1f} "
+                         f"MB written and read by the backward "
+                         f"({saved_mb / HBM_BYTES_PER_S * 1e9:.4f} ms each "
+                         f"way at the memory rate)")
             log(line)
             results[(label, dtype)] = res
-            del sets, x, a, b, c, gy, gh, y, hT, states, grads, rs, ry, rh
-            del want
+            del sets, x, a, b, c, gy, gh, y, hT, saved, grads, again, rs
+            del ry, rh, want
             torch.cuda.empty_cache()
     return results
 
@@ -800,7 +831,8 @@ def serve_phase(gmm) -> int:
     log(f"[serve] prefill kernel vs einsum route end to end: layer-0 "
         f"routing identical; identical routing (expert and slot) in "
         f"{same_layers}/{cfg.num_layers} layers; last-token logits "
-        f"max|diff| {err:.4e}, relative to max|logit| {rel:.4e}; relative "
+        f"max|diff| {err:.4e} (max|diff| / max|logit| {rel:.4e}, "
+        f"max|logit| {le.abs().max().item():.4e}); relative "
         f"L2 {rel_l2:.4e} (tol {LOGIT_REL_L2_TOL}); argmax agreement "
         f"{agree:.2f}")
     if rel_l2 > LOGIT_REL_L2_TOL:
@@ -908,6 +940,11 @@ def train_step_breakdown(step_fn, params, opt_state, batch):
     for us, key, count in sorted(ops, reverse=True)[:8]:
         log(f"[profile]   op {us/1e3:9.3f} ms  {count:6d} calls  {key[:60]}")
     for evt in prof.key_averages():
+        if evt.key == "aten::cumsum":       # the routing's capacity fill
+            dev_us = getattr(evt, "self_device_time_total",
+                             getattr(evt, "self_cuda_time_total", 0.0))
+            log(f"[profile]   aten::cumsum: {evt.count} calls, "
+                f"{dev_us/1e3:.3f} ms device")
         if evt.key == "aten::bmm":          # the one-hot dispatch einsums
             dev_us = getattr(evt, "self_device_time_total",
                              getattr(evt, "self_cuda_time_total", 0.0))
@@ -1260,11 +1297,14 @@ def mamba_train_phase(gmm, fa, rms) -> dict:
                for s in range(TRAIN_STEPS + 1)]
     step_fn = train_mod.build_train_step(cfg, opt_cfg, 1, None)
     L = cfg.num_layers
+    from repro_torch.kernels import ssd_scan as ssd
+    nf, nb = ssd.LAUNCHES["tc"]
     per_step = dict(moe_gmm=0, moe_gmm_bwd=0, flash_fwd=0, flash_bwd=0,
-                    rmsnorm=0, ssd_fwd=2 * L, ssd_bwd=2 * L)
-    log(f"[mamba] launches per step the code implies: ssd_scan forward {L} "
-        f"+ {L} recompute = {2 * L}; backward {L} calls x 2 launches "
-        f"(carried state gradient, chunks) = {2 * L}; nothing else")
+                    rmsnorm=0, ssd_fwd=2 * L * nf, ssd_bwd=L * nb)
+    log(f"[mamba] launches per step the code implies: ssd_scan forward "
+        f"({L} calls + {L} recomputed) x {nf} launches (C B^T, the walk) = "
+        f"{2 * L * nf}; backward {L} calls x {nb} launches (carried state "
+        f"gradient, dx and da, dB and dC) = {L * nb}; nothing else")
 
     init_state = {k: v.clone() for k, v in params.state_dict().items()}
     torch.cuda.synchronize()

@@ -95,9 +95,13 @@ def _fill_positions(choice: torch.Tensor, active: torch.Tensor,
     choice_l = choice.long()
     onehot = one_hot(choice, num_experts, torch.int32)
     onehot = onehot * active[:, None].to(torch.int32)
-    # position of each token within its chosen expert's queue
-    pos_in_expert = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
-    pos = pos_in_expert.gather(1, choice_l[:, None])[:, 0] + used[choice_l]
+    # position of each token within its chosen expert's queue; the scan
+    # runs along the contiguous axis of the (E, T) transpose (a scan along
+    # the outer axis of (T, E) is far slower on the card)
+    onehot_t = onehot.t().contiguous()
+    pos_in_expert = torch.cumsum(onehot_t, dim=1, dtype=torch.int32) \
+        - onehot_t
+    pos = pos_in_expert.gather(0, choice_l[None, :])[0] + used[choice_l]
     placed = active & (pos < capacity)
     new_used = used + torch.minimum(onehot.sum(dim=0, dtype=torch.int32),
                                     capacity - used)

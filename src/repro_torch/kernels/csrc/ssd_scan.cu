@@ -14,56 +14,95 @@
 // a inside the chunk and h the state at the chunk's start,
 //   y_t = exp(A_t) C_t.h + sum_{s<=t} (C_t.B_s) exp(A_t - A_s) x_s
 //   h'  = exp(A_L) h + sum_s exp(A_L - A_s) B_s (x) x_s
-// in f32 (the mask is applied before the exp, so the upper triangle never
+// (the mask is applied before the exp, so the upper triangle never
 // overflows). Layouts are the JAX package's: x, y (B, S, H, P); a (B, S, H)
 // f32; b, c (B, S, G, N); final state (B, H, N, P) f32; all contiguous.
+// The dual form is exact for any chunk length; a partial chunk (S % L, or
+// L below the 128-row tile) is masked in the kernels, so any S runs.
 //
 // What bounds it: at the training path's shape (B 2, S 4096, H 64, P 64,
-// G 1, N 128) a forward call moves ~145 MB and does ~30 GFLOP of f32 FMAs
-// (64-row chunks): operations-bound on the CUDA cores (no TF32: the TPU
-// kernel computes in f32), about 0.45 ms at 67 TFLOP/s.
+// G 1, N 128, 128-row chunks, bf16) a forward moves 140 MB (x, y, a, b,
+// c, the final state) and does ~30 GFLOP (0.042 ms of bytes at 3.35 TB/s
+// against 0.03 ms of bf16 tensor-core products): bytes-bound once the
+// products run on tensor cores. With a gradient wanted it also writes the
+// state at every chunk's start, 134 MB of f32; the backward writes and
+// reads as much again as `dstates`. What holds the kernels back on the
+// card is the traffic from L2 into the SMs: B, C and C B^T are read again
+// by every head, and each kernel streams about 2.6 TB/s of it (PERF.md).
 //
-// Design (a simple first kernel; tensor cores and sharing C.B^T between
-// the heads of a group are later work):
-//  * chunks of L = min(chunk, 64) rows. At L = 128 the f32 working set of
-//    one head (x, B, C, the L x L scores, the N x P state) is 256 KB, above
-//    the 227 KB a block may have, so the kernel takes a 128-row chunk in
-//    64-row halves: the same scan (the dual form is exact for any chunk
-//    length), with half the quadratic work;
-//  * forward: one block of 8 warps per (head, batch) walks the chunks in
-//    order; the N x P f32 state stays on chip (in registers, each thread
-//    owning 16 x 2 elements, mirrored in shared memory for C.h) from one
-//    chunk to the next: the loop takes the place of the TPU's sequential
-//    chunk axis. Each chunk: load x, B, C (converted to f32) and a; the
-//    inclusive cumsum of a by one warp; S = (C B^T) masked and decayed;
-//    y = exp(A) (C h) + S x; the state update. When a gradient is wanted,
-//    the state at each chunk's start is written to `states`
-//    (B, H, nc, N, P) f32 for the backward;
-//  * backward, two launches:
-//      1. one block per (head, batch) walks the chunks in reverse,
-//         carrying dh (N x P f32, from the final state's gradient):
-//         dh <- exp(A_L) dh + sum_t exp(A_t) C_t (x) dy_t, writing the
-//         gradient of each chunk's end state to `dstates`;
-//      2. one block per (chunk, group, batch) — chunks independent now —
-//         computes C B^T once and loops over the heads of the group:
-//         dP = dy x^T; with D = mask * exp(A_t - A_s), S^ = C B^T * D and
-//         G = dP * D; dx = S^T dy + w (B dh'), w_s = exp(A_L - A_s);
-//         dC += G B + exp(A) (dy h^T); dB += G^T C + w (x dh'^T); dA from
-//         M = C B^T * G (row sums minus column sums) and the exp terms;
-//         da = the reverse cumsum of dA. dB and dC sum over the group's
-//         heads in registers, in head order: no atomics, the same bits
-//         every run;
-//  * widths: N <= 128 and P <= 64 run in zero-padded 128 / 64 tiles; rows
-//    past the chunk's end or past S load as 0 (a = 0) and are never
-//    stored, so any S runs. Shared-memory rows have odd strides in floats,
-//    so the column reads across a warp hit 32 banks. f32 FMAs throughout;
-//    bf16 inputs are widened on load and outputs rounded once.
+// Two routes, chosen by the wrapper:
+//
+//  * The tensor-core route (namespace tc): bf16 with N and P multiples of
+//    16 (N <= 128, P <= 64), chunks of up to 128 rows. Operands live in
+//    shared memory as bf16 in 128-byte-swizzled 64-column panels
+//    (wgmma_bf16.cuh), loaded by TMA from 3-D maps over the tensors as
+//    stored, (P, H, B*S) and (N, G, B*S): one box is the 128 rows of one
+//    chunk of one head or group. Rows past the chunk (a chunk shorter than
+//    128 rows, or the end of S) get a = 0, exp(A) = w = 0 and a masked
+//    decay, and are never stored. Every product is an m64nNk16 wgmma with
+//    f32 accumulators in registers; two warpgroups share each 128-row
+//    tile, one m64 half each. x, B, C and dy are exact in bf16; the f32
+//    factors (the decayed scores C B^T * D, the state, w x, exp(A) dy, the
+//    head sum of G) are rounded to bf16 operands once, as flash attention
+//    rounds P. The f32 state itself is carried in f32 registers.
+//    - The decay D of the L x L scores: the upper 64 x 64 block is zero,
+//      so its elements and its products are skipped; the lower block
+//      takes exp(A_t - A_63) exp(A_63 - A_s), two factors <= 1, in place
+//      of an exp per element; the diagonal blocks mask before the exp.
+//    - C B^T is shared by the heads of a group: a first launch writes it
+//      for every (batch, chunk, group) to `cb` (4.2 MB at the training
+//      shape, held by the L2); every head reads its rows from there and
+//      applies its own decay. The other choice, a block owning several
+//      heads, would cut the 128 (head, batch) walks that already give one
+//      block per SM. (Measured: recomputing C B^T in every head would be
+//      faster still, since the read, not the products, is the cost.)
+//    - The f32 workspaces shared between kernels (`cb`, the states and
+//      their gradients) are kept in the accumulators' fragment order, so
+//      each thread moves whole float4s and a warp 512 contiguous bytes.
+//    - Forward: one block per (head, batch) walks the chunks in order with
+//      the N x P state in registers (each warpgroup 64 rows of N). Per
+//      chunk: y = exp(A) (C h) + (C B^T * D) x, the scores going from
+//      registers straight into the A fragments of the product with x, and
+//      h <- exp(A_L) h + B^T (w x). Thread 0 keeps the next chunk's x, B
+//      and C in flight by TMA into a two-stage ring, so loads overlap the
+//      current chunk's products; a comes by plain loads one chunk ahead.
+//      y leaves through a swizzled staging tile in 16-byte stores.
+//    - Backward, three launches:
+//      1. the carried state gradient, one block per (head, batch) walking
+//         the chunks in reverse: dh <- exp(A_L) dh + C^T (exp(A) dy),
+//         writing the gradient of each chunk's end state to `dstates`;
+//      2. dx and da, one block per (chunk, head, batch), in parallel:
+//         dP = dy x^T, S^ = C B^T * D, G = dP * D; dx = w (B dh') + S^T dy;
+//         dA from the row and column sums of C B^T * G, t1 = exp(A) dy .
+//         (C h) and q = x . w (B dh'), then its reverse cumsum;
+//      3. dC and dB, one block per (chunk, group, batch) for each: the
+//         sum over the group's heads goes into the products, so the
+//         intra-chunk term is one product (sum_h G_h) B (and (sum_h
+//         G_h)^T C) a chunk, the head sum kept in f32 registers in head
+//         order, and the inter-chunk terms [exp(A) dy] h^T and [w x]
+//         dh'^T accumulate over the heads in one accumulator, a product of
+//         depth H x P. No atomics anywhere: two runs give the same bits.
+//
+//  * The FMA route (the first design, kept for f32 and other widths; f32
+//    serves only the reduced checks): CUDA-core f32 FMAs on tiles staged
+//    as float (bf16 widened on load, outputs rounded once), in chunks of
+//    min(L, 64) rows (the f32 working set of a 128-row chunk would exceed
+//    the 227 KB a block may have). Forward: one block of 8 warps per
+//    (head, batch) walks the chunks with the state in registers. Backward:
+//    the same reverse walk for dstates, then one block per (chunk, group,
+//    batch) that computes C B^T once and loops over the group's heads,
+//    summing dB and dC in registers in head order. Shared-memory rows have
+//    odd strides in floats, so column reads across a warp hit 32 banks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
+
+#include "sm90_async.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -759,6 +798,1060 @@ cudaError_t bwd(const void* x, const void* a, const void* b, const void* c,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// The tensor-core route (bf16, N and P multiples of 16)
+// ---------------------------------------------------------------------
+namespace tc {
+
+using namespace sm90;
+using bf16 = __nv_bfloat16;
+
+constexpr int kT = 256;                    // two warpgroups
+constexpr int R = 128;                     // tile rows of a chunk
+constexpr int kPanel = R * 128;            // 128 rows x 64 bf16: 16 KB
+constexpr int kWide = 2 * kPanel;          // 128 rows x 128 bf16: 32 KB
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr unsigned kAll = 0xffffffffu;
+
+struct Shape {
+  int B, S, H, G, N, P, L, nc;
+};
+
+// Per-row factors of one chunk and head: la = A log2(e) (A the inclusive
+// cumsum of a), eA = exp(A) and w = exp(A_last - A), both 0 on rows past
+// the chunk's valid rows; e63 = exp(A_63 - A) on rows below 64 and
+// exp(A - A_63) (0 past the valid rows) from row 64 on.
+struct Scan {
+  float la[R], eA[R], w[R], e63[R];
+};
+
+// This thread's warpgroup, broadcast from lane 0 so that the compiler
+// sees it uniform across the warp: a branch on it around wgmma is then
+// not a divergent path (which would serialise the wgmma pipeline).
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(kAll, static_cast<int>(threadIdx.x / 128), 0);
+}
+
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void init_bars(uint64_t* bar, int n) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < n; ++i) mbar_init(&bar[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Lane l of a warp: a of rows 4l .. 4l+3 of a chunk (0 from row nrows on).
+__device__ __forceinline__ void load_a(float (&av)[4], const float* a,
+                                       long base, int H, int nrows) {
+  const int l = threadIdx.x % 32;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int t = 4 * l + k;
+    av[k] = t < nrows ? __ldg(a + base + static_cast<long>(t) * H) : 0.f;
+  }
+}
+
+// One warp: the chunk's Scan from av (see load_a).
+__device__ __forceinline__ void chunk_scan(Scan& s, const float (&av)[4],
+                                           int nrows) {
+  const int l = threadIdx.x % 32;
+  float c[4], run = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    run += av[k];
+    c[k] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(kAll, incl, o);
+    if (l >= o) incl += u;
+  }
+  const float excl = incl - run, total = __shfl_sync(kAll, incl, 31);
+  const float a63 = __shfl_sync(kAll, excl + c[3], 15);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int t = 4 * l + k;
+    const float acum = excl + c[k];
+    const bool ok = t < nrows;
+    s.la[t] = acum * kLog2e;
+    s.eA[t] = ok ? exp2f(acum * kLog2e) : 0.f;
+    s.w[t] = ok ? exp2f((total - acum) * kLog2e) : 0.f;
+    s.e63[t] = t < 64 ? exp2f((a63 - acum) * kLog2e)
+                      : (ok ? exp2f((acum - a63) * kLog2e) : 0.f);
+  }
+}
+
+// exp(A_t - A_s) for s <= t < nrows, else 0 (masked before the exp)
+__device__ __forceinline__ float decay(const Scan& s, int t, int u,
+                                       int nrows) {
+  return (u <= t && t < nrows) ? wgmma::exp2_approx(s.la[t] - s.la[u]) : 0.f;
+}
+
+// The decay of an L x L fragment's element i in warpgroup W, whose rows
+// are t (kRowsT) or s. Of the four 64 x 64 blocks, the upper one (s >= 64
+// > t) is 0 and needs no work; the lower one (t >= 64 > s) takes
+// exp(A_t - A_63) exp(A_63 - A_s), a product of two factors <= 1 in place
+// of an exp; the two diagonal ones mask and exp per element.
+template <int W, bool kRowsT>
+__device__ __forceinline__ bool upper(int i) {
+  return kRowsT ? (W == 0 && i >= 32) : (W == 1 && i < 32);
+}
+template <int W, bool kRowsT>
+__device__ __forceinline__ float dmat(const Scan& s, int r, int c, int i,
+                                      int nrows) {
+  const int t = kRowsT ? r : c, u = kRowsT ? c : r;
+  if (upper<W, kRowsT>(i)) return 0.f;
+  if ((W == 0) == (i < 32)) return decay(s, t, u, nrows);   // diagonal
+  return t < nrows ? s.e63[t] * s.e63[u] : 0.f;
+}
+template <int W>
+using WG = std::integral_constant<int, W>;
+
+// Accumulator fragment coordinates of this thread in its warpgroup.
+struct Frag {
+  int row, col;                             // of element 0
+  __device__ __forceinline__ Frag() {
+    const int t = threadIdx.x % 128, l = t % 32;
+    row = 16 * (t / 32) + l / 4;
+    col = 2 * (l % 4);
+  }
+  __device__ __forceinline__ int r(int i) const {
+    return row + 8 * ((i / 2) % 2);
+  }
+  __device__ __forceinline__ int c(int i) const {
+    return 8 * (i / 4) + col + i % 2;
+  }
+};
+
+__device__ __forceinline__ float ld_bf(const unsigned char* tile, int r,
+                                       int c) {
+  return __bfloat162float(*reinterpret_cast<const bf16*>(
+      tile + wgmma::sw_offset<R>(r, c)));
+}
+__device__ __forceinline__ void st_bf2(unsigned char* tile, int r, int c,
+                                       float lo, float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(tile + wgmma::sw_offset<R>(r, c)) =
+      __floats2bfloat162_rn(lo, hi);
+}
+
+// dst rows [r0, r0 + 64) = scale[row] * src rows, over one 64-column
+// panel (the swizzle moves bytes within a row only).
+__device__ __forceinline__ void scale_rows(unsigned char* dst,
+                                           const unsigned char* src,
+                                           const float* scale, int r0) {
+  const int t = threadIdx.x % 128;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int j = t + 128 * k, r = r0 + j / 8, off = r * 128 + (j % 8) * 16;
+    const uint4 v = *reinterpret_cast<const uint4*>(src + off);
+    const float f = scale[r];
+    const __nv_bfloat162* in = reinterpret_cast<const __nv_bfloat162*>(&v);
+    uint4 o;
+    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 u = __bfloat1622float2(in[e]);
+      out[e] = __floats2bfloat162_rn(u.x * f, u.y * f);
+    }
+    *reinterpret_cast<uint4*>(dst + off) = o;
+  }
+}
+
+// Rows [r0, r0 + 64) of a swizzled 128 x 64 bf16 tile to rows of `out`
+// (row stride ld elements): rows < nrows, columns < P, 16 bytes a store.
+__device__ __forceinline__ void store_rows(bf16* out, long ld,
+                                           const unsigned char* tile, int r0,
+                                           int nrows, int P) {
+  const int t = threadIdx.x % 128;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int j = t + 128 * k, r = r0 + j / 8, cc = j % 8;
+    if (r < nrows && cc * 8 < P)
+      *reinterpret_cast<uint4*>(out + r * ld + cc * 8) =
+          *reinterpret_cast<const uint4*>(tile + r * 128 +
+                                          ((cc ^ (r % 8)) * 16));
+  }
+}
+
+// The f32 workspaces the kernels share (C B^T, and the states and their
+// gradients at every chunk's edge) are stored in fragment order: float4
+// k of thread t of warpgroup w holds accumulator elements 4k .. 4k + 3 and
+// sits at float4 (w * K + k) * 128 + t (K = 16 for a 128 x 128 tile, 8
+// for a 128 x 64 state), so a warp moves 512 contiguous bytes at a time.
+template <int K>
+__device__ __forceinline__ void store_frag(float* g, const float (&d)[4 * K],
+                                           int wg) {
+  float4* o = reinterpret_cast<float4*>(g) + wg * K * 128 + threadIdx.x % 128;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    o[k * 128] = make_float4(d[4 * k], d[4 * k + 1], d[4 * k + 2],
+                             d[4 * k + 3]);
+}
+template <int K>
+__device__ __forceinline__ void load_frag(float (&d)[4 * K], const float* g,
+                                          int wg) {
+  const float4* in =
+      reinterpret_cast<const float4*>(g) + wg * K * 128 + threadIdx.x % 128;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float4 v = __ldg(in + k * 128);
+    d[4 * k] = v.x;
+    d[4 * k + 1] = v.y;
+    d[4 * k + 2] = v.z;
+    d[4 * k + 3] = v.w;
+  }
+}
+constexpr int kStateFloats = R * 64;       // a state in fragment order
+
+// States in fragment order (in shared memory, each thread reading the
+// elements it owns as a fragment of its warpgroup) into bf16 tiles (n, q):
+// st into tile and, with kPair, st2 into tile2, returning this thread's
+// part of <st, st2>.
+template <bool kPair>
+__device__ __forceinline__ float frag_to_tile(unsigned char* tile,
+                                              const float* st,
+                                              unsigned char* tile2 = nullptr,
+                                              const float* st2 = nullptr) {
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128, l = t % 32;
+  const int row = 64 * wg + 16 * (t / 32) + l / 4, col = 2 * (l % 4);
+  const int at = wg * 8 * 128 + t;
+  float dot = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float4 u = reinterpret_cast<const float4*>(st)[at + k * 128];
+    st_bf2(tile, row, 8 * k + col, u.x, u.y);
+    st_bf2(tile, row + 8, 8 * k + col, u.z, u.w);
+    if (kPair) {
+      const float4 v = reinterpret_cast<const float4*>(st2)[at + k * 128];
+      st_bf2(tile2, row, 8 * k + col, v.x, v.y);
+      st_bf2(tile2, row + 8, 8 * k + col, v.z, v.w);
+      dot += u.x * v.x + u.y * v.y + u.z * v.z + u.w * v.w;
+    }
+  }
+  return dot;
+}
+
+// An m64n64 f32 fragment (rows n of the warpgroup, columns q) of an
+// N x P f32 state to global memory, rows < N, columns < P.
+__device__ __forceinline__ void store_state(float* g, const float (&d)[32],
+                                            int n0, int N, int P) {
+  const Frag f;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int n = n0 + f.r(i), q = f.c(i);
+    if (n < N && q < P)
+      *reinterpret_cast<float2*>(g + n * P + q) = make_float2(d[i], d[i + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------
+// C.B^T of every chunk and group, once: cb (B, nc, G, 128 x 128) f32, in
+// fragment order
+// ---------------------------------------------------------------------
+__global__ void __launch_bounds__(kT, 1)
+ssd_tc_cb_kernel(Shape p, const __grid_constant__ CUtensorMap tb,
+          const __grid_constant__ CUtensorMap tcm, float* __restrict__ cb) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* Bt = align1024(raw);
+  unsigned char* Ct = Bt + kWide;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(Ct + kWide);
+  const int ci = blockIdx.x, g = blockIdx.y, bb = blockIdx.z;
+  const int wg = warpgroup();
+  init_bars(bar, 1);
+  if (threadIdx.x == 0) {
+    const int row = bb * p.S + ci * p.L;
+    mbar_expect(bar, 2 * kWide);
+    for (int c = 0; c < 2; ++c) {
+      tma_load_3d(Bt + c * kPanel, tb, bar, 64 * c, g, row);
+      tma_load_3d(Ct + c * kPanel, tcm, bar, 64 * c, g, row);
+    }
+  }
+  mbar_wait(bar, 0);
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  wgmma::fence_operand(acc);
+  wgmma::fence();
+  for (int kk = 0; kk < p.N / 16; ++kk)
+    wgmma::wgmma_ss_acc<0, 0>(acc, wgmma::kmajor<R>(Ct, 64 * wg, kk),
+                              wgmma::kmajor<R>(Bt, 0, kk));
+  wgmma::commit();
+  wgmma::wait<0>();
+  wgmma::fence_operand(acc);
+  store_frag<16>(cb + ((static_cast<long>(bb) * p.nc + ci) * p.G + g) * R * R,
+                 acc, wg);
+}
+
+// ---------------------------------------------------------------------
+// forward: one block per (head, batch) walks the chunks, the state in
+// registers
+// ---------------------------------------------------------------------
+struct FwdSmem {
+  static constexpr int kStage = 5 * kPanel;     // x, B (2 panels), C (2)
+  static constexpr size_t bytes =
+      1024 + 2 * kStage + 3 * kPanel + 2 * sizeof(Scan) + 2 * 8;
+};
+
+__global__ void __launch_bounds__(kT, 1)
+ssd_tc_fwd_kernel(Shape p, const __grid_constant__ CUtensorMap tx,
+           const __grid_constant__ CUtensorMap tb,
+           const __grid_constant__ CUtensorMap tcm,
+           const float* __restrict__ a, const float* __restrict__ cb,
+           bf16* __restrict__ y, float* __restrict__ hT,
+           float* __restrict__ states) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* ring = align1024(raw);
+  unsigned char* WX = ring + 2 * FwdSmem::kStage;   // w * x, bf16
+  unsigned char* Ht = WX + kPanel;                  // state, bf16 (n, q)
+  unsigned char* Ys = Ht + kPanel;                  // y staging
+  Scan* scans = reinterpret_cast<Scan*>(Ys + kPanel);
+  uint64_t* full = reinterpret_cast<uint64_t*>(scans + 2);
+
+  const int h = blockIdx.x, bb = blockIdx.y, g = h / (p.H / p.G);
+  const int wg = warpgroup();
+  const bool scanner = threadIdx.x % 128 < 32;
+  Scan& sc = scans[wg];
+  const Frag f;
+  const int nkN = p.N / 16;
+  const long head = static_cast<long>(bb) * p.H + h;
+
+  auto X = [&](int st) { return ring + st * FwdSmem::kStage; };
+  auto Bt = [&](int st) { return X(st) + kPanel; };
+  auto Ct = [&](int st) { return X(st) + 3 * kPanel; };
+  auto fetch = [&](int ci) {
+    const int st = ci % 2, row = bb * p.S + ci * p.L;
+    mbar_expect(&full[st], FwdSmem::kStage);
+    tma_load_3d(X(st), tx, &full[st], 0, h, row);
+    for (int c = 0; c < 2; ++c) {
+      tma_load_3d(Bt(st) + c * kPanel, tb, &full[st], 64 * c, g, row);
+      tma_load_3d(Ct(st) + c * kPanel, tcm, &full[st], 64 * c, g, row);
+    }
+  };
+
+  for (int i = threadIdx.x; i < kPanel / 16; i += kT)
+    reinterpret_cast<uint4*>(Ht)[i] = make_uint4(0, 0, 0, 0);
+  init_bars(full, 2);
+  if (threadIdx.x == 0) {
+    fetch(0);
+    if (p.nc > 1) fetch(1);
+  }
+  float hacc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) hacc[i] = 0.f;
+  float av[4];
+  if (scanner)
+    load_a(av, a, static_cast<long>(bb) * p.S * p.H + h, p.H,
+           min(p.L, p.S));
+
+  for (int ci = 0; ci < p.nc; ++ci) {
+    const int st = ci % 2, r0 = ci * p.L, nrows = min(p.L, p.S - r0);
+    float cbr[64];
+    load_frag<16>(cbr, cb + ((static_cast<long>(bb) * p.nc + ci) * p.G + g) *
+                               R * R, wg);
+    if (scanner) {
+      chunk_scan(sc, av, nrows);
+      if (ci + 1 < p.nc) {
+        const int r1 = r0 + p.L;
+        load_a(av, a, (static_cast<long>(bb) * p.S + r1) * p.H + h, p.H,
+               min(p.L, p.S - r1));
+      }
+    }
+    if (states != nullptr)
+      store_frag<8>(states + (head * p.nc + ci) * kStateFloats, hacc, wg);
+    mbar_wait(&full[st], (ci / 2) & 1);
+    wg_sync(wg);                           // the scan
+    scale_rows(WX, X(st), sc.w, 64 * wg);
+    wgmma::fence_proxy();
+    __syncthreads();                       // WX and Ht whole
+
+    // y = exp(A) (C h) + (C B^T * D) x;  h <- exp(A_L) h + B^T (w x)
+    float yacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) yacc[i] = 0.f;
+    const float eL = sc.eA[nrows - 1];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) hacc[i] *= eL;
+    wgmma::fence_operand(yacc);
+    wgmma::fence_operand(hacc);
+    wgmma::fence();
+    for (int kk = 0; kk < nkN; ++kk)
+      wgmma::wgmma_ss_acc<0, 1>(yacc, wgmma::kmajor<R>(Ct(st), 64 * wg, kk),
+                                wgmma::mnmajor<R>(Ht, kk));
+    wgmma::commit();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma::wgmma_ss_acc<1, 1>(
+          hacc, wgmma::mnmajor<R>(Bt(st) + wg * kPanel, kk),
+          wgmma::mnmajor<R>(WX, kk));
+    wgmma::commit();
+    uint32_t fr[8][4];
+    auto sd = [&](auto w) {
+      constexpr int W = decltype(w)::value;
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        cbr[i] = upper<W, true>(i) ? 0.f
+                 : cbr[i] * dmat<W, true>(sc, 64 * W + f.r(i), f.c(i), i,
+                                          nrows);
+      wgmma::to_frags(cbr, fr);
+    };
+    if (wg == 0) sd(WG<0>{}); else sd(WG<1>{});
+    wgmma::wait<0>();                      // the state's product ran under D
+    wgmma::fence_operand(yacc);
+    wgmma::fence_operand(hacc);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) yacc[i] *= sc.eA[64 * wg + f.r(i)];
+    wgmma::fence_operand(yacc);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)         // rows t < 64: columns s < 64
+      wgmma::wgmma_rs_acc<1>(yacc, fr[kk], wgmma::mnmajor<R>(X(st), kk));
+    if (wg == 1) {
+#pragma unroll
+      for (int kk = 4; kk < 8; ++kk)
+        wgmma::wgmma_rs_acc<1>(yacc, fr[kk], wgmma::mnmajor<R>(X(st), kk));
+    }
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operand(yacc);
+    wgmma::fence_operand(hacc);
+    __syncthreads();                       // Ht, WX and stage st are read
+    if (threadIdx.x == 0 && ci + 2 < p.nc) fetch(ci + 2);
+
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      st_bf2(Ht, 64 * wg + f.r(i), f.c(i), hacc[i], hacc[i + 1]);
+      st_bf2(Ys, 64 * wg + f.r(i), f.c(i), yacc[i], yacc[i + 1]);
+    }
+    wg_sync(wg);
+    store_rows(y + ((static_cast<long>(bb) * p.S + r0) * p.H + h) * p.P,
+               static_cast<long>(p.H) * p.P, Ys, 64 * wg, nrows, p.P);
+  }
+  store_state(hT + head * p.N * p.P, hacc, 64 * wg, p.N, p.P);
+}
+
+// ---------------------------------------------------------------------
+// backward 1: the carried state gradient, chunks in reverse
+// ---------------------------------------------------------------------
+struct StateSmem {
+  static constexpr int kStage = 3 * kPanel;     // dy, C (2 panels)
+  static constexpr size_t bytes =
+      1024 + 2 * kStage + kPanel + 2 * sizeof(Scan) + 2 * 8;
+};
+
+__global__ void __launch_bounds__(kT, 1)
+ssd_tc_bwd_state_kernel(Shape p, const __grid_constant__ CUtensorMap tdy,
+                 const __grid_constant__ CUtensorMap tcm,
+                 const float* __restrict__ a, const float* __restrict__ dhT,
+                 float* __restrict__ dstates) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* ring = align1024(raw);
+  unsigned char* EDY = ring + 2 * StateSmem::kStage;   // exp(A) dy, bf16
+  Scan* scans = reinterpret_cast<Scan*>(EDY + kPanel);
+  uint64_t* full = reinterpret_cast<uint64_t*>(scans + 2);
+
+  const int h = blockIdx.x, bb = blockIdx.y, g = h / (p.H / p.G);
+  const int wg = warpgroup();
+  const bool scanner = threadIdx.x % 128 < 32;
+  Scan& sc = scans[wg];
+  const Frag f;
+  const long head = static_cast<long>(bb) * p.H + h;
+
+  auto DY = [&](int st) { return ring + st * StateSmem::kStage; };
+  auto Ct = [&](int st) { return DY(st) + kPanel; };
+  auto fetch = [&](int it) {                // it-th chunk from the end
+    const int st = it % 2, row = bb * p.S + (p.nc - 1 - it) * p.L;
+    mbar_expect(&full[st], StateSmem::kStage);
+    tma_load_3d(DY(st), tdy, &full[st], 0, h, row);
+    for (int c = 0; c < 2; ++c)
+      tma_load_3d(Ct(st) + c * kPanel, tcm, &full[st], 64 * c, g, row);
+  };
+  init_bars(full, 2);
+  if (threadIdx.x == 0) {
+    fetch(0);
+    if (p.nc > 1) fetch(1);
+  }
+  float dh[32];
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int n = 64 * wg + f.r(i), q = f.c(i);
+    const bool ok = dhT != nullptr && n < p.N && q < p.P;
+    const float2 v = ok ? *reinterpret_cast<const float2*>(
+                              dhT + head * p.N * p.P + n * p.P + q)
+                        : make_float2(0.f, 0.f);
+    dh[i] = v.x;
+    dh[i + 1] = v.y;
+  }
+  float av[4];
+  auto a_base = [&](int ci) {
+    return (static_cast<long>(bb) * p.S + ci * p.L) * p.H + h;
+  };
+  if (scanner)
+    load_a(av, a, a_base(p.nc - 1), p.H, p.S - (p.nc - 1) * p.L);
+
+  for (int it = 0; it < p.nc; ++it) {
+    const int ci = p.nc - 1 - it, st = it % 2;
+    const int nrows = min(p.L, p.S - ci * p.L);
+    if (scanner) {
+      chunk_scan(sc, av, nrows);
+      if (ci > 0) load_a(av, a, a_base(ci - 1), p.H, p.L);
+    }
+    store_frag<8>(dstates + (head * p.nc + ci) * kStateFloats, dh, wg);
+    mbar_wait(&full[st], (it / 2) & 1);
+    wg_sync(wg);
+    scale_rows(EDY, DY(st), sc.eA, 64 * wg);
+    wgmma::fence_proxy();
+    __syncthreads();
+    // dh <- exp(A_L) dh + C^T (exp(A) dy)
+    const float eL = sc.eA[nrows - 1];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dh[i] *= eL;
+    wgmma::fence_operand(dh);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma::wgmma_ss_acc<1, 1>(dh,
+                                wgmma::mnmajor<R>(Ct(st) + wg * kPanel, kk),
+                                wgmma::mnmajor<R>(EDY, kk));
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operand(dh);
+    __syncthreads();                       // EDY and stage st are read
+    if (threadIdx.x == 0 && it + 2 < p.nc) fetch(it + 2);
+  }
+}
+
+// ---------------------------------------------------------------------
+// backward 2: dx and da of every (chunk, head), in parallel
+// ---------------------------------------------------------------------
+struct DxSmem {
+  // x, dy, B (2), C (2), h, dh' (bf16), then S^ (2 panels) over the f32
+  // states it replaces
+  static constexpr int kTiles = 8 * kPanel;
+  static constexpr int kUnion = 4 * kPanel;     // 2 x 128 x 64 f32
+  static constexpr size_t bytes = 1024 + kTiles + kUnion + sizeof(Scan) +
+                                  sizeof(float) * (8 * R + 3 * R + 8) + 8;
+};
+
+__global__ void __launch_bounds__(kT, 1)
+ssd_tc_bwd_dx_kernel(Shape p, const __grid_constant__ CUtensorMap tx,
+              const __grid_constant__ CUtensorMap tdy,
+              const __grid_constant__ CUtensorMap tb,
+              const __grid_constant__ CUtensorMap tcm,
+              const float* __restrict__ a, const float* __restrict__ cb,
+              const float* __restrict__ states,
+              const float* __restrict__ dstates, bf16* __restrict__ dx,
+              float* __restrict__ da) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* X = align1024(raw);
+  unsigned char* DY = X + kPanel;
+  unsigned char* Bt = DY + kPanel;
+  unsigned char* Ct = Bt + kWide;
+  unsigned char* HB = Ct + kWide;
+  unsigned char* DHB = HB + kPanel;
+  unsigned char* SH = DHB + kPanel;        // S^ = C B^T * D, bf16 (t, s)
+  float* H32 = reinterpret_cast<float*>(SH);           // states, f32
+  float* DH32 = H32 + R * 64;                          // dstates, f32
+  Scan& sc = *reinterpret_cast<Scan*>(SH + DxSmem::kUnion);
+  float* colp = reinterpret_cast<float*>(&sc + 1);     // 8 x R
+  float* rowM = colp + 8 * R;
+  float* t1 = rowM + R;
+  float* qs = t1 + R;
+  float* red = qs + R;                                 // 8
+  uint64_t* bar = reinterpret_cast<uint64_t*>(red + 8);
+
+  const int ci = blockIdx.x, h = blockIdx.y, bb = blockIdx.z;
+  const int g = h / (p.H / p.G), wg = warpgroup();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int r0 = ci * p.L, nrows = min(p.L, p.S - r0);
+  const int nkN = p.N / 16, nkP = p.P / 16;
+  const long head = static_cast<long>(bb) * p.H + h;
+  const long sbase = (head * p.nc + ci) * kStateFloats;
+  const Frag f;
+
+  init_bars(bar, 1);
+  if (threadIdx.x == 0) {
+    const int row = bb * p.S + r0, sb = kStateFloats * 4;
+    mbar_expect(bar, 2 * kPanel + 2 * kWide + 2 * sb);
+    tma_load_3d(X, tx, bar, 0, h, row);
+    tma_load_3d(DY, tdy, bar, 0, h, row);
+    for (int c = 0; c < 2; ++c) {
+      tma_load_3d(Bt + c * kPanel, tb, bar, 64 * c, g, row);
+      tma_load_3d(Ct + c * kPanel, tcm, bar, 64 * c, g, row);
+    }
+    bulk_load(H32, states + sbase, sb, bar);
+    bulk_load(DH32, dstates + sbase, sb, bar);
+  }
+  if (threadIdx.x < 32) {
+    float av[4];
+    load_a(av, a, (static_cast<long>(bb) * p.S + r0) * p.H + h, p.H, nrows);
+    chunk_scan(sc, av, nrows);
+  }
+  float cbr[64];
+  load_frag<16>(cbr, cb + ((static_cast<long>(bb) * p.nc + ci) * p.G + g) *
+                             R * R, wg);
+  mbar_wait(bar, 0);
+  // h and dh' as bf16 tiles (n, q), zero padded; <dh', h> in f32
+  float dot = warp_sum(frag_to_tile<true>(HB, H32, DHB, DH32));
+  if (lane == 0) red[warp] = dot;
+  wgmma::fence_proxy();
+  __syncthreads();                         // HB, DHB, scan; f32 states read
+
+  // dP = dy x^T (rows t), C h (rows t)
+  float dP[64], acc[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dP[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  wgmma::fence_operand(dP);
+  wgmma::fence_operand(acc);
+  wgmma::fence();
+  for (int kk = 0; kk < nkP; ++kk)
+    wgmma::wgmma_ss_acc<0, 0>(dP, wgmma::kmajor<R>(DY, 64 * wg, kk),
+                              wgmma::kmajor<R>(X, 0, kk));
+  for (int kk = 0; kk < nkN; ++kk)
+    wgmma::wgmma_ss_acc<0, 1>(acc, wgmma::kmajor<R>(Ct, 64 * wg, kk),
+                              wgmma::mnmajor<R>(HB, kk));
+  wgmma::commit();
+  wgmma::wait<0>();
+  wgmma::fence_operand(dP);
+  wgmma::fence_operand(acc);
+
+  // t1[t] = exp(A_t) dy_t . (C h)_t
+  {
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int t = 64 * wg + f.r(i);
+      rs[(i / 2) % 2] = fmaf(ld_bf(DY, t, f.c(i)), acc[i], rs[(i / 2) % 2]);
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float v = rs[hf];
+      v += __shfl_xor_sync(kAll, v, 1);
+      v += __shfl_xor_sync(kAll, v, 2);
+      const int t = 64 * wg + f.row + 8 * hf;
+      if (lane % 4 == 0) t1[t] = sc.eA[t] * v;
+    }
+  }
+  // S^ = C B^T * D into shared memory; G = dP * D; M = C B^T * G: its
+  // row sums, and its column sums per warp
+  {
+    float rs[2] = {0.f, 0.f}, cs[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) cs[j] = 0.f;
+    auto sg = [&](auto w) {
+      constexpr int W = decltype(w)::value;
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int t = 64 * W + f.r(i), s = f.c(i);
+        if (upper<W, true>(i)) {
+          st_bf2(SH, t, s, 0.f, 0.f);
+          continue;
+        }
+        const float d0 = dmat<W, true>(sc, t, s, i, nrows);
+        const float d1 = dmat<W, true>(sc, t, s + 1, i + 1, nrows);
+        const float m0 = cbr[i] * (dP[i] * d0);
+        const float m1 = cbr[i + 1] * (dP[i + 1] * d1);
+        rs[(i / 2) % 2] += m0 + m1;
+        cs[2 * (i / 4)] += m0;
+        cs[2 * (i / 4) + 1] += m1;
+        st_bf2(SH, t, s, cbr[i] * d0, cbr[i + 1] * d1);
+      }
+    };
+    if (wg == 0) sg(WG<0>{}); else sg(WG<1>{});
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float v = rs[hf];
+      v += __shfl_xor_sync(kAll, v, 1);
+      v += __shfl_xor_sync(kAll, v, 2);
+      if (lane % 4 == 0) rowM[64 * wg + f.row + 8 * hf] = v;
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      float v = cs[j];
+      v += __shfl_xor_sync(kAll, v, 4);
+      v += __shfl_xor_sync(kAll, v, 8);
+      v += __shfl_xor_sync(kAll, v, 16);
+      if (lane < 4) colp[warp * R + 8 * (j / 2) + 2 * lane + j % 2] = v;
+    }
+  }
+  wgmma::fence_proxy();
+  __syncthreads();                         // S^ whole
+
+  // dx = w (B dh') + S^T dy (rows s); q_s = x_s . w_s (B dh')_s
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  wgmma::fence_operand(acc);
+  wgmma::fence();
+  for (int kk = 0; kk < nkN; ++kk)
+    wgmma::wgmma_ss_acc<0, 1>(acc, wgmma::kmajor<R>(Bt, 64 * wg, kk),
+                              wgmma::mnmajor<R>(DHB, kk));
+  wgmma::commit();
+  wgmma::wait<0>();
+  wgmma::fence_operand(acc);
+  {
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int s = 64 * wg + f.r(i);
+      acc[i] *= sc.w[s];
+      rs[(i / 2) % 2] = fmaf(ld_bf(X, s, f.c(i)), acc[i], rs[(i / 2) % 2]);
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float v = rs[hf];
+      v += __shfl_xor_sync(kAll, v, 1);
+      v += __shfl_xor_sync(kAll, v, 2);
+      if (lane % 4 == 0) qs[64 * wg + f.row + 8 * hf] = v;
+    }
+  }
+  wgmma::fence_operand(acc);
+  wgmma::fence();
+  for (int kk = 4 * wg; kk < 8; ++kk)      // rows s >= 64: rows t >= 64
+    wgmma::wgmma_ss_acc<1, 1>(acc, wgmma::mnmajor<R>(SH + wg * kPanel, kk),
+                              wgmma::mnmajor<R>(DY, kk));
+  wgmma::commit();
+  wgmma::wait<0>();
+  wgmma::fence_operand(acc);
+  __syncthreads();                         // S^ read; q, t1, sums whole
+#pragma unroll
+  for (int i = 0; i < 32; i += 2)
+    st_bf2(SH, 64 * wg + f.r(i), f.c(i), acc[i], acc[i + 1]);
+  wg_sync(wg);
+  store_rows(dx + ((static_cast<long>(bb) * p.S + r0) * p.H + h) * p.P,
+             static_cast<long>(p.H) * p.P, SH, 64 * wg, nrows, p.P);
+
+  // dA_t = rowM - colM + t1 - q (+ sum q + exp(A_L) <dh', h> on the last
+  // valid row); da = its reverse cumsum over the chunk (warp 0)
+  if (warp == 0) {
+    float v[4], qsum = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int t = R - 1 - (4 * lane + k);
+      float col = 0.f;
+#pragma unroll
+      for (int wi = 0; wi < 8; ++wi) col += colp[wi * R + t];
+      v[k] = rowM[t] - col + t1[t] - qs[t];
+      qsum += qs[t];
+    }
+    qsum = warp_sum(qsum);
+    float dsum = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < 8; ++wi) dsum += red[wi];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (R - 1 - (4 * lane + k) == nrows - 1)
+        v[k] += qsum + sc.eA[nrows - 1] * dsum;
+    float run = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      run += v[k];
+      v[k] = run;
+    }
+    float incl = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(kAll, incl, o);
+      if (lane >= o) incl += u;
+    }
+    const float excl = incl - run;
+    float* dab = da + (static_cast<long>(bb) * p.S + r0) * p.H + h;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int t = R - 1 - (4 * lane + k);
+      if (t < nrows) dab[static_cast<long>(t) * p.H] = excl + v[k];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// backward 3: dC and dB of every (chunk, group), summed over the group's
+// heads in order
+// ---------------------------------------------------------------------
+struct DbcSmem {
+  static constexpr int kStage = 2 * kPanel;     // U, V
+  static constexpr size_t bytes = 1024 + 2 * kStage + kStateFloats * 4 +
+                                  kWide + 2 * kPanel + sizeof(Scan) + 4 * 8;
+};
+
+// kMode 0: dC (rows t): U = dy, V = x, row factor exp(A), state h, F = B.
+// kMode 1: dB (rows s): U = x, V = dy, row factor w, state dh', F = C.
+template <int kMode>
+__device__ __forceinline__ void dbc_body(
+    const Shape& p, const CUtensorMap& tu, const CUtensorMap& tv,
+    const CUtensorMap& tf, const float* __restrict__ a,
+    const float* __restrict__ st32, bf16* __restrict__ out,
+    unsigned char* base) {
+  unsigned char* ring = base;
+  float* S32 = reinterpret_cast<float*>(ring + 2 * DbcSmem::kStage);
+  unsigned char* Ft = ring + 2 * DbcSmem::kStage + kStateFloats * 4;
+  unsigned char* US = Ft + kWide;          // row factor * U, bf16
+  unsigned char* ST = US + kPanel;         // state, bf16 (n, q)
+  Scan& sc = *reinterpret_cast<Scan*>(ST + kPanel);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(&sc + 1);  // U V x2, F, S32
+
+  const int ci = blockIdx.x, g = blockIdx.y / 2, bb = blockIdx.z;
+  const int rep = p.H / p.G, wg = warpgroup();
+  const int r0 = ci * p.L, nrows = min(p.L, p.S - r0);
+  const int row = bb * p.S + r0, sb = kStateFloats * 4;
+  const int nkP = p.P / 16;
+  const Frag f;
+
+  auto U = [&](int st) { return ring + st * DbcSmem::kStage; };
+  auto V = [&](int st) { return U(st) + kPanel; };
+  auto sbase = [&](int h) {
+    return ((static_cast<long>(bb) * p.H + h) * p.nc + ci) * kStateFloats;
+  };
+  auto fetch = [&](int j) {
+    const int st = j % 2, h = g * rep + j;
+    mbar_expect(&bars[st], 2 * kPanel);
+    tma_load_3d(U(st), tu, &bars[st], 0, h, row);
+    tma_load_3d(V(st), tv, &bars[st], 0, h, row);
+  };
+  auto fetch_state = [&](int j) {
+    mbar_expect(&bars[3], sb);
+    bulk_load(S32, st32 + sbase(g * rep + j), sb, &bars[3]);
+  };
+  init_bars(bars, 4);
+  if (threadIdx.x == 0) {
+    mbar_expect(&bars[2], kWide);
+    for (int c = 0; c < 2; ++c)
+      tma_load_3d(Ft + c * kPanel, tf, &bars[2], 64 * c, g, row);
+    fetch_state(0);
+    fetch(0);
+    if (rep > 1) fetch(1);
+  }
+  float acc[64], gsum[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = gsum[i] = 0.f;
+  float av[4];
+  const bool scanner = threadIdx.x < 32;
+  auto a_base = [&](int h) {
+    return (static_cast<long>(bb) * p.S + r0) * p.H + h;
+  };
+  if (scanner) load_a(av, a, a_base(g * rep), p.H, nrows);
+
+  for (int j = 0; j < rep; ++j) {
+    const int st = j % 2;
+    if (scanner) {
+      chunk_scan(sc, av, nrows);
+      if (j + 1 < rep) load_a(av, a, a_base(g * rep + j + 1), p.H, nrows);
+    }
+    mbar_wait(&bars[3], j & 1);
+    frag_to_tile<false>(ST, S32);
+    __syncthreads();                       // the scan; S32 is read
+    if (threadIdx.x == 0 && j + 1 < rep) fetch_state(j + 1);
+    mbar_wait(&bars[st], (j / 2) & 1);
+    scale_rows(US, U(st), kMode == 0 ? sc.eA : sc.w, 64 * wg);
+    wgmma::fence_proxy();
+    __syncthreads();                       // ST, US whole
+
+    float dP[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dP[i] = 0.f;
+    wgmma::fence_operand(dP);
+    wgmma::fence_operand(acc);
+    wgmma::fence();
+    for (int kk = 0; kk < nkP; ++kk)
+      wgmma::wgmma_ss_acc<0, 0>(dP, wgmma::kmajor<R>(U(st), 64 * wg, kk),
+                                wgmma::kmajor<R>(V(st), 0, kk));
+    wgmma::commit();
+    for (int kk = 0; kk < nkP; ++kk)
+      wgmma::wgmma_ss_acc<0, 0>(acc, wgmma::kmajor<R>(US, 64 * wg, kk),
+                                wgmma::kmajor<R>(ST, 0, kk));
+    wgmma::commit();
+    wgmma::wait<1>();
+    wgmma::fence_operand(dP);
+    auto gs = [&](auto w) {
+      constexpr int W = decltype(w)::value;
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        if (!upper<W, kMode == 0>(i))
+          gsum[i] = fmaf(dP[i],
+                         dmat<W, kMode == 0>(sc, 64 * W + f.r(i), f.c(i), i,
+                                             nrows),
+                         gsum[i]);
+    };
+    if (wg == 0) gs(WG<0>{}); else gs(WG<1>{});
+    wgmma::wait<0>();
+    wgmma::fence_operand(acc);
+    __syncthreads();                       // US, ST, stage st are read
+    if (threadIdx.x == 0 && j + 2 < rep) fetch(j + 2);
+  }
+
+  // + (sum over heads of G) F, the head sum in registers
+  uint32_t fr[8][4];
+  wgmma::to_frags(gsum, fr);
+  mbar_wait(&bars[2], 0);
+  wgmma::fence();
+  // the upper block of the head sum is 0: dC rows t < 64 stop at s = 64,
+  // dB rows s >= 64 start at t = 64
+  const bool lo = kMode == 0 || wg == 0, hi = kMode == 1 || wg == 1;
+  if (lo) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma::wgmma_rs_acc<1>(acc, fr[kk], wgmma::mnmajor<R>(Ft, kk));
+  }
+  if (hi) {
+#pragma unroll
+    for (int kk = 4; kk < 8; ++kk)
+      wgmma::wgmma_rs_acc<1>(acc, fr[kk], wgmma::mnmajor<R>(Ft, kk));
+  }
+  wgmma::commit();
+  wgmma::wait<0>();
+  wgmma::fence_operand(acc);
+  const long ld = static_cast<long>(p.G) * p.N;
+  bf16* o = out + static_cast<long>(row) * ld + static_cast<long>(g) * p.N;
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int r = 64 * wg + f.r(i), n = f.c(i);
+    if (r < nrows && n < p.N)
+      *reinterpret_cast<__nv_bfloat162*>(o + r * ld + n) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
+}
+
+__global__ void __launch_bounds__(kT, 1)
+ssd_tc_bwd_dbc_kernel(Shape p, const __grid_constant__ CUtensorMap tx,
+               const __grid_constant__ CUtensorMap tdy,
+               const __grid_constant__ CUtensorMap tb,
+               const __grid_constant__ CUtensorMap tcm,
+               const float* __restrict__ a, const float* __restrict__ states,
+               const float* __restrict__ dstates, bf16* __restrict__ db,
+               bf16* __restrict__ dc) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* base = align1024(raw);
+  if (blockIdx.y % 2 == 0)
+    dbc_body<0>(p, tdy, tx, tb, a, states, dc, base);
+  else
+    dbc_body<1>(p, tx, tdy, tcm, a, dstates, db, base);
+}
+
+// A TMA map of a contiguous bf16 tensor (rows, d1, d0) as 3-D (d0, d1,
+// rows), read in boxes of 64 x 1 x 128, 128-byte swizzled: the 128 rows
+// of one chunk of one head (or group), a 64-column panel; elements past
+// the bounds read 0.
+cudaError_t map_rows(CUtensorMap* map, const void* base, int d0, int d1,
+                     long rows) {
+  EncodeTiled encode;
+  const cudaError_t e = encode_tiled(&encode);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
+                              static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d0) * 2,
+                                 static_cast<cuuint64_t>(d0) * d1 * 2};
+  const cuuint32_t box[3] = {64, 1, R};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+bool valid(const Shape& p, const void* const* ptrs, int n) {
+  for (int i = 0; i < n; ++i)
+    if (ptrs[i] != nullptr && reinterpret_cast<uintptr_t>(ptrs[i]) % 16)
+      return false;
+  return p.B > 0 && p.S > 0 && p.H > 0 && p.G > 0 && p.H % p.G == 0 &&
+         p.N > 0 && p.N <= R && p.N % 16 == 0 && p.P > 0 && p.P <= 64 &&
+         p.P % 16 == 0 && p.L > 0 && p.L <= R &&
+         p.nc == (p.S + p.L - 1) / p.L;
+}
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  done = e == cudaSuccess;
+  return e;
+}
+
+// The forward's two launches (see ssd_scan_tc_fwd).
+cudaError_t fwd(const void* x, const void* a, const void* b, const void* c,
+                void* y, void* hT, void* states, void* cb, const Shape& p,
+                cudaStream_t s) {
+  const long rows = static_cast<long>(p.B) * p.S;
+  CUtensorMap tx, tb, tcm;
+  cudaError_t e = map_rows(&tx, x, p.P, p.H, rows);
+  if (e == cudaSuccess) e = map_rows(&tb, b, p.N, p.G, rows);
+  if (e == cudaSuccess) e = map_rows(&tcm, c, p.N, p.G, rows);
+  static bool cb_set = false, fwd_set = false;
+  constexpr size_t kCbSmem = 1024 + 2 * kWide + 8;
+  if (e == cudaSuccess) e = set_smem(ssd_tc_cb_kernel, kCbSmem, cb_set);
+  if (e == cudaSuccess)
+    e = set_smem(ssd_tc_fwd_kernel, FwdSmem::bytes, fwd_set);
+  if (e != cudaSuccess) return e;
+  ssd_tc_cb_kernel<<<dim3(p.nc, p.G, p.B), kT, kCbSmem, s>>>(
+      p, tb, tcm, static_cast<float*>(cb));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ssd_tc_fwd_kernel<<<dim3(p.H, p.B), kT, FwdSmem::bytes, s>>>(
+      p, tx, tb, tcm, static_cast<const float*>(a),
+      static_cast<const float*>(cb), static_cast<bf16*>(y),
+      static_cast<float*>(hT), static_cast<float*>(states));
+  return cudaGetLastError();
+}
+
+// The backward's three launches (see ssd_scan_tc_bwd).
+cudaError_t bwd(const void* x, const void* a, const void* b, const void* c,
+                const void* states, const void* cb, const void* dy,
+                const void* dhT, void* dstates, void* dx, void* da, void* db,
+                void* dc, const Shape& p, cudaStream_t s) {
+  const long rows = static_cast<long>(p.B) * p.S;
+  CUtensorMap tx, tdy, tb, tcm;
+  cudaError_t e = map_rows(&tx, x, p.P, p.H, rows);
+  if (e == cudaSuccess) e = map_rows(&tdy, dy, p.P, p.H, rows);
+  if (e == cudaSuccess) e = map_rows(&tb, b, p.N, p.G, rows);
+  if (e == cudaSuccess) e = map_rows(&tcm, c, p.N, p.G, rows);
+  static bool st_set = false, dx_set = false, dbc_set = false;
+  if (e == cudaSuccess)
+    e = set_smem(ssd_tc_bwd_state_kernel, StateSmem::bytes, st_set);
+  if (e == cudaSuccess)
+    e = set_smem(ssd_tc_bwd_dx_kernel, DxSmem::bytes, dx_set);
+  if (e == cudaSuccess)
+    e = set_smem(ssd_tc_bwd_dbc_kernel, DbcSmem::bytes, dbc_set);
+  if (e != cudaSuccess) return e;
+  const float* af = static_cast<const float*>(a);
+  const float* sf = static_cast<const float*>(states);
+  ssd_tc_bwd_state_kernel<<<dim3(p.H, p.B), kT, StateSmem::bytes, s>>>(
+      p, tdy, tcm, af, static_cast<const float*>(dhT),
+      static_cast<float*>(dstates));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ssd_tc_bwd_dx_kernel<<<dim3(p.nc, p.H, p.B), kT, DxSmem::bytes, s>>>(
+      p, tx, tdy, tb, tcm, af, static_cast<const float*>(cb), sf,
+      static_cast<const float*>(dstates), static_cast<bf16*>(dx),
+      static_cast<float*>(da));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ssd_tc_bwd_dbc_kernel<<<dim3(p.nc, 2 * p.G, p.B), kT, DbcSmem::bytes, s>>>(
+      p, tx, tdy, tb, tcm, af, sf, static_cast<const float*>(dstates),
+      static_cast<bf16*>(db), static_cast<bf16*>(dc));
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // x (B, S, H, P), b, c (B, S, G, N) of `dtype` (0 = float32, 1 =
@@ -809,4 +1902,41 @@ extern "C" int ssd_scan_bwd(const void* x, const void* a, const void* b,
 
 extern "C" const char* ssd_scan_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The tensor-core route: bf16 x, b, c with N and P multiples of 16 (N <=
+// 128, P <= 64), 16-byte aligned, chunk rows L <= 128. Shapes as for
+// ssd_scan_fwd, but `states` (or null when no gradient is wanted) holds
+// each chunk's start state as a zero-padded 128 x 64 tile in fragment
+// order, (B, H, nc, 128 * 64) f32, and cb (B, nc, G, 128 * 128) f32
+// receives C B^T of every chunk and group, also in fragment order (the
+// backward reads both). Two launches.
+extern "C" int ssd_scan_tc_fwd(const void* x, const void* a, const void* b,
+                               const void* c, void* y, void* hT,
+                               void* states, void* cb, int B, int S, int H,
+                               int G, int N, int P, int L, void* stream) {
+  const tc::Shape p{B, S, H, G, N, P, L, L > 0 ? (S + L - 1) / L : 0};
+  const void* ptrs[] = {x, b, c, y, states, cb};
+  if (!tc::valid(p, ptrs, 6)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(tc::fwd(x, a, b, c, y, hT, states, cb, p,
+                                  static_cast<cudaStream_t>(stream)));
+}
+
+// The gradients of ssd_scan_tc_fwd: states and cb from it, dy like x, dhT
+// (B, H, N, P) f32 or null (zero), dstates scratch like states; dx like
+// x, da like a, db and dc like b. Three launches.
+extern "C" int ssd_scan_tc_bwd(const void* x, const void* a, const void* b,
+                               const void* c, const void* states,
+                               const void* cb, const void* dy,
+                               const void* dhT, void* dstates, void* dx,
+                               void* da, void* db, void* dc, int B, int S,
+                               int H, int G, int N, int P, int L,
+                               void* stream) {
+  const tc::Shape p{B, S, H, G, N, P, L, L > 0 ? (S + L - 1) / L : 0};
+  const void* ptrs[] = {x, b, c, states, cb, dy, dstates, dx, db, dc};
+  if (!tc::valid(p, ptrs, 10) || states == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(tc::bwd(x, a, b, c, states, cb, dy, dhT, dstates,
+                                  dx, da, db, dc, p,
+                                  static_cast<cudaStream_t>(stream)));
 }

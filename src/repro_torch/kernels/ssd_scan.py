@@ -4,20 +4,32 @@
 The chunked state-space-dual scan of the JAX package's layouts: x
 (B, S, H, P), a (B, S, H) f32, b and c (B, S, G, N), returning y like x
 and the final state (B, H, N, P) f32, with a zero initial state. It
-replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py:
-ssd_scan_kernel_call``; see the CUDA source for the design and what
-bounds it. Any S runs (a partial last chunk is masked in the kernel; the
-JAX op sends S % chunk != 0 to the oracle). The kernel takes the chunk in
-rows of ``min(chunk, 64)``: the same scan, since the dual form is exact
-for any chunk length. State widths N above 128 and head dims P above 64
-raise.
+replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py:75
+ssd_scan_kernel_call``; the CUDA source has the design and what bounds
+it. Any S runs (a partial chunk is masked in the kernels; the JAX op sends
+S % chunk != 0 to the oracle). The dual form is exact for any chunk
+length, so the kernels may take the chunk in fewer rows than asked. State
+widths N above 128 and head dims P above 64 raise.
+
+Two routes (:func:`route`):
+
+* ``"tc"``: bf16 with N and P multiples of 16 (every shape of the training
+  path): tensor-core (wgmma) kernels fed by TMA, chunks of
+  ``min(chunk, 128)`` rows. The forward is two launches (C B^T of every
+  chunk and group, shared by the group's heads; then the walk over the
+  chunks), the backward three (the carried state gradient in reverse;
+  dx and da of every chunk and head; dB and dC of every chunk and group,
+  summed over its heads). The saved tensors are the state at every
+  chunk's start and C B^T; two backward runs give the same bits.
+* ``"fma"``: f32 (it serves only the reduced float32 checks) and bf16 of
+  other widths: the first design's CUDA-core f32 FMA kernels, in chunks of
+  ``min(chunk, 64)`` rows; one forward launch and two backward launches.
 
 A CPU tensor takes the plain version (:func:`ssd_scan_plain`, the oracle
 ``ssd_chunked_ref``) under autograd. A CUDA tensor launches the kernels or
 raises; its gradient is a ``torch.autograd.Function`` whose backward is
-two kernel launches (the carried state gradient, chunk by chunk in
-reverse; then every chunk's dx, da, db, dc). ``fwd_launches`` and
-``bwd_launches`` count kernel launches and nothing else.
+kernels too. ``fwd_launches`` and ``bwd_launches`` count kernel launches
+and nothing else (:data:`LAUNCHES` per call and route).
 """
 
 from __future__ import annotations
@@ -30,19 +42,26 @@ from . import _build
 from .ref import ssd_chunked_ref
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "ssd_scan_fwd", "ssd_scan_bwd",
-           "kernel_chunk", "fwd_launches", "bwd_launches"]
+           "kernel_chunk", "kernel_rows", "route", "LAUNCHES",
+           "fwd_launches", "bwd_launches"]
 
 fwd_launches = 0
 bwd_launches = 0
 MAX_STATE = 128
 MAX_HEAD_DIM = 64
-MAX_CHUNK = 64
+MAX_CHUNK = 128                     # the tensor-core route's tile rows
+FMA_CHUNK = 64                      # the FMA route's
+# kernel launches of one forward and one backward call, by route
+LAUNCHES = {"tc": (2, 3), "fma": (1, 2)}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SHAPE = [_I] * 8 + [_P]            # B S H G N P L, dtype, stream
 _FWD_ARGTYPES = [_P] * 7 + _SHAPE
 _BWD_ARGTYPES = [_P] * 12 + _SHAPE
+_TC_SHAPE = [_I] * 7 + [_P]         # B S H G N P L, stream
+_TC_FWD_ARGTYPES = [_P] * 8 + _TC_SHAPE
+_TC_BWD_ARGTYPES = [_P] * 13 + _TC_SHAPE
 
 
 def _check(x, a, b, c):
@@ -63,10 +82,26 @@ def _check(x, a, b, c):
 
 
 def kernel_chunk(chunk: int) -> int:
-    """The rows of one chunk in the kernel for a requested ``chunk``."""
+    """The rows of one chunk in the tensor-core kernels for a requested
+    ``chunk``."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     return min(chunk, MAX_CHUNK)
+
+
+def route(x, b) -> str:
+    """The kernels a CUDA call takes: ``"tc"`` for bf16 with N and P
+    multiples of 16 and 16-byte aligned tensors, else ``"fma"``."""
+    N, P = b.shape[3], x.shape[3]
+    aligned = x.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    return "tc" if (x.dtype == torch.bfloat16 and N % 16 == 0
+                    and P % 16 == 0 and aligned) else "fma"
+
+
+def kernel_rows(chunk: int, kind: str) -> int:
+    """The rows of one chunk in the kernels of route ``kind``."""
+    L = kernel_chunk(chunk)
+    return L if kind == "tc" else min(L, FMA_CHUNK)
 
 
 def ssd_scan_plain(x, a, b, c, chunk: int = 128):
@@ -77,53 +112,86 @@ def ssd_scan_plain(x, a, b, c, chunk: int = 128):
                            return_state=True)
 
 
-def _shape_args(x, b, L):
+def _shape_args(x, b, L, kind):
+    """B S H G N P L (and the dtype code on the FMA route), the stream."""
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
-    return [B, S, H, G, N, P, L, _DTYPE_CODES[x.dtype],
+    dtype = [] if kind == "tc" else [_DTYPE_CODES[x.dtype]]
+    return [B, S, H, G, N, P, L, *dtype,
             torch.cuda.current_stream(x.device).cuda_stream]
 
 
-def ssd_scan_fwd(x, a, b, c, L: int, keep_states: bool):
-    """The forward kernel on contiguous CUDA tensors: (y, final state,
-    states) with states (B, H, nc, N, P) f32, the state at each chunk's
-    start, which the backward reads (None unless ``keep_states``)."""
+def ssd_scan_fwd(x, a, b, c, chunk: int, keep: bool):
+    """The forward kernels on contiguous CUDA tensors, at the rows of
+    ``kernel_rows(chunk, route(x, b))``: (y, final state, saved), saved
+    being what the backward reads (None unless ``keep``): the state at
+    each chunk's start, f32, and on the tensor-core route C B^T of every
+    chunk and group, f32. The FMA route keeps the states as (B, H, nc, N,
+    P); the tensor-core route keeps them, and C B^T, in its kernels' own
+    fragment order (see the CUDA source)."""
     global fwd_launches
+    kind = route(x, b)
+    L = kernel_rows(chunk, kind)
     B, S, H, P = x.shape
-    N = b.shape[3]
+    G, N = b.shape[2], b.shape[3]
     nc = -(-S // L)
     y = torch.empty_like(x)
     hT = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
-    states = torch.empty((B, H, nc, N, P), dtype=torch.float32,
-                         device=x.device) if keep_states else None
-    launch = _build.kernel_function("ssd_scan", "ssd_scan_fwd",
-                                    _FWD_ARGTYPES)
+    # the tensor-core kernels keep each state as a zero-padded 128 x 64
+    # tile in their fragment order
+    state_shape = (N, P) if kind == "fma" else (MAX_STATE * MAX_HEAD_DIM,)
+    states = torch.empty((B, H, nc, *state_shape), dtype=torch.float32,
+                         device=x.device) if keep else None
+    sp = None if states is None else states.data_ptr()
     with torch.cuda.device(x.device):
-        launch(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-               y.data_ptr(), hT.data_ptr(),
-               None if states is None else states.data_ptr(),
-               *_shape_args(x, b, L))
-    fwd_launches += 1
-    return y, hT, states
+        if kind == "tc":
+            cb = torch.empty((B, nc, G, MAX_CHUNK, MAX_CHUNK),
+                             dtype=torch.float32, device=x.device)
+            launch = _build.kernel_function("ssd_scan", "ssd_scan_tc_fwd",
+                                            _TC_FWD_ARGTYPES)
+            launch(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                   y.data_ptr(), hT.data_ptr(), sp, cb.data_ptr(),
+                   *_shape_args(x, b, L, kind))
+        else:
+            cb = None
+            launch = _build.kernel_function("ssd_scan", "ssd_scan_fwd",
+                                            _FWD_ARGTYPES)
+            launch(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                   y.data_ptr(), hT.data_ptr(), sp,
+                   *_shape_args(x, b, L, kind))
+    fwd_launches += LAUNCHES[kind][0]
+    return y, hT, ((states, cb) if keep else None)
 
 
-def ssd_scan_bwd(x, a, b, c, states, dy, dhT, L: int):
+def ssd_scan_bwd(x, a, b, c, saved, dy, dhT, chunk: int):
     """The backward kernels on contiguous CUDA tensors: (dx, da, db, dc).
-    ``dhT`` (the final state's gradient) may be None (zero)."""
+    ``saved`` comes from :func:`ssd_scan_fwd` on the same inputs; ``dhT``
+    (the final state's gradient) may be None (zero)."""
     global bwd_launches
+    kind = route(x, b)
+    L = kernel_rows(chunk, kind)
+    states, cb = saved
     dx, db, dc = torch.empty_like(x), torch.empty_like(b), \
         torch.empty_like(c)
     da = torch.empty_like(a)
     dstates = torch.empty_like(states)
-    launch = _build.kernel_function("ssd_scan", "ssd_scan_bwd",
-                                    _BWD_ARGTYPES)
+    dhp = None if dhT is None else dhT.data_ptr()
     with torch.cuda.device(x.device):
-        launch(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-               states.data_ptr(), dy.data_ptr(),
-               None if dhT is None else dhT.data_ptr(), dstates.data_ptr(),
-               dx.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
-               *_shape_args(x, b, L))
-    bwd_launches += 2              # carried state gradient, chunks
+        if kind == "tc":
+            launch = _build.kernel_function("ssd_scan", "ssd_scan_tc_bwd",
+                                            _TC_BWD_ARGTYPES)
+            launch(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                   states.data_ptr(), cb.data_ptr(), dy.data_ptr(), dhp,
+                   dstates.data_ptr(), dx.data_ptr(), da.data_ptr(),
+                   db.data_ptr(), dc.data_ptr(), *_shape_args(x, b, L, kind))
+        else:
+            launch = _build.kernel_function("ssd_scan", "ssd_scan_bwd",
+                                            _BWD_ARGTYPES)
+            launch(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                   states.data_ptr(), dy.data_ptr(), dhp,
+                   dstates.data_ptr(), dx.data_ptr(), da.data_ptr(),
+                   db.data_ptr(), dc.data_ptr(), *_shape_args(x, b, L, kind))
+    bwd_launches += LAUNCHES[kind][1]
     return dx, da, db, dc
 
 
@@ -131,21 +199,22 @@ class _Ssd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, a, b, c, L):
         x, a, b, c = (t.contiguous() for t in (x, a, b, c))
-        y, hT, states = ssd_scan_fwd(x, a, b, c, L,
-                                     any(ctx.needs_input_grad[:4]))
-        ctx.save_for_backward(x, a, b, c, states)
+        keep = any(ctx.needs_input_grad[:4])
+        y, hT, saved = ssd_scan_fwd(x, a, b, c, L, keep)
+        ctx.save_for_backward(x, a, b, c, *(saved or (None, None)))
         ctx.L = L
         ctx.set_materialize_grads(False)
         return y, hT
 
     @staticmethod
     def backward(ctx, dy, dhT):
-        x, a, b, c, states = ctx.saved_tensors
+        x, a, b, c, states, cb = ctx.saved_tensors
         dy = torch.zeros_like(x) if dy is None else \
             dy.to(x.dtype).contiguous()
         if dhT is not None:
             dhT = dhT.float().contiguous()
-        dx, da, db, dc = ssd_scan_bwd(x, a, b, c, states, dy, dhT, ctx.L)
+        dx, da, db, dc = ssd_scan_bwd(x, a, b, c, (states, cb), dy, dhT,
+                                      ctx.L)
         return dx, da, db, dc, None
 
 

@@ -40,10 +40,14 @@ from repro_torch.optim import (AdamWConfig, accumulate_gradients, adamw_init,
 def steal_table_for(cfg, device) -> torch.Tensor | None:
     """The MoE steal table from the modelled topology (``train.py:76-83``
     of the JAX launcher): experts spread over max(devices, E) chips of a
-    1 x n torus, nearest first. None for a dense config."""
+    1 x n torus, nearest first. The devices are those of the chosen
+    device's platform, as ``len(jax.devices())`` counts them: the cards
+    under ``cuda``, 1 under ``cpu``. None for a dense config."""
     if not cfg.moe_num_experts:
         return None
-    n_dev = max(torch.cuda.device_count() or 1, cfg.moe_num_experts)
+    n_cards = torch.cuda.device_count() \
+        if torch.device(device).type == "cuda" else 1
+    n_dev = max(n_cards or 1, cfg.moe_num_experts)
     topo = topo_mod.tpu_pod_2d(1, n_dev) if n_dev > 1 \
         else topo_mod.uma(cfg.moe_num_experts)
     owners = np.arange(cfg.moe_num_experts) % topo.num_cores

@@ -245,6 +245,12 @@ def _ssd_inputs(B, S, H, P, G, N, dtype, a_scale=0.3, seed=0):
     (100, 2, 32, 1, 16, 128),      # one partial chunk
     (300, 4, 16, 2, 8, 128),       # a partial last chunk, two groups
     (130, 3, 48, 3, 16, 32),       # widths that do not tile
+    # the 128-row tile's edges at the path's widths, and a head sum over
+    # more than one head per group
+    (127, 4, 64, 1, 128, 128),
+    (128, 4, 64, 1, 128, 128),
+    (129, 4, 64, 1, 128, 128),
+    (512, 8, 64, 2, 128, 128),
 ])
 def test_ssd_scan_kernel_on_card(dtype, S, H, P, G, N, chunk):
     """Forward and backward kernels against the plain version's autograd
@@ -260,8 +266,9 @@ def test_ssd_scan_kernel_on_card(dtype, S, H, P, G, N, chunk):
     y, h = ops.ssd_scan(*ts, chunk=chunk)
     got = torch.autograd.grad((y.float() * gy.float()).sum()
                               + (h * gh).sum(), ts)
-    assert (ssd_mod.fwd_launches, ssd_mod.bwd_launches) == (before[0] + 1,
-                                                            before[1] + 2)
+    nf, nb = ssd_mod.LAUNCHES[ssd_mod.route(x, b)]
+    assert (ssd_mod.fwd_launches, ssd_mod.bwd_launches) == (before[0] + nf,
+                                                            before[1] + nb)
     rs = [t.float().requires_grad_() for t in (x, a, b, c)]
     ry, rh = ssd_mod.ssd_scan_plain(*rs, chunk=chunk)
     want = torch.autograd.grad((ry * gy.float()).sum() + (rh * gh).sum(), rs)
@@ -273,6 +280,25 @@ def test_ssd_scan_kernel_on_card(dtype, S, H, P, G, N, chunk):
         scale = float(b_.abs().max())
         torch.testing.assert_close(a_.float(), b_, rtol=tol["rtol"],
                                    atol=tol["atol"] * max(scale, 1.0))
+
+
+@pytest.mark.cuda
+def test_ssd_scan_backward_repeats_bits():
+    """Two bf16 backward runs on the same inputs give the same bits (the
+    head sums of dB and dC run in a fixed order, with no atomics)."""
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    _card()
+    x, a, b, c = _ssd_inputs(2, 512, 4, 64, 1, 128, torch.bfloat16)
+    assert ssd_mod.route(x, b) == "tc"
+    g = torch.Generator(device="cuda").manual_seed(2)
+    gy = torch.randn((2, 512, 4, 64), generator=g,
+                     device="cuda").to(torch.bfloat16)
+    gh = torch.randn((2, 4, 128, 64), generator=g, device="cuda")
+    _, _, saved = ssd_mod.ssd_scan_fwd(x, a, b, c, 128, True)
+    first = ssd_mod.ssd_scan_bwd(x, a, b, c, saved, gy, gh, 128)
+    second = ssd_mod.ssd_scan_bwd(x, a, b, c, saved, gy, gh, 128)
+    for u, v in zip(first, second):
+        assert torch.equal(u, v)
 
 
 @pytest.mark.cuda

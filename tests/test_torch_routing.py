@@ -150,3 +150,28 @@ def test_moe_layer_matches_jax(impl, table):
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-4,
                                atol=1e-5)
     np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fill_positions_equal_outer_axis_cumsum(seed):
+    """The scan along the (E, T) transpose gives the very integers of the
+    cumsum along the outer axis of (T, E), at the train shape's T and E,
+    with inactive tokens and partly used experts."""
+    T, E, cap = 32768, 32, 1100
+    rng = np.random.default_rng(seed)
+    choice = torch.from_numpy(rng.integers(0, E, T).astype(np.int32))
+    active = torch.from_numpy(rng.random(T) < 0.8)
+    used = torch.from_numpy(rng.integers(0, 300, E).astype(np.int32))
+    placed, pos, new_used = routing._fill_positions(choice, active, used, E,
+                                                    cap)
+    onehot = routing.one_hot(choice, E, torch.int32) \
+        * active[:, None].to(torch.int32)
+    pos_in = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+    want = pos_in.gather(1, choice.long()[:, None])[:, 0] \
+        + used[choice.long()]
+    assert pos.dtype == want.dtype
+    assert torch.equal(pos, want)
+    assert torch.equal(placed, active & (want < cap))
+    assert not bool(placed.all()) and bool(placed.any())
+    assert torch.equal(new_used, used + torch.minimum(
+        onehot.sum(dim=0, dtype=torch.int32), cap - used))

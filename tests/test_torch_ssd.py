@@ -166,4 +166,5 @@ def test_ssd_scan_rejects_bad_inputs():
         ops.ssd_scan(x, a[:, :8], b, c)
     with pytest.raises(ValueError):
         ssd_mod.kernel_chunk(0)
-    assert ssd_mod.kernel_chunk(128) == 64 and ssd_mod.kernel_chunk(16) == 16
+    assert ssd_mod.kernel_chunk(128) == ssd_mod.MAX_CHUNK == 128
+    assert ssd_mod.kernel_chunk(16) == 16

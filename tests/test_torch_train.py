@@ -67,6 +67,23 @@ def test_prefetcher_yields_batches_in_order():
 # steal table
 # ----------------------------------------------------------------------
 
+
+def test_steal_table_for_cpu_counts_one_device(monkeypatch):
+    """Under ``cpu`` the launcher counts one device, as the JAX launcher's
+    ``len(jax.devices())`` does on a CPU, however many cards the host has
+    (64 here: more than granite's 32 experts)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 64)
+    cfg = configs.get("granite-moe-1b-a400m")
+    assert cfg.moe_num_experts < 64
+    n_dev = max(1, cfg.moe_num_experts)          # len(jax.devices()) == 1
+    topo = jtopo.tpu_pod_2d(1, n_dev) if n_dev > 1 \
+        else jtopo.uma(cfg.moe_num_experts)
+    owners = np.arange(cfg.moe_num_experts) % topo.num_cores
+    want = jrouting.expert_steal_table(topo, owners, cfg.moe_steal_policy)
+    got = train.steal_table_for(cfg, "cpu")
+    assert got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), want)
+
 @pytest.mark.parametrize("topo", ["pod1x32", "pod2x4", "uma8"])
 @pytest.mark.parametrize("policy", ["dfwspt", "dfwsrpt"])
 def test_expert_steal_table_equals_jax(topo, policy):
