@@ -16,7 +16,8 @@ imports nothing of JAX or of the JAX package. It
    its backward at the training shapes and a grouped ragged one (two
    runs must give the same bits; a bf16 backward under torch.profiler
    must launch its two kernels and no copy), ``flash_attention``
-   forward and backward at the training shape (and at D 128) plus
+   forward and backward at the training shape (and at D 128, and at the
+   dense paths' GQA 16/2 at head dim 128 and MHA 32/32 at 64) plus
    ragged, windowed, bidirectional, decode and odd-width cases, with a
    check that two backward runs give the same bits, ``rmsnorm``; in
    bf16 and f32;
@@ -50,7 +51,24 @@ imports nothing of JAX or of the JAX package. It
    the plain route in situ and 5 steps of the reduced f32 model on the
    card against the host, and serves it at full width (prefill and
    decode logits against a full-sequence forward);
-7. prints the ``kernels`` JSON line and, last, the device JSON line.
+7. trains the dense family at full width and depth, bf16, remat full,
+   the granite train phase's batch and schedule, through the flash
+   kernels with the launch counts asserted (qwen2.5-3b: 36 layers, GQA
+   16/2 at head dim 128, qkv bias, tied 151936-row head, 72 + 108 flash
+   launches a step; stablelm-1.6b: 24 layers, MHA 32/32 at 64, untied,
+   48 + 72), profiles a step of each, runs the same 10 steps through the
+   plain route, and holds layer 0's attention in situ and 5 steps of the
+   reduced f32 model on the card against the host;
+8. serves full-width qwen3-14b (40 layers, d 5120, 40/8 heads of 128,
+   qk-norm, 14.8 B parameters in bf16) at batch 4, prompt 64, gen 32 (no
+   kernel launch: serving attends with its cache), prefill and decode
+   logits against a full-sequence forward;
+9. checkpoints and resumes qwen2.5-3b at full width, its depth cut to 4
+   layers: two uninterrupted 10-step runs, then 5 steps, an async save
+   in the JAX package's on-disk layout, a restore into a fresh model and
+   state (bit for bit) and the last 5 steps, whose losses must match the
+   uninterrupted run's (bit for bit where its two runs agree so);
+10. prints the ``kernels`` JSON line and, last, the device JSON line.
 
 Any failure raises and exits non-zero before the last line is printed.
 """
@@ -61,6 +79,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -111,6 +130,9 @@ GMM_BWD_CASES = [c for c in GMM_CASES if c[0].startswith("train")] + [
 FLASH_CASES = [
     ("train causal", 2, 4096, 4096, 16, 8, 64, True, None, 0),
     ("train causal D128", 2, 4096, 4096, 32, 8, 128, True, None, 0),
+    # the dense training paths: GQA 8:1 at head dim 128, MHA at 64
+    ("qwen2.5-3b train", 2, 4096, 4096, 16, 2, 128, True, None, 0),
+    ("stablelm-1.6b train", 2, 4096, 4096, 32, 32, 64, True, None, 0),
     ("ragged", 2, 100, 100, 4, 2, 64, True, None, 0),
     ("window 64", 1, 512, 512, 4, 2, 64, True, 64, 0),
     ("bidirectional", 1, 256, 256, 4, 2, 64, False, None, 0),
@@ -144,7 +166,7 @@ SSD_CASES = [
 ]
 SSD_REPORT = ("train", torch.bfloat16)
 MAMBA = "mamba2-1.3b"
-MAMBA_GEN = 8                              # serve: batch 4, prompt 64
+CHECK_GEN = 8        # serve checks: batch 4, prompt 64, then 7 decodes
 # Prefill/decode logits (sequential scans with carried state) against a
 # full-sequence forward (the ssd_scan kernel), bf16 at full width, as the
 # relative L2 norm of the difference. The two sum each scan in another
@@ -155,6 +177,16 @@ MAMBA_GEN = 8                              # serve: batch 4, prompt 64
 # gives a relative L2 near 1. The bound is the granite serve's
 # (LOGIT_REL_L2_TOL).
 MAMBA_LOGIT_REL_L2_TOL = 0.15
+# the dense family: trained as granite is (full width and depth, the same
+# batch, sequence and schedule), and qwen3-14b served at full width
+DENSE_TRAIN = ("qwen2.5-3b", "stablelm-1.6b")
+DENSE_SERVE = "qwen3-14b"
+# checkpoint resume: qwen2.5-3b at full width, its depth cut to 4 layers,
+# at the train phase's batch; saved after RESUME_AT of TRAIN_STEPS steps.
+# Where two uninterrupted runs differ (an order of additions that varies
+# between runs), the resumed losses must lie within their spread: their
+# largest relative difference of the uninterrupted run's
+RESUME_ARCH, RESUME_LAYERS, RESUME_AT = "qwen2.5-3b", 4, 5
 
 ARCH = "granite-moe-1b-a400m"
 BATCH, PROMPT, GEN, SEED = 4, 64, 32, 0
@@ -959,10 +991,12 @@ def train_step_breakdown(step_fn, params, opt_state, batch):
     return params, opt_state
 
 
-def train_phase(gmm, fa, rms) -> dict:
-    """Full-width granite-moe training through the kernels: 10 steps of
-    ``repro_torch.launch.train``'s step function, launch counts per step,
-    losses, times, peak memory, one profiled step."""
+def train_phase(gmm, fa, rms, arch: str = ARCH, tag: str = "train") -> dict:
+    """Full-width training through the kernels: 10 steps of
+    ``repro_torch.launch.train``'s step function, launch counts per step
+    asserted, losses, times, peak memory, one profiled step; then the same
+    10 steps from the same weights through the plain routes. granite-moe
+    runs flash and moe_gmm; a dense model (an "mlp" slot) flash alone."""
     from repro_torch import configs
     from repro_torch.data import PipelineConfig, TokenPipeline
     from repro_torch.launch import train as train_mod
@@ -971,26 +1005,35 @@ def train_phase(gmm, fa, rms) -> dict:
     from repro_torch.optim import AdamWConfig, adamw_init
 
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(configs.get(ARCH), attn_impl="kernel",
+    cfg = dataclasses.replace(configs.get(arch), attn_impl="kernel",
                               moe_impl="kernel", remat="full")
+    moe = bool(cfg.moe_num_experts)
+    t0 = time.perf_counter()
     params = model_lib.init_params(
         cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
     nparams = sum(p.numel() for p in params.parameters())
     tokens = TRAIN_BATCH * TRAIN_SEQ
+    mix = (f"{cfg.moe_num_experts} experts top-{cfg.moe_top_k}" if moe else
+           f"FF {cfg.d_ff}")
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, {mix}, "
+        f"vocab {cfg.vocab_size}{' tied' if cfg.tie_embeddings else ''}"
+        f"{', qkv bias' if cfg.qkv_bias else ''}; {nparams/1e9:.3f} B params "
+        f"in {cfg.dtype} (init {time.perf_counter() - t0:.1f} s), "
+        f"attn_impl=kernel{', moe_impl=kernel' if moe else ''}, remat=full")
     group = min(cfg.moe_group, tokens)
-    log(f"[train] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
-        f"{cfg.moe_num_experts} experts top-{cfg.moe_top_k}, "
-        f"{nparams/1e9:.3f} B params in {cfg.dtype}, attn_impl=kernel, "
-        f"moe_impl=kernel, remat=full")
-    log(f"[train] global batch {TRAIN_BATCH} x seq {TRAIN_SEQ} (train_4k's "
+    log(f"[{tag}] global batch {TRAIN_BATCH} x seq {TRAIN_SEQ} (train_4k's "
         f"seq; its global batch 256 cut to {TRAIN_BATCH} for one card and "
-        f"the run's time): {tokens} tokens/step, {tokens // group} MoE "
-        f"groups, capacity {moe_capacity(cfg, group)}; lr {TRAIN_LR}, "
-        f"warmup 2, {TRAIN_STEPS} steps")
+        f"the run's time): {tokens} tokens/step"
+        + (f", {tokens // group} MoE groups, capacity "
+           f"{moe_capacity(cfg, group)}" if moe else "")
+        + f"; lr {TRAIN_LR}, warmup 2, {TRAIN_STEPS} steps")
     steal = train_mod.steal_table_for(cfg, dev)
     opt_cfg = AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=2,
                           total_steps=TRAIN_STEPS)
-    opt_state = adamw_init(dict(params.named_parameters()), opt_cfg)
+    opt_state = adamw_init(dict(params.named_parameters()), opt_cfg,
+                           period=len(cfg.pattern))
     pipe = TokenPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
                                         seq_len=TRAIN_SEQ,
                                         global_batch=TRAIN_BATCH, seed=SEED))
@@ -1003,16 +1046,22 @@ def train_phase(gmm, fa, rms) -> dict:
             return float(model_lib.train_loss(params, cfg, held, steal)[0])
     step_fn = train_mod.build_train_step(cfg, opt_cfg, 1, steal)
     L = cfg.num_layers
-    per_step = dict(moe_gmm=2 * 3 * L, moe_gmm_bwd=6 * L, flash_fwd=2 * L,
+    per_step = dict(moe_gmm=2 * 3 * L if moe else 0,
+                    moe_gmm_bwd=6 * L if moe else 0, flash_fwd=2 * L,
                     flash_bwd=3 * L, rmsnorm=0, ssd_fwd=0, ssd_bwd=0)
-    log(f"[train] launches per step the code implies: moe_gmm 3 x {L} "
-        f"forward + 3 x {L} recompute = {per_step['moe_gmm']}, moe_gmm "
-        f"backward 6 x {L} = {per_step['moe_gmm_bwd']}; flash forward "
-        f"{L} + {L} recompute = {per_step['flash_fwd']}; flash backward "
-        f"3 x {L} (delta pre-pass, dK/dV, dQ) = {per_step['flash_bwd']}; "
-        "rmsnorm 0 (no layer calls it); ssd_scan 0 (no Mamba2 layer)")
+    log(f"[{tag}] launches per step the code implies: "
+        + (f"moe_gmm 3 x {L} forward + 3 x {L} recompute = "
+           f"{per_step['moe_gmm']}, moe_gmm backward 6 x {L} = "
+           f"{per_step['moe_gmm_bwd']}; " if moe else "moe_gmm 0 (no MoE "
+           "block); ")
+        + f"flash forward {L} + {L} recompute = {per_step['flash_fwd']}; "
+        f"flash backward 3 x {L} (delta pre-pass, dK/dV, dQ) = "
+        f"{per_step['flash_bwd']}; rmsnorm 0 (no layer calls it); ssd_scan "
+        "0 (no Mamba2 layer)")
 
-    init_state = {k: v.clone() for k, v in params.state_dict().items()}
+    # on the host, so that the peak below is the step's own
+    init_state = {k: v.to("cpu", copy=True)
+                  for k, v in params.state_dict().items()}
     held_before = held_loss()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1026,19 +1075,19 @@ def train_phase(gmm, fa, rms) -> dict:
         losses.append(float(loss))                  # waits for the device
         times.append(time.perf_counter() - t0)
         got = {k: v - before[k] for k, v in _counts(gmm, fa, rms).items()}
-        log(f"[train] step {s + 1:2d} loss {losses[-1]:.4f} gnorm "
+        log(f"[{tag}] step {s + 1:2d} loss {losses[-1]:.4f} gnorm "
             f"{float(gnorm):.3f} {times[-1]*1e3:9.1f} ms  launches {got}")
         if got != per_step:
             raise AssertionError(f"step {s + 1}: launches {got}, expected "
                                  f"{per_step}")
     counts = _counts(gmm, fa, rms)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[train] loss on a batch never trained on (pipeline step 1000): "
+    log(f"[{tag}] loss on a batch never trained on (pipeline step 1000): "
         f"{held_before:.4f} before, {held_loss():.4f} after the "
         f"{TRAIN_STEPS} steps")
     steady = times[2:]
     ms = 1e3 * sum(steady) / len(steady)
-    log(f"[train] steps 3-{TRAIN_STEPS}: {ms:.3f} ms/step, "
+    log(f"[{tag}] steps 3-{TRAIN_STEPS}: {ms:.3f} ms/step, "
         f"{tokens / (ms / 1e3):.1f} tokens/s; peak memory {peak:.3f} GiB; "
         f"launches over the run {counts}")
     if not all(math.isfinite(x) for x in losses):
@@ -1051,7 +1100,8 @@ def train_phase(gmm, fa, rms) -> dict:
     params.load_state_dict(init_state)
     del init_state
     cfg_plain = dataclasses.replace(cfg, attn_impl="ref", moe_impl="einsum")
-    opt_state = adamw_init(dict(params.named_parameters()), opt_cfg)
+    opt_state = adamw_init(dict(params.named_parameters()), opt_cfg,
+                           period=len(cfg.pattern))
     step_plain = train_mod.build_train_step(cfg_plain, opt_cfg, 1, steal)
     plain = []
     t0 = time.perf_counter()
@@ -1061,7 +1111,8 @@ def train_phase(gmm, fa, rms) -> dict:
         plain.append(float(loss))
     plain_ms = 1e3 * (time.perf_counter() - t0) / TRAIN_STEPS
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
-    log(f"[train] plain routes (attn ref, moe einsum), same weights and "
+    routes = "attn ref, moe einsum" if moe else "attn ref"
+    log(f"[{tag}] plain routes ({routes}), same weights and "
         f"batches: {plain_ms:.1f} ms/step; losses "
         f"{['%.4f' % x for x in plain]}; kernel route "
         f"{['%.4f' % x for x in losses]}; relative diff per step "
@@ -1069,12 +1120,13 @@ def train_phase(gmm, fa, rms) -> dict:
         f"{'below' if losses[-1] < losses[0] else 'not below'} step 1 on "
         f"the kernel route, {'below' if plain[-1] < plain[0] else 'not below'}"
         " on the plain route")
-    if max(rel) > TRAIN_TRACK_RTOL:
+    if not all(math.isfinite(x) for x in plain) \
+            or max(rel) > TRAIN_TRACK_RTOL:
         raise AssertionError("training through the kernels departs from "
                              "the plain routes")
     del opt_state
     return dict(counts=counts, cfg=cfg, params=params, batch=batches[0],
-                losses=losses, plain=plain)
+                losses=losses, plain=plain, ms=ms, peak=peak)
 
 
 def _compare(block, names, got, want) -> str:
@@ -1114,8 +1166,8 @@ def worst_element(got, want, tol: float = TRAIN_CHECK_TOL) -> str:
 
 def train_check_in_situ(cfg, params, batch) -> None:
     """Layer 0 on the same input, bf16: the attention block through the
-    flash kernels against the plain route, then the MoE block through
-    moe_gmm against the einsum route; outputs and gradients."""
+    flash kernels against the plain route, then (granite) the MoE block
+    through moe_gmm against the einsum route; outputs and gradients."""
     from repro_torch.models import layers
     from repro_torch.models import model as model_lib
 
@@ -1135,16 +1187,21 @@ def train_check_in_situ(cfg, params, batch) -> None:
         return [y.detach()] + list(grads)
 
     names = ["output", "input grad"]
-    attn_w = [blk.mix.wq, blk.mix.wk, blk.mix.wv, blk.mix.wo]
+    attn_names = [n for n in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+                  if hasattr(blk.mix, n)]
+    attn_w = [getattr(blk.mix, n) for n in attn_names]
     res = {}
     for impl in ("kernel", "ref"):
         c = dataclasses.replace(cfg, attn_impl=impl)
         res[impl] = run(hin, attn_w, lambda xi: blk.mix(
             xi, c, positions=pos, cache=None, causal=True)[0])
-    log("[check] layer 0 attention, flash kernels vs plain route (bf16, "
-        f"tol {TRAIN_CHECK_TOL}): "
-        + _compare("attention", names + ["wq", "wk", "wv", "wo"],
-                   res["kernel"], res["ref"]))
+    log(f"[check] {cfg.name} layer 0 attention ({cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.head_dim}), flash kernels vs "
+        f"plain route (bf16, tol {TRAIN_CHECK_TOL}): "
+        + _compare("attention", names + attn_names, res["kernel"],
+                   res["ref"]))
+    if blk.ffn_kind != "moe":          # the MLP has no kernel route
+        return
 
     with torch.no_grad():
         h = x + res["kernel"][0]
@@ -1159,17 +1216,17 @@ def train_check_in_situ(cfg, params, batch) -> None:
                    res["kernel"], res["einsum"]))
 
 
-def train_check_reduced() -> None:
-    """Reduced float32 granite-moe: 5 training steps on the card (kernel
-    routes) against 5 on the host (plain versions), same weights and
-    batches; losses within REDUCED_LOSS_RTOL."""
+def train_check_reduced(arch: str = ARCH) -> None:
+    """The reduced float32 config of ``arch``: 5 training steps on the
+    card (kernel routes) against 5 on the host (plain versions), same
+    weights and batches; losses within REDUCED_LOSS_RTOL."""
     from repro_torch import configs
     from repro_torch.data import PipelineConfig, TokenPipeline
     from repro_torch.launch import train as train_mod
     from repro_torch.models import model as model_lib
     from repro_torch.optim import AdamWConfig, adamw_init
 
-    cfg = dataclasses.replace(configs.get(ARCH).reduced(),
+    cfg = dataclasses.replace(configs.get(arch).reduced(),
                               attn_impl="kernel", moe_impl="kernel")
     host = model_lib.init_params(cfg, torch.Generator().manual_seed(SEED),
                                  "cpu")
@@ -1182,7 +1239,8 @@ def train_check_reduced() -> None:
     for dev, params in (("cuda", card), ("cpu", host)):
         step_fn = train_mod.build_train_step(
             cfg, opt_cfg, 1, train_mod.steal_table_for(cfg, dev))
-        state = adamw_init(dict(params.named_parameters()), opt_cfg)
+        state = adamw_init(dict(params.named_parameters()), opt_cfg,
+                           period=len(cfg.pattern))
         out = []
         for s in range(5):
             params, state, _, loss, _ = step_fn(
@@ -1219,7 +1277,8 @@ def train_learning_phase() -> None:
     steal = train_mod.steal_table_for(cfg, dev)
     opt_cfg = AdamWConfig(lr_peak=LEARN_LR, warmup_steps=LEARN_WARMUP,
                           total_steps=LEARN_STEPS)
-    opt_state = adamw_init(dict(params.named_parameters()), opt_cfg)
+    opt_state = adamw_init(dict(params.named_parameters()), opt_cfg,
+                           period=len(cfg.pattern))
     pipe = TokenPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
                                         seq_len=TRAIN_SEQ,
                                         global_batch=TRAIN_BATCH, seed=SEED))
@@ -1289,7 +1348,8 @@ def mamba_train_phase(gmm, fa, rms) -> dict:
         f"warmup 2, {TRAIN_STEPS} steps")
     opt_cfg = AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=2,
                           total_steps=TRAIN_STEPS)
-    opt_state = adamw_init(dict(params.named_parameters()), opt_cfg)
+    opt_state = adamw_init(dict(params.named_parameters()), opt_cfg,
+                           period=len(cfg.pattern))
     pipe = TokenPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
                                         seq_len=TRAIN_SEQ,
                                         global_batch=TRAIN_BATCH, seed=SEED))
@@ -1306,7 +1366,9 @@ def mamba_train_phase(gmm, fa, rms) -> dict:
         f"{2 * L * nf}; backward {L} calls x {nb} launches (carried state "
         f"gradient, dx and da, dB and dC) = {L * nb}; nothing else")
 
-    init_state = {k: v.clone() for k, v in params.state_dict().items()}
+    # on the host, so that the peak below is the step's own
+    init_state = {k: v.to("cpu", copy=True)
+                  for k, v in params.state_dict().items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset(gmm, fa, rms)
@@ -1342,7 +1404,8 @@ def mamba_train_phase(gmm, fa, rms) -> dict:
     params.load_state_dict(init_state)
     del init_state
     cfg_plain = dataclasses.replace(cfg, ssm_impl="ref")
-    opt_state = adamw_init(dict(params.named_parameters()), opt_cfg)
+    opt_state = adamw_init(dict(params.named_parameters()), opt_cfg,
+                           period=len(cfg.pattern))
     step_plain = train_mod.build_train_step(cfg_plain, opt_cfg, 1, None)
     plain = []
     t0 = time.perf_counter()
@@ -1414,7 +1477,8 @@ def mamba_check_reduced() -> None:
     losses = {}
     for dev, params in (("cuda", card), ("cpu", host)):
         step_fn = train_mod.build_train_step(cfg, opt_cfg, 1, None)
-        state = adamw_init(dict(params.named_parameters()), opt_cfg)
+        state = adamw_init(dict(params.named_parameters()), opt_cfg,
+                           period=len(cfg.pattern))
         out = []
         for s in range(5):
             params, state, _, loss, _ = step_fn(
@@ -1451,20 +1515,20 @@ def mamba_serve_phase() -> None:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, caches = model_lib.prefill(params, cfg, prompts,
-                                       max_len=PROMPT + MAMBA_GEN)
+                                       max_len=PROMPT + CHECK_GEN)
     step_logits = [logits[:, -1]]
     tok = logits[:, -1].argmax(dim=-1, keepdim=True)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     toks = [tok]
     t0 = time.perf_counter()
-    for _ in range(MAMBA_GEN - 1):
+    for _ in range(CHECK_GEN - 1):
         logits, caches = model_lib.decode_step(params, cfg, caches, tok)
         step_logits.append(logits[:, -1])
         tok = logits[:, -1].argmax(dim=-1, keepdim=True)
         toks.append(tok)
     torch.cuda.synchronize()
-    t_decode = (time.perf_counter() - t0) / (MAMBA_GEN - 1)
+    t_decode = (time.perf_counter() - t0) / (CHECK_GEN - 1)
     seq = torch.cat([prompts] + toks[:-1], dim=1)
     with torch.no_grad():
         full, _ = model_lib.forward(params, cfg, seq)
@@ -1484,7 +1548,7 @@ def mamba_serve_phase() -> None:
     spread_rel = ((spread[0] - spread[1]).norm() / spread[1].norm()).item()
     spread_max = (spread[0] - spread[1]).abs().max().item()
     log(f"[mamba-serve] {cfg.name} bf16 batch {BATCH} prompt {PROMPT} gen "
-        f"{MAMBA_GEN}: prefill {t_prefill*1e3:.3f} ms, decode "
+        f"{CHECK_GEN}: prefill {t_prefill*1e3:.3f} ms, decode "
         f"{t_decode*1e3:.3f} ms/token; cache length {caches['length']}; "
         f"prefill and decode logits vs a full-sequence forward (ssd_scan): "
         f"relative L2 per position {['%.2e' % e for e in rels]} (tol "
@@ -1494,11 +1558,211 @@ def mamba_serve_phase() -> None:
     log(f"[mamba-serve] bf16's own spread: the prompt's last logits through "
         f"the plain route at chunk 16 vs chunk 64: relative L2 "
         f"{spread_rel:.2e}, max|diff| {spread_max:.2e}")
-    if caches["length"] != PROMPT + MAMBA_GEN - 1:
+    if caches["length"] != PROMPT + CHECK_GEN - 1:
         raise AssertionError(f"cache length {caches['length']}")
     if max(rels) > MAMBA_LOGIT_REL_L2_TOL:
         raise AssertionError("mamba2 prefill/decode logits depart from the "
                              "full-sequence forward")
+
+
+def dense_serve_phase(gmm, fa, rms) -> None:
+    """qwen3-14b at full width in bf16 (40 layers, d 5120, 40/8 heads of
+    128, qk-norm, FF 17408, untied): ``generate`` at batch 4, prompt 64,
+    gen 32 with the launch counters read around it (serving attends with
+    its cache: no kernel launches), then prefill and CHECK_GEN decode
+    steps whose logits are held against a full-sequence forward of the
+    same tokens."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import generate, make_prompts
+    from repro_torch.models import model as model_lib
+
+    dev = torch.device("cuda")
+    cfg = configs.get(DENSE_SERVE)
+    t0 = time.perf_counter()
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    nparams = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"[dense-serve] {cfg.name}: {cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, qk_norm={cfg.qk_norm}, FF {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, tied={cfg.tie_embeddings}; {nparams/1e9:.3f} B "
+        f"params, {nbytes/1e9:.2f} GB in {cfg.dtype} (init "
+        f"{time.perf_counter() - t0:.1f} s)")
+    prompts = make_prompts(cfg, BATCH, PROMPT, SEED)
+    generate(cfg, params, prompts[:, :8], 2, dev)      # warm-up (cuBLAS)
+    torch.cuda.reset_peak_memory_stats()
+    _reset(gmm, fa, rms)
+    tokens, st = generate(cfg, params, prompts, GEN, dev)
+    counts = _counts(gmm, fa, rms)
+    per_tok = st["decode_s"] / (GEN - 1)
+    log(f"[dense-serve] batch={BATCH} prompt={PROMPT} gen={GEN}: prefill "
+        f"{st['prefill_s']*1e3:.3f} ms ({BATCH*PROMPT/st['prefill_s']:.1f} "
+        f"tok/s), decode {per_tok*1e3:.3f} ms/token ({BATCH/per_tok:.1f} "
+        f"tok/s; the weights' read at the memory rate "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms); peak memory "
+        f"{torch.cuda.max_memory_allocated()/2**30:.3f} GiB; launches "
+        f"{counts}; row 0 tokens {tokens[0].tolist()}")
+    if any(counts.values()):               # serving attends with its cache
+        raise AssertionError(f"serving launched {counts}")
+    if tokens.shape != (BATCH, GEN) or int(tokens.min()) < 0 \
+            or int(tokens.max()) >= cfg.vocab_size \
+            or st["length"] != PROMPT + GEN - 1:
+        raise AssertionError(f"bad generation {tokens.shape} "
+                             f"length {st['length']}")
+    decode_breakdown(model_lib, params, cfg, prompts.to(dev))
+
+    prompts = prompts.to(dev)
+    logits, caches = model_lib.prefill(params, cfg, prompts,
+                                       max_len=PROMPT + CHECK_GEN)
+    step_logits = [logits[:, -1]]
+    toks = [logits[:, -1].argmax(dim=-1, keepdim=True)]
+    for _ in range(CHECK_GEN - 1):
+        logits, caches = model_lib.decode_step(params, cfg, caches, toks[-1])
+        step_logits.append(logits[:, -1])
+        toks.append(logits[:, -1].argmax(dim=-1, keepdim=True))
+    seq = torch.cat([prompts] + toks[:-1], dim=1)
+    with torch.no_grad():
+        full, _ = model_lib.forward(params, cfg, seq)
+    rels, errs = [], []
+    for i, lg in enumerate(step_logits):
+        want = full[:, PROMPT - 1 + i]
+        if lg.shape != want.shape or not torch.isfinite(lg).all():
+            raise AssertionError(f"{cfg.name} serve step {i}: bad logits")
+        errs.append((lg - want).abs().max().item())
+        rels.append(((lg - want).norm() / want.norm()).item())
+    agree = (torch.stack(step_logits, 1).argmax(-1)
+             == full[:, PROMPT - 1:].argmax(-1)).float().mean().item()
+    log(f"[dense-serve] prefill and {CHECK_GEN - 1} decode steps' logits vs "
+        f"a full-sequence forward of the same tokens: relative L2 per "
+        f"position {['%.2e' % e for e in rels]} (tol {LOGIT_REL_L2_TOL}), "
+        f"max|diff| {['%.2e' % e for e in errs]} (max|logit| "
+        f"{full.abs().max().item():.3f}), argmax agreement {agree:.2f}")
+    if max(rels) > LOGIT_REL_L2_TOL:
+        raise AssertionError(f"{cfg.name} prefill/decode logits depart from "
+                             "the full-sequence forward")
+
+
+def _flat_bits(tree) -> dict:
+    """{path: tensor} of a checkpoint tree, bf16 viewed as int16."""
+    from repro_torch.checkpoint.checkpoint import _flatten
+    return {k: v.view(torch.int16) if v.dtype == torch.bfloat16 else v
+            for k, v in _flatten(tree).items()}
+
+
+def resume_phase() -> None:
+    """Checkpoint and resume at full width (qwen2.5-3b, depth cut to
+    RESUME_LAYERS): two uninterrupted TRAIN_STEPS-step runs; then a run
+    saved by ``CheckpointManager.save_async`` after RESUME_AT steps, a
+    fresh model and state restored by ``restore_latest`` (the JAX
+    package's on-disk layout), and the steps after RESUME_AT from there.
+    The restored weights and state must equal what was saved bit for
+    bit, and the resumed losses the uninterrupted ones (bit for bit where
+    two uninterrupted runs agree bit for bit)."""
+    import tempfile
+    from repro_torch import configs, convert
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(configs.get(RESUME_ARCH), attn_impl="kernel",
+                              remat="full", num_layers=RESUME_LAYERS)
+    opt_cfg = AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=2,
+                          total_steps=TRAIN_STEPS)
+    pipe = TokenPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
+                                        seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=SEED))
+    batches = [train_mod.to_device(pipe.batch_at(s), dev)
+               for s in range(TRAIN_STEPS)]
+    step_fn = train_mod.build_train_step(cfg, opt_cfg, 1, None)
+
+    def fresh():
+        p = model_lib.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        return p, adamw_init(dict(p.named_parameters()), opt_cfg,
+                             period=len(cfg.pattern))
+
+    def run(params, state, start, stop):
+        out = []
+        for s in range(start, stop):
+            params, state, _, loss, _ = step_fn(params, state, None,
+                                                batches[s])
+            out.append(float(loss))
+        return params, state, out
+
+    runs = []
+    for _ in range(2):
+        p, st, losses = run(*fresh(), 0, TRAIN_STEPS)
+        runs.append((losses, {k: v.clone() for k, v in p.state_dict().items()}))
+        del p, st
+    (la, wa), (lb, wb) = runs
+    same = la == lb and all(torch.equal(wa[k], wb[k]) for k in wa)
+    spread = max(abs(a - b) / abs(a) for a, b in zip(la, lb))
+    del runs, wb
+    nparams = sum(v.numel() for v in wa.values())
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        mgr = CheckpointManager(d)
+        p, st, lc = run(*fresh(), 0, RESUME_AT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = {"params": convert.to_jax(p, cfg, numpy=False),
+                "opt": convert.opt_to_jax(st, cfg, numpy=False)}
+        mgr.save_async(RESUME_AT, snap)
+        t_snap = time.perf_counter() - t0
+        mgr.wait()
+        t_save = time.perf_counter() - t0
+        del p, st
+        torch.cuda.empty_cache()
+        path = os.path.join(d, f"step_{RESUME_AT:09d}")
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        t0 = time.perf_counter()
+        step, tree = mgr.restore_latest()
+        p = convert.from_jax(tree["params"], cfg, dev)
+        st = convert.opt_from_jax(tree["opt"], cfg, dev)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    if step != RESUME_AT:
+        raise AssertionError(f"restored step {step}, saved {RESUME_AT}")
+    want = _flat_bits(snap)
+    for what, got in (("read back", _flat_bits(tree)), (
+            "in the model and state", _flat_bits(
+                {"params": convert.to_jax(p, cfg, numpy=False),
+                 "opt": convert.opt_to_jax(st, cfg, numpy=False)}))):
+        if got.keys() != want.keys() or not all(
+                torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"the checkpoint {what} differs from what "
+                                 "was saved")
+    del snap, tree, want
+    p, st, rest = run(p, st, RESUME_AT, TRAIN_STEPS)
+    lc += rest
+    rel = max(abs(c - a) / abs(a) for a, c in zip(la, lc))
+    log(f"[resume] {cfg.name} at full width, {cfg.num_layers} layers "
+        f"({nparams/1e9:.3f} B params), batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"{TRAIN_STEPS} steps, saved after {RESUME_AT}: checkpoint "
+        f"{nbytes/1e9:.3f} GB on disk (params bf16, m and v f32), save "
+        f"{t_save:.2f} s ({t_snap:.2f} s on the caller's thread), restore "
+        f"into a fresh model and state {t_restore:.2f} s; weights and state "
+        f"restored bit for bit")
+    log(f"[resume] uninterrupted {['%.6f' % x for x in la]} and "
+        f"{['%.6f' % x for x in lb]}: bit for bit {same} (largest relative "
+        f"difference {spread:.3e}); resumed {['%.6f' % x for x in lc]}: "
+        f"largest relative difference from the first {rel:.3e}")
+    if same:
+        if lc != la or not all(torch.equal(v, wa[k]) for k, v in
+                               p.state_dict().items()):
+            raise AssertionError("the resumed run departs from the "
+                                 "uninterrupted runs, which agree bit for "
+                                 "bit")
+    elif not rel <= spread:
+        raise AssertionError(f"the resumed run departs from the "
+                             f"uninterrupted one by {rel:.3e}, beyond "
+                             f"their spread {spread:.3e}")
 
 
 def main() -> int:
@@ -1562,6 +1826,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[time] mamba2 phases done at {time.perf_counter()-t_all:.1f} s")
 
+    dense = {}                              # arch -> launch counts
+    for arch in DENSE_TRAIN:
+        run = train_phase(gmm, fa, rms, arch, tag=arch)
+        dense[arch] = run["counts"]
+        train_check_in_situ(run["cfg"], run["params"], run["batch"])
+        del run
+        torch.cuda.empty_cache()
+        train_check_reduced(arch)
+        log(f"[time] {arch} train phase and checks done at "
+            f"{time.perf_counter()-t_all:.1f} s")
+    dense_serve_phase(gmm, fa, rms)
+    torch.cuda.empty_cache()
+    log(f"[time] {DENSE_SERVE} serve phase done at "
+        f"{time.perf_counter()-t_all:.1f} s")
+    resume_phase()
+    torch.cuda.empty_cache()
+    log(f"[time] resume phase done at {time.perf_counter()-t_all:.1f} s")
+
     def entry(name, source, replaces, launches, rep):
         return dict(name=name, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{source}",
@@ -1573,10 +1855,14 @@ def main() -> int:
               counts["moe_gmm_bwd"], gmm_bwd_res[REPORT_CASE]),
         entry("flash_attention_fwd", "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:90",
-              counts["flash_fwd"], flash_res[("fwd",) + FLASH_REPORT]),
+              counts["flash_fwd"] + sum(c["flash_fwd"]
+                                        for c in dense.values()),
+              flash_res[("fwd",) + FLASH_REPORT]),
         entry("flash_attention_bwd", "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:90",
-              counts["flash_bwd"], flash_res[("bwd",) + FLASH_REPORT]),
+              counts["flash_bwd"] + sum(c["flash_bwd"]
+                                        for c in dense.values()),
+              flash_res[("bwd",) + FLASH_REPORT]),
         entry("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:27",
               counts["rmsnorm"], rms_res[RMS_REPORT]),
         entry("ssd_scan_fwd", "ssd_scan.cu",
@@ -1588,6 +1874,11 @@ def main() -> int:
     ]
     log(f"[done] moe_gmm launches: serve {serve_launches} + train "
         f"{counts['moe_gmm']} forward, {counts['moe_gmm_bwd']} backward; "
+        f"flash launches: granite train {counts['flash_fwd']} forward, "
+        f"{counts['flash_bwd']} backward, "
+        + ", ".join(f"{a} train {c['flash_fwd']} forward, {c['flash_bwd']} "
+                    "backward" for a, c in dense.items())
+        + f" (the kernels line sums them); "
         f"rmsnorm is on no path (no layer calls it), held above on its "
         f"own; ssd_scan {mamba_counts['ssd_fwd']} forward, "
         f"{mamba_counts['ssd_bwd']} backward launches in the mamba2 train "

@@ -1,12 +1,15 @@
-"""Weights to and from the JAX package: ``from_jax(params_np, cfg)`` and
-its inverse ``to_jax(model, cfg)``.
+"""Weights and optimizer state to and from the JAX package:
+``from_jax(params_np, cfg)`` and its inverse ``to_jax(model, cfg)``;
+``opt_from_jax(state_np, cfg)`` and ``opt_to_jax(state, cfg)`` for the
+AdamW state (``m``, ``v`` factored or not, ``count``).
 
 The input is the JAX parameter tree with its leaves as numpy arrays
 (``jax.tree.map(np.asarray, params)``): ``embed``, ``final_norm``,
 optional ``lm_head``, and ``blocks``, a list over pattern slots whose
 leaves carry a leading ``repeats`` axis. Those are unstacked into the
-port's per-layer modules, layer ``r * len(pattern) + si`` taking index
-``r`` of slot ``si``. bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays,
+port's per-layer modules as ``optim.stacked_layout`` maps them, layer
+``r * len(pattern) + si`` taking index ``r`` of slot ``si``. bf16 leaves
+arrive as ``ml_dtypes.bfloat16`` arrays,
 which ``torch.from_numpy`` refuses; they are moved as ``uint16`` and
 viewed as ``torch.bfloat16``, bit for bit. Each leaf keeps its own dtype
 (a bf16 Mamba2 model holds float32 ``A_log``, ``dt_bias`` and ``D_skip``,
@@ -16,7 +19,7 @@ port's parameter raises.
 ``jax.random`` cannot be replayed in torch, so this is how a test gives
 both packages the same weights; ``to_jax`` gives the port's weights (or
 gradients) back in the JAX tree's layout, so a test compares them leaf by
-leaf.
+leaf, and a checkpoint holds the same tree whichever package wrote it.
 """
 
 from __future__ import annotations
@@ -26,12 +29,17 @@ import torch
 
 from repro_torch import default_device
 from repro_torch.models.model import Model
+from repro_torch.optim import factored_slots, slot_of, stacked_layout
 
-__all__ = ["from_jax", "to_jax", "to_tensor", "to_numpy"]
+__all__ = ["from_jax", "to_jax", "opt_from_jax", "opt_to_jax", "to_tensor",
+           "to_numpy"]
 
 
 def to_tensor(arr) -> torch.Tensor:
-    """A numpy array (bf16 included) as a CPU tensor, bit for bit."""
+    """A numpy array (bf16 included) as a CPU tensor, bit for bit; a
+    tensor is returned as it is."""
+    if isinstance(arr, torch.Tensor):
+        return arr
     arr = np.ascontiguousarray(arr)
     if not arr.flags.writeable:        # arrays viewed from JAX buffers
         arr = arr.copy()
@@ -49,12 +57,70 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A CPU copy of its own: later updates of ``t`` leave it alone."""
+    return t.detach().to("cpu", copy=True)
+
+
+def _host_stack(leaves) -> torch.Tensor:
+    """The per-layer tensors stacked into one CPU tensor of its own, each
+    copied once."""
+    out = torch.empty((len(leaves),) + tuple(leaves[0].shape),
+                      dtype=leaves[0].dtype, device="cpu")
+    for r, x in enumerate(leaves):
+        out[r].copy_(x.detach())
+    return out
+
+
+def _is_factored(node) -> bool:
+    return isinstance(node, dict) and set(node) == {"vr", "vc"}
+
+
 def _leaves(tree, prefix=()):
-    if isinstance(tree, dict):
+    """(path, leaf) of a nested dict, keys sorted; a factored second
+    moment ``{vr, vc}`` is one leaf."""
+    if isinstance(tree, dict) and not _is_factored(tree):
         for k in sorted(tree):
             yield from _leaves(tree[k], prefix + (k,))
     else:
         yield prefix, tree
+
+
+def _put(node: dict, path, value) -> None:
+    for key in path[:-1]:
+        node = node.setdefault(key, {})
+    node[path[-1]] = value
+
+
+def _unstack(tree: dict, cfg, layout: dict) -> dict:
+    """The JAX tree's leaves under the port's names: top-level keys as
+    they are, each slot's leaves split along the ``repeats`` axis into the
+    layer names that ``layout`` (:func:`optim.stacked_layout` of the
+    port's parameter names) gives the slot's path. A factored ``{vr, vc}``
+    of a slot's vectors (``vr`` of shape (R,)) stays whole under its slot
+    key, as the optimizer keys it."""
+    by_slot = {slot_of(k): (k, names) for k, names in layout.items()}
+    out = {k: v for k, v in tree.items() if k != "blocks"}
+    if len(tree["blocks"]) != len(cfg.pattern):
+        raise ValueError(f"{len(tree['blocks'])} slots in the JAX tree, "
+                         f"pattern has {len(cfg.pattern)}")
+    for si, slot in enumerate(tree["blocks"]):
+        for path, leaf in _leaves(slot):
+            if (si, path) not in by_slot:
+                raise KeyError(f"JAX leaf blocks[{si}]/{'/'.join(path)} has "
+                               "no counterpart in the port's model")
+            key, names = by_slot[si, path]
+            lead = leaf["vr"] if _is_factored(leaf) else leaf
+            if lead.shape[0] != len(names):
+                raise ValueError(f"{key}: leading axis {lead.shape[0]} != "
+                                 f"repeats {len(names)}")
+            if _is_factored(leaf) and len(lead.shape) == 1:
+                out[key] = leaf
+                continue
+            for r, name in enumerate(names):
+                out[name] = {k: v[r] for k, v in leaf.items()} \
+                    if _is_factored(leaf) else leaf[r]
+    return out
 
 
 def from_jax(params_np: dict, cfg, device=None) -> Model:
@@ -62,9 +128,9 @@ def from_jax(params_np: dict, cfg, device=None) -> Model:
     dev = default_device(device)
     model = Model(cfg, device=dev)
     params = dict(model.named_parameters())
-    assigned = set()
-
-    def put(name, arr):
+    named = _unstack(params_np, cfg,
+                     stacked_layout(params, len(cfg.pattern)))
+    for name, arr in named.items():
         if name not in params:
             raise KeyError(f"JAX leaf {name!r} has no counterpart in the "
                            "port's model")
@@ -74,55 +140,87 @@ def from_jax(params_np: dict, cfg, device=None) -> Model:
                              f"vs port {tuple(p.shape)} {p.dtype}")
         with torch.no_grad():
             p.copy_(t)
-        assigned.add(name)
-
-    for key in ("embed", "final_norm", "lm_head"):
-        if key in params_np:
-            put(key, params_np[key])
-    period = len(cfg.pattern)
-    if len(params_np["blocks"]) != period:
-        raise ValueError(f"{len(params_np['blocks'])} slots in the JAX tree, "
-                         f"pattern has {period}")
-    for si, slot in enumerate(params_np["blocks"]):
-        for path, leaf in _leaves(slot):
-            if leaf.shape[0] != cfg.repeats:
-                raise ValueError(f"{path}: leading axis {leaf.shape[0]} != "
-                                 f"repeats {cfg.repeats}")
-            for r in range(cfg.repeats):
-                put(".".join(("blocks", str(r * period + si)) + path),
-                    leaf[r])
-    missing = sorted(set(params) - assigned)
+    missing = sorted(set(params) - set(named))
     if missing:
         raise ValueError(f"port parameters not in the JAX tree: {missing}")
     return model
 
 
-def to_jax(params, cfg) -> dict:
-    """The JAX parameter tree (numpy leaves) of a :class:`Model`, or of a
-    dict of tensors under its parameter names (gradients, for example):
-    per-layer weights stacked on a leading ``repeats`` axis per pattern
-    slot. bf16 leaves come out as their ``uint16`` bits (:func:`to_numpy`)."""
+def _tree(named: dict, cfg, numpy: bool) -> dict:
+    """Per-layer leaves (tensors, or factored ``{vr, vc}`` dicts of them)
+    stacked on a leading ``repeats`` axis per pattern slot, as
+    :func:`optim.stacked_layout` groups them; numpy arrays
+    (:func:`to_numpy`) or CPU tensors of their own."""
+    leaf_fn = to_numpy if numpy else _host
+
+    def stack(leaves):
+        return np.stack([to_numpy(x) for x in leaves]) if numpy \
+            else _host_stack(leaves)
+    layout = stacked_layout(named, len(cfg.pattern))
+    out: dict = {"blocks": [{} for _ in cfg.pattern]}
+    per_layer = {n for names in layout.values() for n in names}
+    for name, t in named.items():
+        if name not in per_layer:
+            out[name] = {k: leaf_fn(v) for k, v in t.items()} \
+                if isinstance(t, dict) else leaf_fn(t)
+    for key, names in layout.items():
+        if len(names) != cfg.repeats:
+            raise ValueError(f"{key}: {len(names)} layers of "
+                             f"{cfg.repeats} repeats")
+        leaves = [named[n] for n in names]
+        if isinstance(leaves[0], dict):
+            value = {k: stack([x[k] for x in leaves]) for k in leaves[0]}
+        else:
+            value = stack(leaves)
+        si, path = slot_of(key)
+        _put(out["blocks"][si], path, value)
+    return out
+
+
+def to_jax(params, cfg, numpy: bool = True) -> dict:
+    """The JAX parameter tree of a :class:`Model`, or of a dict of tensors
+    under its parameter names (gradients, for example): per-layer weights
+    stacked on a leading ``repeats`` axis per pattern slot. Leaves are
+    numpy arrays, bf16 as its ``uint16`` bits (:func:`to_numpy`; a
+    top-level leaf of a CPU model shares its memory), or with
+    ``numpy=False`` CPU tensors of their own, bf16 kept: a snapshot that
+    later updates of the model leave alone."""
     named = dict(params.named_parameters()) if isinstance(params, Model) \
         else dict(params)
-    period = len(cfg.pattern)
-    out: dict = {"blocks": [{} for _ in range(period)]}
-    per_slot: dict = {}
-    for name, t in named.items():
-        arr = to_numpy(t)
-        parts = name.split(".")
-        if parts[0] != "blocks":
-            out[name] = arr
-            continue
-        layer = int(parts[1])
-        per_slot.setdefault((layer % period, tuple(parts[2:])), {})[
-            layer // period] = arr
-    for (si, path), by_repeat in per_slot.items():
-        if sorted(by_repeat) != list(range(cfg.repeats)):
-            raise ValueError(f"slot {si} {'.'.join(path)}: repeats "
-                             f"{sorted(by_repeat)} of {cfg.repeats}")
-        node = out["blocks"][si]
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = np.stack([by_repeat[r]
-                                   for r in range(cfg.repeats)])
-    return out
+    return _tree(named, cfg, numpy)
+
+
+def opt_to_jax(state: dict, cfg, numpy: bool = True) -> dict:
+    """The JAX AdamW state (``m``, ``v``, ``count``) of the port's
+    optimizer state, factored or not: ``m`` and ``v`` in the parameter
+    tree's layout, a factored leaf as ``{vr, vc}``, the slot-wide
+    ``vr``/``vc`` of per-layer vectors under their slot, ``count`` an
+    int32 scalar. Leaves as in :func:`to_jax`."""
+    leaf_fn = to_numpy if numpy else _host
+    slots = factored_slots(state)
+    vtree = _tree({k: t for k, t in state["v"].items() if k not in slots},
+                  cfg, numpy)
+    for key in slots:
+        si, path = slot_of(key)
+        _put(vtree["blocks"][si], path,
+             {k: leaf_fn(x) for k, x in state["v"][key].items()})
+    count = np.asarray(state["count"], np.int32)
+    return dict(m=_tree(state["m"], cfg, numpy), v=vtree,
+                count=count if numpy else torch.from_numpy(count))
+
+
+def opt_from_jax(state_np: dict, cfg, device=None) -> dict:
+    """The port's optimizer state of a JAX AdamW state (numpy leaves, bf16
+    as ``ml_dtypes`` arrays, or tensors), the inverse of
+    :func:`opt_to_jax`."""
+    dev = default_device(device)
+    layout = stacked_layout(dict(Model(cfg, device="meta")
+                                 .named_parameters()), len(cfg.pattern))
+
+    def put(x):
+        return to_tensor(x).to(dev, copy=True)
+    m = {k: put(x) for k, x in _unstack(state_np["m"], cfg, layout).items()}
+    v = {k: {p: put(y) for p, y in x.items()} if _is_factored(x) else put(x)
+         for k, x in _unstack(state_np["v"], cfg, layout).items()}
+    return dict(m=m, v=v, count=int(np.asarray(state_np["count"])),
+                stacked=layout)

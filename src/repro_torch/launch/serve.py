@@ -2,7 +2,9 @@
 prompt batch, greedy-decode with KV caches, report latency/throughput.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch granite-moe-1b-a400m --batch 4 --prompt-len 64 --gen 32
+        --arch qwen3-14b --batch 4 --prompt-len 64 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-1b-a400m --moe-impl kernel
 
 Runs on the CUDA device unless ``--device cpu`` is given. ``--moe-impl
 kernel`` sends the expert FFN through the hand-written ``moe_gmm``
@@ -65,7 +67,7 @@ def generate(cfg, params, prompts, gen: int, device=None, steal_table=None):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-moe-1b-a400m")
+    ap.add_argument("--arch", default="qwen2.5-3b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

@@ -1,5 +1,6 @@
 """Model building blocks (port of ``repro/models/layers.py``): norms, RoPE,
-GQA attention with a KV cache, MoE with locality-aware routing, the Mamba2
+GQA attention with a KV cache, the SwiGLU MLP, MoE with locality-aware
+routing and an optional shared expert, the Mamba2
 (SSD) mixer with its conv and SSM state.
 
 Conventions, as in the JAX package:
@@ -16,8 +17,7 @@ either ``moe_impl``. Differences from the JAX package:
   * the KV cache is written in place at ``length`` (JAX returns a new
     buffer through ``dynamic_update_slice``); a write past the cache's
     end raises, where JAX clamps the start;
-  * the MLP and cross-attention layers join with later slices and raise
-    ``NotImplementedError`` until then.
+  * the cross-attention layer joins with a later slice.
 
 ``attn_impl="kernel"`` sends attention without a cache (training) through
 the ``flash_attention`` kernel, as the JAX package does; cached attention
@@ -174,8 +174,27 @@ def attn_cache_init(cfg, batch, max_len, dtype, device):
 
 
 # ----------------------------------------------------------------------
-# MoE
+# MLP / MoE
 # ----------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """SwiGLU MLP ``(silu(x @ wg) * (x @ wu)) @ wd`` (``init_mlp``/``mlp``
+    of the JAX package); plain matmuls, as JAX computes them."""
+
+    def __init__(self, cfg, *, device, dtype, d_ff=None):
+        super().__init__()
+        D, Fd = cfg.d_model, d_ff or cfg.d_ff
+        self.wg = new_param((D, Fd), device, dtype)
+        self.wu = new_param((D, Fd), device, dtype)
+        self.wd = new_param((Fd, D), device, dtype)
+
+    def init_weights(self, generator: torch.Generator):
+        for w in (self.wg, self.wu, self.wd):
+            normal_(w, 1.0 / math.sqrt(w.shape[0]), generator)
+
+    def forward(self, x):
+        return (F.silu(x @ self.wg) * (x @ self.wu)) @ self.wd
+
 
 def moe_capacity(cfg, group: int) -> int:
     """Per-expert slots for a routed group of ``group`` tokens."""
@@ -192,20 +211,20 @@ class MoE(nn.Module):
     scheduler, see core/routing.py), or the ring order when none is
     given. ``moe_impl="kernel"`` runs the expert FFN through the
     ``moe_gmm`` kernel, three launches per call; ``"einsum"`` through
-    ``torch.einsum``.
+    ``torch.einsum``. With ``moe_shared_expert`` an :class:`MLP` of width
+    ``d_ff`` sees every token and is added to the routed output.
     """
 
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
-        if cfg.moe_shared_expert:
-            raise NotImplementedError("the shared-expert MLP joins with the "
-                                      "MLP slice")
         D, E = cfg.d_model, cfg.moe_num_experts
         Fe = cfg.moe_d_ff or cfg.d_ff
         self.router = new_param((D, E), device, torch.float32)
         self.wg = new_param((E, D, Fe), device, dtype)
         self.wu = new_param((E, D, Fe), device, dtype)
         self.wd = new_param((E, Fe, D), device, dtype)
+        if cfg.moe_shared_expert:
+            self.shared = MLP(cfg, device=device, dtype=dtype, d_ff=cfg.d_ff)
         self.register_buffer(
             "ring_table", torch.as_tensor(ring_steal_table(E), device=device),
             persistent=False)
@@ -214,6 +233,8 @@ class MoE(nn.Module):
         normal_(self.router, 1.0 / math.sqrt(self.router.shape[0]), generator)
         for w in (self.wg, self.wu, self.wd):
             normal_(w, 1.0 / math.sqrt(w.shape[1]), generator)
+        if hasattr(self, "shared"):
+            self.shared.init_weights(generator)
 
     def route_groups(self, xg, cfg, steal_table=None):
         """Route each group of xg (g, G, D). Returns expert, slot, weight
@@ -259,8 +280,10 @@ class MoE(nn.Module):
             eout = torch.einsum("gecf,efd->gecd", h, self.wd)
         else:
             raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
-        y = torch.einsum("gsec,gecd->gsd", combine, eout)
-        return y.reshape(B, S, D), aux.mean()
+        y = torch.einsum("gsec,gecd->gsd", combine, eout).reshape(B, S, D)
+        if hasattr(self, "shared"):
+            y = y + self.shared(x)
+        return y, aux.mean()
 
 
 # ----------------------------------------------------------------------

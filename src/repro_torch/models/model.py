@@ -41,7 +41,7 @@ class Model(nn.Module):
         layers.normal_(self.embed, 0.02, generator)
         for blk in self.blocks:
             blk.mix.init_weights(generator)
-            if blk.ffn_kind == "moe":
+            if blk.ffn_kind != "none":
                 blk.ffn.init_weights(generator)
         if hasattr(self, "lm_head"):
             layers.normal_(self.lm_head, self.lm_head.shape[0] ** -0.5,
@@ -63,6 +63,21 @@ def param_count(cfg) -> int:
     """Parameters of a config, counted on the meta device (nothing is
     allocated), as ``param_count`` of the JAX package."""
     return sum(p.numel() for p in Model(cfg, device="meta").parameters())
+
+
+def active_param_count(cfg) -> int:
+    """Parameters touched per token: an MoE block's routed experts count
+    ``top_k / num_experts`` of theirs (``active_param_count`` of the JAX
+    package); counted on the meta device."""
+    total = param_count(cfg)
+    if cfg.moe_num_experts == 0:
+        return total
+    expert = sum(p.numel() for name, p in
+                 Model(cfg, device="meta").named_parameters()
+                 if name.split(".")[-1] in ("wg", "wu", "wd")
+                 and ".ffn." in name and p.dim() == 3
+                 and p.shape[0] == cfg.moe_num_experts)
+    return total - expert + expert * cfg.moe_top_k // cfg.moe_num_experts
 
 
 def _embed(params: Model, tokens):

@@ -34,17 +34,17 @@ class Layer(nn.Module):
         if kind not in ("attn", "mamba"):
             raise NotImplementedError(f"{kind!r} layers join with a later "
                                       "slice of the port")
-        if ffn not in ("moe", "none"):
-            raise NotImplementedError(f"{ffn!r} FFNs join with a later "
-                                      "slice of the port")
+        if ffn not in ("mlp", "moe", "none"):
+            raise ValueError(f"unknown ffn kind {ffn!r}")
         self.kind, self.ffn_kind = kind, ffn
         D = cfg.d_model
         self.ln1 = layers.new_param((D,), device, dtype, 1.0)
         mixer = layers.Attention if kind == "attn" else layers.Mamba
         self.mix = mixer(cfg, device=device, dtype=dtype)
-        if ffn == "moe":
+        if ffn != "none":
             self.ln2 = layers.new_param((D,), device, dtype, 1.0)
-            self.ffn = layers.MoE(cfg, device=device, dtype=dtype)
+            ffn_cls = layers.MoE if ffn == "moe" else layers.MLP
+            self.ffn = ffn_cls(cfg, device=device, dtype=dtype)
 
     def forward(self, h, cfg, *, positions, cache=None, steal_table=None):
         """Returns (h, new_cache, aux)."""
@@ -56,9 +56,12 @@ class Layer(nn.Module):
             y, new_cache = self.mix(hin, cfg, cache=cache)
         h = h + y
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        if self.ffn_kind == "moe":
+        if self.ffn_kind != "none":
             hin = layers.rmsnorm(h, self.ln2, cfg.norm_eps)
-            y, aux = self.ffn(hin, cfg, steal_table)
+            if self.ffn_kind == "moe":
+                y, aux = self.ffn(hin, cfg, steal_table)
+            else:
+                y = self.ffn(hin)
             h = h + y
         return h, new_cache, aux
 

@@ -5,12 +5,24 @@ error feedback.
 Plain functions on dicts of tensors (``dict(model.named_parameters())``),
 not ``torch.optim.AdamW``, so the arithmetic is the JAX package's: clip
 first, the schedule and bias corrections at ``count + 1``, decoupled
-weight decay on matrices only, update math in f32 cast back to each
-parameter's dtype. Where JAX returns new parameters, ``adamw_update``
-writes them into the given tensors in place under ``torch.no_grad()``
-(one copy of the weights on the card instead of two); the values are the
-same. Scalars of the schedule are computed in float32, as JAX computes
-them, and then applied as Python floats that hold those f32 values.
+weight decay on leaves of rank >= 2 only, update math in f32 cast back to
+each parameter's dtype. Where JAX returns new parameters,
+``adamw_update`` writes them into the given tensors in place under
+``torch.no_grad()`` (one copy of the weights on the card instead of two);
+the values are the same. Scalars of the schedule are computed in float32,
+as JAX computes them, and then applied as Python floats that hold those
+f32 values.
+
+Ranks are those of the JAX tree. JAX stacks each pattern slot's
+per-layer weights on a leading ``repeats`` axis, so a per-layer leaf
+(``blocks.<layer>.<path>`` here) has rank one more than the port's
+tensor: its vectors (norm weights, biases, Mamba2's ``A_log``...) are
+decayed and, under ``factored``, factored across the slot's layers, with
+``vr`` of shape (R,) and ``vc`` of shape (D,) kept under the key
+``slot<si>.<path>``. ``adamw_init(..., period=len(cfg.pattern))`` records
+that layout in the state (``stacked``: slot key -> the R layer names in
+repeat order); names outside ``blocks.`` are top-level leaves, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ from typing import Callable
 import torch
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule",
+           "stacked_layout", "slot_of", "factored_slots",
            "global_norm", "clip_by_global_norm", "accumulate_gradients",
            "compress_int8", "decompress_int8", "CompressionState",
            "compressed_gradients"]
@@ -63,24 +76,81 @@ def cosine_schedule(cfg: AdamWConfig, step) -> float:
     return float(cfg.lr_peak * warm * frac)
 
 
-def adamw_init(params: Tensors, cfg: AdamWConfig | None = None) -> dict:
+def stacked_layout(names, period: int) -> dict[str, list[str]]:
+    """The JAX tree's stacking of per-layer names, the one place that
+    states it: ``slot<si>.<path>`` -> the names
+    ``blocks.<r * period + si>.<path>`` for r = 0, 1, ... (names outside
+    ``blocks.`` are top-level leaves and left out)."""
+    found: dict[str, dict[int, str]] = {}
+    for name in names:
+        parts = name.split(".")
+        if parts[0] != "blocks":
+            continue
+        layer = int(parts[1])
+        key = ".".join([f"slot{layer % period}"] + parts[2:])
+        found.setdefault(key, {})[layer // period] = name
+    out = {}
+    for key, by_r in found.items():
+        if sorted(by_r) != list(range(len(by_r))):
+            raise ValueError(f"{key}: repeats {sorted(by_r)} are not "
+                             "0, 1, ...")
+        out[key] = [by_r[r] for r in range(len(by_r))]
+    return out
+
+
+def slot_of(key: str) -> tuple[int, tuple[str, ...]]:
+    """(slot index, path in the slot) of a :func:`stacked_layout` key."""
+    slot, *path = key.split(".")
+    return int(slot.removeprefix("slot")), tuple(path)
+
+
+def factored_slots(state: dict) -> dict[str, list[str]]:
+    """The slots whose per-layer vectors share one factored second moment
+    (``state["v"][slot key]``, JAX rank 2): slot key -> layer names."""
+    return {k: names for k, names in state["stacked"].items()
+            if k in state["v"]}
+
+
+def adamw_init(params: Tensors, cfg: AdamWConfig | None = None, *,
+               period: int | None = None) -> dict:
+    """AdamW state for ``params``. ``period`` (the config's pattern length)
+    is required when per-layer names (``blocks.``) are present: it gives
+    each its slot in the JAX tree."""
     cfg = cfg or AdamWConfig()
     m_dt = getattr(torch, cfg.m_dtype)
+    if period is None:
+        if any(k.startswith("blocks.") for k in params):
+            raise ValueError("per-layer parameters need the pattern period "
+                             "(adamw_init(..., period=len(cfg.pattern)))")
+        stacked = {}
+    else:
+        stacked = stacked_layout(params, period)
 
-    def v_init(p):
-        if cfg.factored and p.dim() >= 2:
-            return dict(vr=torch.zeros(p.shape[:-1], dtype=torch.float32,
-                                       device=p.device),
-                        vc=torch.zeros(p.shape[:-2] + p.shape[-1:],
-                                       dtype=torch.float32, device=p.device))
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros(shape, like):
+        return torch.zeros(shape, dtype=torch.float32, device=like.device)
 
-    return dict(
+    def v_init(p, jax_rank):
+        if cfg.factored and jax_rank >= 2:
+            return dict(vr=zeros(p.shape[:-1], p),
+                        vc=zeros(p.shape[:-2] + p.shape[-1:], p))
+        return zeros(p.shape, p)
+
+    state = dict(
         m={k: torch.zeros(p.shape, dtype=m_dt, device=p.device)
            for k, p in params.items()},
-        v={k: v_init(p) for k, p in params.items()},
-        count=0,
-    )
+        v={}, count=0, stacked=stacked)
+    grouped = {k: names for k, names in stacked.items()
+               if cfg.factored and params[names[0]].dim() == 1}
+    in_group = {n for names in grouped.values() for n in names}
+    per_layer = {n for names in stacked.values() for n in names}
+    for k, p in params.items():
+        if k not in in_group:
+            state["v"][k] = v_init(p, p.dim() + (k in per_layer))
+    for key, names in grouped.items():
+        p = params[names[0]]
+        state["v"][key] = dict(vr=zeros((len(names),), p),
+                               vc=zeros(p.shape, p))
+    return state
 
 
 def global_norm(tree: Tensors) -> torch.Tensor:
@@ -94,6 +164,16 @@ def clip_by_global_norm(grads: Tensors, max_norm: float):
     return {k: (x.float() * scale).to(x.dtype) for k, x in grads.items()}, g
 
 
+def _factored_vh(v: dict, gf: torch.Tensor, cfg: AdamWConfig, b2c: float):
+    """Update the row and column statistics in place; returns v-hat."""
+    g2 = gf * gf + 1e-30
+    v["vr"].copy_(cfg.b2 * v["vr"] + (1 - cfg.b2) * g2.mean(-1))
+    v["vc"].copy_(cfg.b2 * v["vc"] + (1 - cfg.b2) * g2.mean(-2))
+    vr, vc = v["vr"], v["vc"]
+    return (vr[..., :, None] * vc[..., None, :]
+            / torch.clamp(vr.mean(-1)[..., None, None], min=1e-30)) / b2c
+
+
 @torch.no_grad()
 def adamw_update(grads: Tensors, state: dict, params: Tensors,
                  cfg: AdamWConfig):
@@ -104,29 +184,37 @@ def adamw_update(grads: Tensors, state: dict, params: Tensors,
     lr = cosine_schedule(cfg, count)
     b1c = float(1 - _f32(cfg.b1) ** _f32(count))
     b2c = float(1 - _f32(cfg.b2) ** _f32(count))
-    for name, p in params.items():
-        gf = grads[name].float()
-        m, v = state["m"][name], state["v"][name]
+    per_layer = {n for names in state["stacked"].values() for n in names}
+
+    def apply(name, gf, vh):
+        p, m = params[name], state["m"][name]
         m_new = cfg.b1 * m.float() + (1 - cfg.b1) * gf
-        if isinstance(v, dict):
-            g2 = gf * gf + 1e-30
-            v["vr"].copy_(cfg.b2 * v["vr"] + (1 - cfg.b2) * g2.mean(-1))
-            v["vc"].copy_(cfg.b2 * v["vc"] + (1 - cfg.b2) * g2.mean(-2))
-            vr, vc = v["vr"], v["vc"]
-            vh = (vr[..., :, None] * vc[..., None, :]
-                  / torch.clamp(vr.mean(-1)[..., None, None], min=1e-30)
-                  ) / b2c
-        else:
-            v.copy_(cfg.b2 * v + (1 - cfg.b2) * gf * gf)
-            vh = v / b2c
         step = (m_new / b1c) / (torch.sqrt(vh) + cfg.eps)
         pf = p.float()
-        if p.dim() >= 2:              # decoupled decay on matrices only
+        if p.dim() + (name in per_layer) >= 2:   # decay where JAX's rank >= 2
             step = step + cfg.weight_decay * pf
         p.copy_((pf - lr * step).to(p.dtype))
         m.copy_(m_new.to(m.dtype))
-    return params, dict(m=state["m"], v=state["v"], count=count), \
-        dict(lr=lr, grad_norm=gnorm)
+
+    grouped = factored_slots(state)
+    for key, names in grouped.items():         # vectors across the slot
+        gf = torch.stack([grads[n].float() for n in names])
+        vh = _factored_vh(state["v"][key], gf, cfg, b2c)
+        for r, name in enumerate(names):
+            apply(name, gf[r], vh[r])
+    in_group = {n for names in grouped.values() for n in names}
+    for name in params:
+        if name in in_group:
+            continue
+        gf = grads[name].float()
+        v = state["v"][name]
+        if isinstance(v, dict):
+            vh = _factored_vh(v, gf, cfg, b2c)
+        else:
+            v.copy_(cfg.b2 * v + (1 - cfg.b2) * gf * gf)
+            vh = v / b2c
+        apply(name, gf, vh)
+    return params, dict(state, count=count), dict(lr=lr, grad_norm=gnorm)
 
 
 def accumulate_gradients(loss_fn: Callable, params: Tensors, batch: dict,

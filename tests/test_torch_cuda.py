@@ -1,5 +1,7 @@
 """The port's kernels on the card: each kernel (forward and backward)
-against its plain version, with its launch counter. Marked ``cuda``;
+against its plain version, with its launch counter; the dense layer slot
+in bf16 against float32, and a checkpoint round trip of a card model.
+Marked ``cuda``;
 they skip on a host without a CUDA device. This file imports no JAX, so
 it runs where only PyTorch is installed:
 
@@ -39,6 +41,10 @@ def _card():
     (64, 320, 8, 4, 64, True, None, 256),
     (700, 700, 8, 2, 64, True, 200, 0),
     (384, 384, 4, 4, 128, False, None, 0),
+    # the dense training paths' head layouts: qwen2.5-3b's GQA 16/2 at
+    # head dim 128, stablelm-1.6b's MHA 32/32 at 64
+    (512, 512, 16, 2, 128, True, None, 0),
+    (512, 512, 32, 32, 64, True, None, 0),
 ])
 def test_flash_attention_kernel_on_card(dtype, Sq, Skv, Hq, Hkv, D, causal,
                                         window, off):
@@ -310,3 +316,89 @@ def test_ssd_scan_kernel_refuses_wide_states():
     x, a, b, c = _ssd_inputs(1, 8, 2, 16, 1, 16, torch.float32)
     with pytest.raises(TypeError):
         ops.ssd_scan(x, a.double(), b, c)
+
+
+def _dense_cfg(dtype):
+    """qwen2.5-3b's slot (GQA 8:1, qkv bias, SwiGLU MLP) at a card-test
+    width: d 512, 8 heads / 1 KV head of 64, FF 1024."""
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(
+        configs.get("qwen2.5-3b").reduced(), d_model=512, num_heads=8,
+        num_kv_heads=1, head_dim=64, d_ff=1024, dtype=dtype,
+        attn_impl="kernel")
+
+
+@pytest.mark.cuda
+def test_dense_slot_bf16_against_f32_on_card():
+    """One attention + MLP layer (flash kernels) in bf16 against the same
+    weights in float32 (plain route): output and input gradient within
+    bf16's tolerance, relative to their largest element."""
+    import copy
+    import dataclasses
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers, stack
+    _card()
+    cfg32 = _dense_cfg("float32")
+    layer = stack.Layer(cfg32, "attn", "mlp", device="cuda",
+                        dtype=torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    layer.mix.init_weights(g)
+    layer.ffn.init_weights(g)
+    with torch.no_grad():
+        for b in (layer.mix.bq, layer.mix.bk, layer.mix.bv):
+            b.normal_(0, 0.1, generator=g)
+    lb = copy.deepcopy(layer).to(torch.bfloat16)
+    x = torch.randn((2, 256, 512), generator=g, device="cuda")
+    gy = torch.randn((2, 256, 512), generator=g, device="cuda")
+    pos = torch.arange(256, device="cuda").expand(2, 256)
+    out = {}
+    before = (fa.fwd_launches, fa.bwd_launches)
+    for dtype, mod, impl in ((torch.bfloat16, lb, "kernel"),
+                             (torch.float32, layer, "ref")):
+        cfg = dataclasses.replace(
+            _dense_cfg(str(dtype).removeprefix("torch.")), attn_impl=impl)
+        xi = x.to(dtype).requires_grad_()
+        y, _, _ = mod(xi, cfg, positions=pos)
+        out[dtype] = (y.float(), torch.autograd.grad(y, xi, gy.to(dtype))[0]
+                      .float())
+    assert (fa.fwd_launches, fa.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 3)
+    for a, b in zip(out[torch.bfloat16], out[torch.float32]):
+        assert torch.isfinite(a).all()
+        assert ((a - b).abs().max() / b.abs().max()).item() < 3e-2
+    assert isinstance(lb.ffn, layers.MLP)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_of_a_card_model(tmp_path):
+    """A bf16 model and its AdamW state on the card, one step taken,
+    saved and restored into a fresh model and state on the card: every
+    weight and moment bit for bit."""
+    from repro_torch import convert, optim
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import model
+    _card()
+    cfg = _dense_cfg("bfloat16")
+    p = model.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          "cuda")
+    named = dict(p.named_parameters())
+    ocfg = optim.AdamWConfig(lr_peak=1e-3, warmup_steps=1)
+    st = optim.adamw_init(named, ocfg, period=len(cfg.pattern))
+    _, st, _ = optim.adamw_update({k: torch.ones_like(v) * 1e-3
+                                   for k, v in named.items()}, st, named,
+                                  ocfg)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(1, {"params": convert.to_jax(p, cfg, numpy=False),
+                       "opt": convert.opt_to_jax(st, cfg, numpy=False)})
+    step, tree = mgr.restore_latest()
+    assert step == 1
+    p2 = convert.from_jax(tree["params"], cfg, "cuda")
+    st2 = convert.opt_from_jax(tree["opt"], cfg, "cuda")
+    for (n, a), (_, b) in zip(p.named_parameters(), p2.named_parameters()):
+        assert b.is_cuda and a.dtype == b.dtype and torch.equal(a, b), n
+    assert st2["count"] == st["count"] == 1
+    for k, v in st["m"].items():
+        assert torch.equal(st2["m"][k], v), k
+    for k, v in st["v"].items():
+        assert st2["v"][k].is_cuda and torch.equal(st2["v"][k], v), k

@@ -184,7 +184,8 @@ def test_ten_step_loss_trajectory_matches_jax_train_step(weights):
     jparams, jstate = jp, joptim.adamw_init(jp, jopt)
     tstep = train.build_train_step(tc, topt, 1, None)
     tparams = convert.from_jax(jp_np, tc, "cpu")
-    tstate = optim.adamw_init(dict(tparams.named_parameters()), topt)
+    tstate = optim.adamw_init(dict(tparams.named_parameters()), topt,
+                              period=len(tc.pattern))
     jl, tl = [], []
     for s in range(10):
         jparams, jstate, _, loss, _ = jstep(jparams, jstate, None,

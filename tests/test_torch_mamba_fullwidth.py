@@ -63,7 +63,8 @@ def test_full_width_mamba2_train_steps_match_jax():
     tparams = convert.from_jax(params_np, tc, "cpu")
     del params_np
     topt = optim.AdamWConfig(**okw)
-    tstate = optim.adamw_init(dict(tparams.named_parameters()), topt)
+    tstate = optim.adamw_init(dict(tparams.named_parameters()), topt,
+                              period=len(tc.pattern))
     tstep = train.build_train_step(tc, topt, 1, None)
     got = []
     for b in batches:

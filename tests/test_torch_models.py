@@ -1,8 +1,12 @@
-"""Port parity: reduced granite-moe through ``from_jax`` against the JAX
-model on the same weights and tokens (CPU, float32), on both MoE routes;
-the JAX kernel route runs the Pallas moe_gmm in interpret mode."""
+"""Port parity: reduced configs through ``from_jax`` against the JAX model
+on the same weights and tokens (CPU, float32): granite-moe on both MoE
+routes (the JAX kernel route runs the Pallas moe_gmm in interpret mode),
+the dense qwen2.5-3b (qkv bias, tied), stablelm-1.6b (MHA, untied) and
+qwen3-14b (qk-norm), and llama4-scout (top-1 with a shared expert); the
+SwiGLU MLP and the shared-expert MoE block alone."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -22,22 +26,31 @@ from repro_torch.models import layers, model  # noqa: E402
 
 ARCH = "granite-moe-1b-a400m"
 IMPLS = ["einsum", "kernel"]
+# (arch, moe_impl): granite's cases keep the ids they had
+CASES = [pytest.param(ARCH, impl, id=impl) for impl in IMPLS] + [
+    pytest.param(a, "einsum", id=a) for a in
+    ("qwen2.5-3b", "stablelm-1.6b", "qwen3-14b", "llama4-scout-17b-a16e")]
 TOL = dict(rtol=3e-3, atol=3e-3)          # tests/test_models.py
 
 
-def _cfgs(impl, dtype="float32"):
-    jc = dataclasses.replace(jconfigs.get(ARCH).reduced(), moe_impl=impl,
+def _cfgs(impl, dtype="float32", arch=ARCH):
+    jc = dataclasses.replace(jconfigs.get(arch).reduced(), moe_impl=impl,
                              dtype=dtype)
-    tc = dataclasses.replace(configs.get(ARCH).reduced(), moe_impl=impl,
+    tc = dataclasses.replace(configs.get(arch).reduced(), moe_impl=impl,
                              dtype=dtype)
     return jc, tc
 
 
-@pytest.fixture(scope="module")
-def weights():
-    jc, tc = _cfgs("einsum")
+@functools.lru_cache(maxsize=None)
+def _weights(arch):
+    jc, tc = _cfgs("einsum", arch=arch)
     jp = jmodel.init_params(jc, jax.random.PRNGKey(0))
     return jp, convert.from_jax(jax.tree.map(np.asarray, jp), tc, "cpu")
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return _weights(ARCH)
 
 
 def _tokens(B, S, seed=0):
@@ -75,10 +88,10 @@ def test_from_jax_copies_every_leaf_bit_for_bit(dtype):
     assert tp.embed.dtype == tc.param_dtype
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-def test_forward_logits_match_jax(weights, impl):
-    jp, tp = weights
-    jc, tc = _cfgs(impl)
+@pytest.mark.parametrize("arch,impl", CASES)
+def test_forward_logits_match_jax(arch, impl):
+    jp, tp = _weights(arch)
+    jc, tc = _cfgs(impl, arch=arch)
     toks = _tokens(2, 12)
     jl, jaux = jmodel.forward(jp, jc, tokens=jnp.asarray(toks))
     with torch.no_grad():
@@ -88,10 +101,10 @@ def test_forward_logits_match_jax(weights, impl):
     np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-def test_prefill_and_decode_logits_match_jax(weights, impl):
-    jp, tp = weights
-    jc, tc = _cfgs(impl)
+@pytest.mark.parametrize("arch,impl", CASES)
+def test_prefill_and_decode_logits_match_jax(arch, impl):
+    jp, tp = _weights(arch)
+    jc, tc = _cfgs(impl, arch=arch)
     toks = _tokens(2, 13, seed=1)
     S = 12
     jl, jcache = jmodel.prefill(jp, jc, tokens=jnp.asarray(toks[:, :S]),
@@ -113,10 +126,10 @@ def test_prefill_and_decode_logits_match_jax(weights, impl):
                                    rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-def test_generate_greedy_tokens_equal_jax_loop(weights, impl):
-    jp, tp = weights
-    jc, tc = _cfgs(impl)
+@pytest.mark.parametrize("arch,impl", CASES)
+def test_generate_greedy_tokens_equal_jax_loop(arch, impl):
+    jp, tp = _weights(arch)
+    jc, tc = _cfgs(impl, arch=arch)
     B, P, gen = 2, 10, 8
     prompts = _tokens(B, P, seed=2)
 
@@ -158,7 +171,7 @@ def test_cache_write_past_the_end_raises(weights):
 
 
 def test_serve_main_on_the_host(capsys):
-    gen = serve.main(["--reduced", "--device", "cpu", "--batch", "2",
+    gen = serve.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--batch", "2",
                       "--prompt-len", "8", "--gen", "4", "--moe-impl",
                       "kernel"])
     assert gen.shape == (2, 4)
@@ -180,3 +193,84 @@ def test_entry_points_without_device_raise_on_a_host_without_cuda(entry):
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
+
+
+# ----------------------------------------------------------------------
+# the SwiGLU MLP, the shared expert, parameter counts
+# ----------------------------------------------------------------------
+
+def _load(module, tree):
+    """Copy a JAX layer's parameter dict into a port module."""
+    named = dict(module.named_parameters())
+    flat = {".".join(k.key for k in path): leaf for path, leaf in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+    assert sorted(flat) == sorted(named)
+    with torch.no_grad():
+        for k, leaf in flat.items():
+            named[k].copy_(convert.to_tensor(np.asarray(leaf)))
+
+
+def test_mlp_matches_jax():
+    jc, tc = _cfgs("einsum", arch="qwen2.5-3b")
+    jp = jlayers.init_mlp(jax.random.PRNGKey(3), jc)
+    mlp = layers.MLP(tc, device="cpu", dtype=torch.float32)
+    _load(mlp, jp)
+    assert mlp.wg.shape == (tc.d_model, tc.d_ff)
+    x = np.random.default_rng(4).standard_normal((2, 7, tc.d_model)).astype(
+        np.float32)
+    want = jlayers.mlp(jnp.asarray(x), jp)
+    with torch.no_grad():
+        got = mlp(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_shared_expert_moe_matches_jax(impl):
+    """llama4-scout's block (reduced: 4 experts top-1, shared expert of
+    width d_ff): routed output plus the shared MLP, and the aux loss."""
+    jc, tc = _cfgs(impl, arch="llama4-scout-17b-a16e")
+    assert tc.moe_shared_expert and tc.moe_top_k == 1
+    jp = jlayers.init_moe(jax.random.PRNGKey(5), jc)
+    moe = layers.MoE(tc, device="cpu", dtype=torch.float32)
+    _load(moe, jp)
+    assert moe.shared.wg.shape == (tc.d_model, tc.d_ff)
+    x = np.random.default_rng(6).standard_normal((2, 16, tc.d_model)).astype(
+        np.float32)
+    want, jaux = jlayers.moe(jnp.asarray(x), jp, jc)
+    with torch.no_grad():
+        got, aux = moe(torch.from_numpy(x), tc)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
+
+
+@pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
+@pytest.mark.parametrize("arch", sorted(configs.ARCHS))
+def test_param_counts_match_jax(arch, reduced):
+    jc, tc = jconfigs.get(arch), configs.get(arch)
+    if reduced:
+        jc, tc = jc.reduced(), tc.reduced()
+    assert model.param_count(tc) == jmodel.param_count(jc)
+    assert model.active_param_count(tc) == jmodel.active_param_count(jc)
+
+
+def test_param_counts_match_published_sizes():
+    """tests/test_models.py:110-134 for the registered architectures."""
+    expected = {
+        "qwen2.5-3b": (2.5e9, 3.6e9),
+        "qwen3-14b": (13e9, 15.5e9),
+        "mamba2-1.3b": (1.1e9, 1.5e9),
+        "granite-moe-1b-a400m": (1.0e9, 1.6e9),
+        "llama4-scout-17b-a16e": (95e9, 118e9),
+        "stablelm-1.6b": (1.4e9, 1.9e9),
+    }
+    assert sorted(expected) == sorted(configs.ARCHS)
+    for arch, (lo, hi) in expected.items():
+        n = model.param_count(configs.get(arch))
+        assert lo <= n <= hi, f"{arch}: {n/1e9:.2f}B"
+    cfg = configs.get(ARCH)
+    active = model.active_param_count(cfg)
+    assert active < model.param_count(cfg) and 0.25e9 < active < 0.65e9
+    dense = configs.get("qwen2.5-3b")
+    assert model.active_param_count(dense) == model.param_count(dense)

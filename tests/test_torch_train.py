@@ -329,7 +329,8 @@ def test_ten_step_loss_trajectory_matches_jax_train_step(weights):
     jparams, jstate = jp, joptim.adamw_init(jp, jopt)
     tstep = train.build_train_step(tc, topt, 1, torch.as_tensor(steal))
     tparams = convert.from_jax(jp_np, tc, "cpu")
-    tstate = optim.adamw_init(dict(tparams.named_parameters()), topt)
+    tstate = optim.adamw_init(dict(tparams.named_parameters()), topt,
+                              period=len(tc.pattern))
     jl, tl = [], []
     for s in range(10):
         jparams, jstate, _, loss, _ = jstep(jparams, jstate, None,
@@ -386,10 +387,22 @@ def test_train_main_on_the_host_learns(capsys):
     assert "[train] done: final loss" in capsys.readouterr().out
 
 
+def test_training_reduces_loss_end_to_end_dense():
+    """Mirror of test_system.py:24 on reduced stablelm-1.6b (an "mlp"
+    FFN slot, MHA, untied head): a tiny LM overfits the deterministic
+    synthetic stream."""
+    loss = train.main([
+        "--arch", "stablelm-1.6b", "--reduced", "--device", "cpu",
+        "--steps", "60", "--global-batch", "8", "--seq-len", "32", "--lr",
+        "3e-3", "--warmup", "10", "--log-every", "30"])
+    # well below ln(V) = ln(256) ~ 5.55 after 60 steps
+    assert loss < 5.0
+
+
 def test_train_main_with_microbatches_and_compression():
-    loss = train.main(["--reduced", "--device", "cpu", "--steps", "3",
-                       "--global-batch", "4", "--seq-len", "16",
-                       "--microbatches", "2", "--compress-grads"])
+    loss = train.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                       "--steps", "3", "--global-batch", "4", "--seq-len",
+                       "16", "--microbatches", "2", "--compress-grads"])
     assert np.isfinite(loss)
 
 
