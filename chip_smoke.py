@@ -16,8 +16,9 @@ imports nothing of JAX or of the JAX package. It
    its backward at the training shapes and a grouped ragged one (two
    runs must give the same bits; a bf16 backward under torch.profiler
    must launch its two kernels and no copy), ``flash_attention``
-   forward and backward at the training shape (and at D 128, and at the
-   dense paths' GQA 16/2 at head dim 128 and MHA 32/32 at 64) plus
+   forward and backward at the training shape (and at D 128, at the
+   dense paths' GQA 16/2 at head dim 128 and MHA 32/32 at 64, and at
+   hubert's bidirectional MHA 16/16 at head dim 80) plus
    ragged, windowed, bidirectional, decode and odd-width cases, with a
    check that two backward runs give the same bits, ``rmsnorm``; in
    bf16 and f32;
@@ -68,7 +69,27 @@ imports nothing of JAX or of the JAX package. It
    in the JAX package's on-disk layout, a restore into a fresh model and
    state (bit for bit) and the last 5 steps, whose losses must match the
    uninterrupted run's (bit for bit where its two runs agree so);
-10. prints the ``kernels`` JSON line and, last, the device JSON line.
+10. trains hubert-xlarge at full width and depth (48 layers, d 1280, MHA
+    16/16 at head dim 80, bidirectional, 1.259 B parameters) on the
+    pipeline's frame embeddings, as step 7 trains the dense family: 96 +
+    144 flash launches a step asserted, a profiled step, the plain route,
+    layer 0 in situ and the reduced f32 model on the card against the
+    host;
+11. runs reduced f32 jamba-1.5-large (two 8-slot periods: attention,
+    seven Mamba2 mixers, MoE on the odd slots) with flash, ``ssd_scan``
+    and ``moe_gmm`` in one stack under nested remat: 5 training steps on
+    the card against the host with the launch counts asserted, and
+    prefill and decode against a full forward;
+12. serves llama-3.2-vision-90b at full width with its depth cut to one
+    period (4 self-attention layers, 1 gated cross layer; 6.38 B
+    parameters) on media from the launcher's generator, its gates set
+    nonzero from the seed: logits against a full forward, other media
+    must move them and, with the gates at zero, must not;
+13. serves command-r-35b at full width and depth (40 layers, d 8192, GQA
+    64/8 at 128, tied 256000-row head; 30.28 B parameters, 60.6 GB in
+    bf16) as step 8 serves qwen3-14b, and holds ``kv_repeat=2`` to
+    ``kv_repeat=1`` on its reduced config;
+14. prints the ``kernels`` JSON line and, last, the device JSON line.
 
 Any failure raises and exits non-zero before the last line is printed.
 """
@@ -133,6 +154,9 @@ FLASH_CASES = [
     # the dense training paths: GQA 8:1 at head dim 128, MHA at 64
     ("qwen2.5-3b train", 2, 4096, 4096, 16, 2, 128, True, None, 0),
     ("stablelm-1.6b train", 2, 4096, 4096, 32, 32, 64, True, None, 0),
+    # hubert-xlarge: bidirectional MHA 16/16 at head dim 80 (the D 128
+    # tiles, 48 of their columns padding)
+    ("hubert-xlarge train", 2, 4096, 4096, 16, 16, 80, False, None, 0),
     ("ragged", 2, 100, 100, 4, 2, 64, True, None, 0),
     ("window 64", 1, 512, 512, 4, 2, 64, True, 64, 0),
     ("bidirectional", 1, 256, 256, 4, 2, 64, False, None, 0),
@@ -181,6 +205,24 @@ MAMBA_LOGIT_REL_L2_TOL = 0.15
 # batch, sequence and schedule), and qwen3-14b served at full width
 DENSE_TRAIN = ("qwen2.5-3b", "stablelm-1.6b")
 DENSE_SERVE = "qwen3-14b"
+# the other four architectures: hubert-xlarge trained at full width
+# and depth (bidirectional flash at head dim 80), command-r-35b served at
+# full width and depth, llama-3.2-vision-90b served at full width with its
+# depth cut to one period (4 self-attention layers, 1 gated cross), and
+# reduced jamba-1.5-large (an 8-slot period) through all three kernels.
+# Other media must move the vision logits by at least MEDIA_MOVE_MIN
+# (relative L2).
+HUBERT, COMMAND_R, VISION, JAMBA = ("hubert-xlarge", "command-r-35b",
+                                    "llama-3.2-vision-90b",
+                                    "jamba-1.5-large-398b")
+VISION_LAYERS = 5
+MEDIA_MOVE_MIN = 1e-3
+JAMBA_STEPS, JAMBA_SEQ = 5, 64
+# reduced jamba's gradients, card (kernels) vs host (plain), f32: the
+# gradient tolerance of tests/test_torch_archs.py against JAX (rtol, and
+# a tenth of it times the leaf's largest element as atol); gradient norms
+# within the same relative bound
+JAMBA_GRAD_RTOL = 2e-3
 # checkpoint resume: qwen2.5-3b at full width, its depth cut to 4 layers,
 # at the train phase's batch; saved after RESUME_AT of TRAIN_STEPS steps.
 # Where two uninterrupted runs differ (an order of additions that varies
@@ -723,7 +765,8 @@ def ssd_phase(ssd) -> dict:
     return results
 
 
-def decode_breakdown(model_lib, params, cfg, prompts, steps: int = 3):
+def decode_breakdown(model_lib, params, cfg, prompts, steps: int = 3,
+                     media=None):
     """Where a decode step's time goes: torch.profiler over ``steps``
     steps after the prefill and two warm steps; device kernels by name,
     the device's busy share of the wall time (which the profiler itself
@@ -731,7 +774,7 @@ def decode_breakdown(model_lib, params, cfg, prompts, steps: int = 3):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    logits, caches = model_lib.prefill(params, cfg, prompts,
+    logits, caches = model_lib.prefill(params, cfg, prompts, media=media,
                                        max_len=PROMPT + steps + 2)
     tok = logits[:, -1].argmax(dim=-1, keepdim=True)
     for _ in range(2):
@@ -996,9 +1039,12 @@ def train_phase(gmm, fa, rms, arch: str = ARCH, tag: str = "train") -> dict:
     ``repro_torch.launch.train``'s step function, launch counts per step
     asserted, losses, times, peak memory, one profiled step; then the same
     10 steps from the same weights through the plain routes. granite-moe
-    runs flash and moe_gmm; a dense model (an "mlp" slot) flash alone."""
+    runs flash and moe_gmm; a dense model (an "mlp" slot) flash alone; an
+    encoder (hubert) takes the pipeline's frame embeddings (cast to bf16)
+    and attends bidirectionally."""
     from repro_torch import configs
-    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import pipeline_for_arch
     from repro_torch.launch import train as train_mod
     from repro_torch.models import model as model_lib
     from repro_torch.models.layers import moe_capacity
@@ -1019,7 +1065,9 @@ def train_phase(gmm, fa, rms, arch: str = ARCH, tag: str = "train") -> dict:
     log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, {mix}, "
         f"vocab {cfg.vocab_size}{' tied' if cfg.tie_embeddings else ''}"
-        f"{', qkv bias' if cfg.qkv_bias else ''}; {nparams/1e9:.3f} B params "
+        f"{', qkv bias' if cfg.qkv_bias else ''}"
+        f"{', encoder on frame embeddings' if cfg.embeds_input else ''}; "
+        f"{nparams/1e9:.3f} B params "
         f"in {cfg.dtype} (init {time.perf_counter() - t0:.1f} s), "
         f"attn_impl=kernel{', moe_impl=kernel' if moe else ''}, remat=full")
     group = min(cfg.moe_group, tokens)
@@ -1034,9 +1082,8 @@ def train_phase(gmm, fa, rms, arch: str = ARCH, tag: str = "train") -> dict:
                           total_steps=TRAIN_STEPS)
     opt_state = adamw_init(dict(params.named_parameters()), opt_cfg,
                            period=len(cfg.pattern))
-    pipe = TokenPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
-                                        seq_len=TRAIN_SEQ,
-                                        global_batch=TRAIN_BATCH, seed=SEED))
+    pipe = pipeline_for_arch(
+        cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"), seed=SEED)
     batches = [train_mod.to_device(pipe.batch_at(s), dev)
                for s in range(TRAIN_STEPS + 1)]
     held = train_mod.to_device(pipe.batch_at(1000), dev)   # never trained on
@@ -1166,15 +1213,17 @@ def worst_element(got, want, tol: float = TRAIN_CHECK_TOL) -> str:
 
 def train_check_in_situ(cfg, params, batch) -> None:
     """Layer 0 on the same input, bf16: the attention block through the
-    flash kernels against the plain route, then (granite) the MoE block
-    through moe_gmm against the einsum route; outputs and gradients."""
+    flash kernels against the plain route (bidirectional for an encoder),
+    then (granite) the MoE block through moe_gmm against the einsum
+    route; outputs and gradients."""
     from repro_torch.models import layers
     from repro_torch.models import model as model_lib
 
     blk = params.blocks[0]
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     with torch.no_grad():
-        x = model_lib._embed(params, batch["tokens"])
+        x = model_lib._embed(params, cfg, batch.get("tokens"),
+                             batch.get("embeds"))
         hin = layers.rmsnorm(x, blk.ln1, cfg.norm_eps)
     B, S, _ = x.shape
     pos = model_lib._positions(B, S, 0, x.device)
@@ -1194,9 +1243,11 @@ def train_check_in_situ(cfg, params, batch) -> None:
     for impl in ("kernel", "ref"):
         c = dataclasses.replace(cfg, attn_impl=impl)
         res[impl] = run(hin, attn_w, lambda xi: blk.mix(
-            xi, c, positions=pos, cache=None, causal=True)[0])
+            xi, c, positions=pos, cache=None,
+            causal=not cfg.is_encoder)[0])
     log(f"[check] {cfg.name} layer 0 attention ({cfg.num_heads}/"
-        f"{cfg.num_kv_heads} heads of {cfg.head_dim}), flash kernels vs "
+        f"{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+        f"{'bidirectional' if cfg.is_encoder else 'causal'}), flash kernels vs "
         f"plain route (bf16, tol {TRAIN_CHECK_TOL}): "
         + _compare("attention", names + attn_names, res["kernel"],
                    res["ref"]))
@@ -1221,7 +1272,8 @@ def train_check_reduced(arch: str = ARCH) -> None:
     card (kernel routes) against 5 on the host (plain versions), same
     weights and batches; losses within REDUCED_LOSS_RTOL."""
     from repro_torch import configs
-    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import pipeline_for_arch
     from repro_torch.launch import train as train_mod
     from repro_torch.models import model as model_lib
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -1232,9 +1284,8 @@ def train_check_reduced(arch: str = ARCH) -> None:
                                  "cpu")
     card = copy.deepcopy(host).to("cuda")
     opt_cfg = AdamWConfig(lr_peak=2e-3, warmup_steps=2, total_steps=5)
-    pipe = TokenPipeline(PipelineConfig(vocab_size=cfg.vocab_size,
-                                        seq_len=64, global_batch=4,
-                                        seed=SEED))
+    pipe = pipeline_for_arch(cfg, ShapeSpec("reduced", 64, 4, "train"),
+                             seed=SEED)
     losses = {}
     for dev, params in (("cuda", card), ("cpu", host)):
         step_fn = train_mod.build_train_step(
@@ -1436,7 +1487,7 @@ def mamba_check_in_situ(cfg, params, batch) -> None:
     blk = params.blocks[0]
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
     with torch.no_grad():
-        x = model_lib._embed(params, batch["tokens"])
+        x = model_lib._embed(params, cfg, batch["tokens"])
         hin = layers.rmsnorm(x, blk.ln1, cfg.norm_eps)
     gy = torch.randn(x.shape, generator=g, device="cuda").to(x.dtype)
     names = ["in_proj", "conv_w", "conv_b", "A_log", "dt_bias", "D_skip",
@@ -1565,39 +1616,70 @@ def mamba_serve_phase() -> None:
                              "full-sequence forward")
 
 
-def dense_serve_phase(gmm, fa, rms) -> None:
-    """qwen3-14b at full width in bf16 (40 layers, d 5120, 40/8 heads of
-    128, qk-norm, FF 17408, untied): ``generate`` at batch 4, prompt 64,
-    gen 32 with the launch counters read around it (serving attends with
-    its cache: no kernel launches), then prefill and CHECK_GEN decode
-    steps whose logits are held against a full-sequence forward of the
-    same tokens."""
+def _describe(cfg, params) -> str:
+    nparams = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    kinds = "".join("x" if k == "cross" else "m" if k == "mamba" else "a"
+                    for k, _ in cfg.pattern)
+    return (f"{cfg.name}: {cfg.num_layers} layers (period {kinds}), d "
+            f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+            f"{cfg.head_dim}, qk_norm={cfg.qk_norm}, FF {cfg.d_ff}, vocab "
+            f"{cfg.vocab_size}, tied={cfg.tie_embeddings}"
+            + (f", {cfg.num_media_tokens} media tokens"
+               if cfg.num_media_tokens else "")
+            + f"; {nparams/1e9:.3f} B params, {nbytes/1e9:.2f} GB in "
+            f"{cfg.dtype}")
+
+
+def serve_check_phase(gmm, fa, rms, arch: str, tag: str,
+                      layers: int | None = None) -> None:
+    """A full-width model in bf16 (depth cut to ``layers`` if given):
+    ``generate`` at batch 4, prompt 64, gen 32 with the launch counters
+    read around it (serving attends with its cache: no kernel launches),
+    a profiled decode step, then prefill and CHECK_GEN decode steps whose
+    logits are held against a full-sequence forward of the same tokens.
+    A VLM gets media from the launcher's generator and nonzero gates from
+    the seed (a zero gate would hide a broken cross layer); other media
+    must change its logits, and with zero gates must not."""
     from repro_torch import configs
-    from repro_torch.launch.serve import generate, make_prompts
+    from repro_torch.launch.serve import generate, make_media, make_prompts
     from repro_torch.models import model as model_lib
 
     dev = torch.device("cuda")
-    cfg = configs.get(DENSE_SERVE)
+    cfg = configs.get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()        # the init's own peak
+    held = torch.cuda.memory_allocated() / 2**30
     t0 = time.perf_counter()
     params = model_lib.init_params(
         cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
     torch.cuda.synchronize()
-    nparams = sum(p.numel() for p in params.parameters())
+    t_init = time.perf_counter() - t0
+    gates = [b.mix.gate for b in params.blocks if b.kind == "cross"]
+    if gates:
+        g = torch.Generator(device=dev).manual_seed(SEED + 7)
+        with torch.no_grad():
+            for gate in gates:
+                gate.copy_(torch.rand(gate.shape, generator=g, device=dev)
+                           + 0.5)
     nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    log(f"[dense-serve] {cfg.name}: {cfg.num_layers} layers, d "
-        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
-        f"{cfg.head_dim}, qk_norm={cfg.qk_norm}, FF {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}, tied={cfg.tie_embeddings}; {nparams/1e9:.3f} B "
-        f"params, {nbytes/1e9:.2f} GB in {cfg.dtype} (init "
-        f"{time.perf_counter() - t0:.1f} s)")
+    log(f"[{tag}] {_describe(cfg, params)} (init {t_init:.1f} s"
+        f", peak {torch.cuda.max_memory_allocated()/2**30:.3f} GiB, "
+        f"{held:.3f} GiB of it held before the init)"
+        + (f"; cross gates set from the seed: tanh(gate) "
+           f"{[round(math.tanh(float(x.detach())), 4) for x in gates]}"
+           if gates else ""))
     prompts = make_prompts(cfg, BATCH, PROMPT, SEED)
-    generate(cfg, params, prompts[:, :8], 2, dev)      # warm-up (cuBLAS)
+    media = make_media(cfg, BATCH, SEED)
+    media = None if media is None else media.to(dev)
+    generate(cfg, params, prompts[:, :8], 2, dev, media=media)  # warm-up
     torch.cuda.reset_peak_memory_stats()
     _reset(gmm, fa, rms)
-    tokens, st = generate(cfg, params, prompts, GEN, dev)
+    tokens, st = generate(cfg, params, prompts, GEN, dev, media=media)
     counts = _counts(gmm, fa, rms)
     per_tok = st["decode_s"] / (GEN - 1)
-    log(f"[dense-serve] batch={BATCH} prompt={PROMPT} gen={GEN}: prefill "
+    log(f"[{tag}] batch={BATCH} prompt={PROMPT} gen={GEN}: prefill "
         f"{st['prefill_s']*1e3:.3f} ms ({BATCH*PROMPT/st['prefill_s']:.1f} "
         f"tok/s), decode {per_tok*1e3:.3f} ms/token ({BATCH/per_tok:.1f} "
         f"tok/s; the weights' read at the memory rate "
@@ -1611,10 +1693,10 @@ def dense_serve_phase(gmm, fa, rms) -> None:
             or st["length"] != PROMPT + GEN - 1:
         raise AssertionError(f"bad generation {tokens.shape} "
                              f"length {st['length']}")
-    decode_breakdown(model_lib, params, cfg, prompts.to(dev))
+    decode_breakdown(model_lib, params, cfg, prompts.to(dev), media=media)
 
     prompts = prompts.to(dev)
-    logits, caches = model_lib.prefill(params, cfg, prompts,
+    logits, caches = model_lib.prefill(params, cfg, prompts, media=media,
                                        max_len=PROMPT + CHECK_GEN)
     step_logits = [logits[:, -1]]
     toks = [logits[:, -1].argmax(dim=-1, keepdim=True)]
@@ -1624,7 +1706,7 @@ def dense_serve_phase(gmm, fa, rms) -> None:
         toks.append(logits[:, -1].argmax(dim=-1, keepdim=True))
     seq = torch.cat([prompts] + toks[:-1], dim=1)
     with torch.no_grad():
-        full, _ = model_lib.forward(params, cfg, seq)
+        full, _ = model_lib.forward(params, cfg, seq, media=media)
     rels, errs = [], []
     for i, lg in enumerate(step_logits):
         want = full[:, PROMPT - 1 + i]
@@ -1634,7 +1716,7 @@ def dense_serve_phase(gmm, fa, rms) -> None:
         rels.append(((lg - want).norm() / want.norm()).item())
     agree = (torch.stack(step_logits, 1).argmax(-1)
              == full[:, PROMPT - 1:].argmax(-1)).float().mean().item()
-    log(f"[dense-serve] prefill and {CHECK_GEN - 1} decode steps' logits vs "
+    log(f"[{tag}] prefill and {CHECK_GEN - 1} decode steps' logits vs "
         f"a full-sequence forward of the same tokens: relative L2 per "
         f"position {['%.2e' % e for e in rels]} (tol {LOGIT_REL_L2_TOL}), "
         f"max|diff| {['%.2e' % e for e in errs]} (max|logit| "
@@ -1642,6 +1724,222 @@ def dense_serve_phase(gmm, fa, rms) -> None:
     if max(rels) > LOGIT_REL_L2_TOL:
         raise AssertionError(f"{cfg.name} prefill/decode logits depart from "
                              "the full-sequence forward")
+    del full, caches
+    if not gates:
+        return
+    other = make_media(cfg, BATCH, SEED + 1).to(dev)
+    last = {}
+    with torch.no_grad():
+        for key, m in (("media", media), ("other", other)):
+            last[key] = model_lib.prefill(params, cfg, prompts, media=m)[0]
+        for gate in gates:
+            gate.zero_()
+        for key, m in (("media 0", media), ("other 0", other)):
+            last[key] = model_lib.prefill(params, cfg, prompts, media=m)[0]
+    moved = ((last["media"] - last["other"]).norm()
+             / last["media"].norm()).item()
+    still = torch.equal(last["media 0"], last["other 0"])
+    log(f"[{tag}] other media (seed {SEED + 1}) move the prompt's last "
+        f"logits by relative L2 {moved:.3e} (must exceed "
+        f"{MEDIA_MOVE_MIN}); with the gates at zero the two media give the "
+        f"same logits bit for bit: {still}")
+    if not moved > MEDIA_MOVE_MIN or not still:
+        raise AssertionError(f"{cfg.name}: the cross layers do not read the "
+                             "media through their gates")
+
+
+def kv_repeat_check(arch: str) -> None:
+    """The reduced f32 config on the card: ``kv_repeat=2`` gives the
+    logits of ``kv_repeat=1`` (tests/test_models.py:137-146), prefill and
+    a decode step included."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import make_media, make_prompts
+    from repro_torch.models import model as model_lib
+
+    dev = torch.device("cuda")
+    cfg = configs.get(arch).reduced()
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    prompts = make_prompts(cfg, 2, 9, SEED).to(dev)
+    media = make_media(cfg, 2, SEED)
+    media = None if media is None else media.to(dev)
+    out = {}
+    for rep in (1, 2):
+        c = dataclasses.replace(cfg, kv_repeat=rep)
+        with torch.no_grad():
+            full, _ = model_lib.forward(params, c, prompts, media=media)
+        last, caches = model_lib.prefill(params, c, prompts[:, :8],
+                                         media=media, max_len=9)
+        dec, _ = model_lib.decode_step(params, c, caches, prompts[:, 8:])
+        out[rep] = (full, last, dec)
+    errs = [(a - b).abs().max().item() for a, b in zip(out[1], out[2])]
+    log(f"[check] reduced {cfg.name} f32 on the card, kv_repeat 2 vs 1: "
+        f"max|diff| forward {errs[0]:.3e}, prefill {errs[1]:.3e}, decode "
+        f"{errs[2]:.3e} (tol 1e-4)")
+    for a, b in zip(out[1], out[2]):
+        close_or_raise(f"{cfg.name} kv_repeat", a, b, 1e-4)
+
+
+def jamba_phase(gmm, fa, rms) -> dict:
+    """Reduced jamba-1.5-large (f32; 2 periods of 8 slots: attention, then
+    seven Mamba2 mixers, MoE on the odd slots) with attn_impl, ssm_impl
+    and moe_impl "kernel" under nested remat: flash, ssd_scan and moe_gmm
+    launch in one stack. The card's forward and every gradient on one
+    batch against the host's (plain routes); JAMBA_STEPS training steps on
+    the card against the same steps on the host, losses and gradient norms
+    compared, launch counts per step asserted; prefill and decode
+    on the card against a full forward (ample MoE capacity, so that the
+    routing does not depend on how tokens are grouped)."""
+    from repro_torch import configs
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import pipeline_for_arch
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    plain = dataclasses.replace(configs.get(JAMBA).reduced(), remat="full")
+    cfg = dataclasses.replace(plain, attn_impl="kernel", ssm_impl="kernel",
+                              moe_impl="kernel")
+    host = model_lib.init_params(plain, torch.Generator().manual_seed(SEED),
+                                 "cpu")
+    card = copy.deepcopy(host).to("cuda")
+    # Each slot's layer runs once forward, once in its period's recompute
+    # and once in its own; the period's recompute stops at the last slot's
+    # input (torch.utils.checkpoint's early stop), so that slot runs twice.
+    P, R = len(cfg.pattern), cfg.repeats
+    runs = [3] * (P - 1) + [2]
+
+    def calls(pred):
+        return R * sum(n for n, slot in zip(runs, cfg.pattern) if pred(slot))
+
+    def layers_of(pred):
+        return R * sum(1 for slot in cfg.pattern if pred(slot))
+    nf, nb = ssd.LAUNCHES["fma"]            # f32 takes the FMA kernels
+    per_step = dict(
+        moe_gmm=3 * calls(lambda s: s[1] == "moe"),
+        moe_gmm_bwd=6 * layers_of(lambda s: s[1] == "moe"),
+        flash_fwd=calls(lambda s: s[0] == "attn"),
+        flash_bwd=3 * layers_of(lambda s: s[0] == "attn"), rmsnorm=0,
+        ssd_fwd=nf * calls(lambda s: s[0] == "mamba"),
+        ssd_bwd=nb * layers_of(lambda s: s[0] == "mamba"))
+    log(f"[jamba] {_describe(cfg, card)}, remat=full (nested: a "
+        f"checkpoint per period, one per slot inside it), attn/ssm/moe_impl "
+        f"kernel; launches per step the code implies: {per_step} (slot "
+        f"runs per step {runs})")
+
+    pipe = pipeline_for_arch(cfg, ShapeSpec("jamba", JAMBA_SEQ, 4, "train"),
+                             seed=SEED)
+    batches = [pipe.batch_at(s) for s in range(JAMBA_STEPS)]
+    with torch.no_grad():
+        toks = torch.from_numpy(batches[0]["tokens"])
+        lh, _ = model_lib.forward(host, plain, toks)
+        lk, _ = model_lib.forward(card, cfg, toks.cuda())
+    fwd_err = close_or_raise("jamba forward, card vs host", lk.cpu(), lh,
+                             1e-3)
+    grad_err = jamba_grad_check(cfg, card, plain, host, batches[0])
+    opt_cfg = AdamWConfig(lr_peak=2e-3, warmup_steps=2,
+                          total_steps=JAMBA_STEPS)
+    losses, gnorms = {}, {}
+    _reset(gmm, fa, rms)
+    for dev, params, c in (("cuda", card, cfg), ("cpu", host, plain)):
+        step_fn = train_mod.build_train_step(
+            c, opt_cfg, 1, train_mod.steal_table_for(c, dev))
+        state = adamw_init(dict(params.named_parameters()), opt_cfg,
+                           period=len(c.pattern))
+        out, norms = [], []
+        for s in range(JAMBA_STEPS):
+            before = _counts(gmm, fa, rms)
+            params, state, _, loss, gnorm = step_fn(
+                params, state, None, train_mod.to_device(batches[s], dev))
+            out.append(float(loss))
+            norms.append(float(gnorm))
+            got = {k: v - before[k] for k, v in _counts(gmm, fa, rms).items()}
+            want = per_step if dev == "cuda" else {k: 0 for k in per_step}
+            if got != want:
+                raise AssertionError(f"jamba {dev} step {s + 1}: launches "
+                                     f"{got}, expected {want}")
+        losses[dev], gnorms[dev] = out, norms
+    counts = _counts(gmm, fa, rms)
+
+    def worst(got, want):
+        return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    rel = worst(losses["cuda"], losses["cpu"])
+    grel = worst(gnorms["cuda"], gnorms["cpu"])
+    log(f"[jamba] forward logits card (kernels) vs host (plain) max|diff| "
+        f"{fwd_err:.3e} (tol 1e-3); every gradient on the first batch "
+        f"{grad_err}; {JAMBA_STEPS} steps at batch 4 x {JAMBA_SEQ}: losses "
+        f"card {['%.6f' % x for x in losses['cuda']]} vs host "
+        f"{['%.6f' % x for x in losses['cpu']]}: max relative diff "
+        f"{rel:.3e} (tol {REDUCED_LOSS_RTOL}); gradient norms card "
+        f"{['%.6f' % x for x in gnorms['cuda']]} vs host "
+        f"{['%.6f' % x for x in gnorms['cpu']]}: max relative diff "
+        f"{grel:.3e} (tol {JAMBA_GRAD_RTOL}); launches over the run "
+        f"{counts}")
+    if rel > REDUCED_LOSS_RTOL:
+        raise AssertionError("reduced jamba training: card and host disagree")
+    if grel > JAMBA_GRAD_RTOL:
+        raise AssertionError("reduced jamba training: card and host gradient "
+                             "norms disagree")
+
+    # prefill and decode on the card against a full forward
+    roomy = dataclasses.replace(cfg, capacity_factor=float(
+        cfg.moe_num_experts))
+    prompts = make_prompts(cfg, 2, 16 + CHECK_GEN, SEED).cuda()
+    with torch.no_grad():
+        full, _ = model_lib.forward(card, roomy, prompts)
+    logits, caches = model_lib.prefill(card, roomy, prompts[:, :16],
+                                       max_len=16 + CHECK_GEN)
+    errs = [close_or_raise("jamba prefill", logits[:, -1], full[:, 15],
+                           3e-3)]
+    for i in range(CHECK_GEN - 1):
+        logits, caches = model_lib.decode_step(card, roomy, caches,
+                                               prompts[:, 16 + i:17 + i])
+        errs.append(close_or_raise(f"jamba decode {i}", logits[:, -1],
+                                   full[:, 16 + i], 3e-3))
+    log(f"[jamba] prefill (16 tokens) and {CHECK_GEN - 1} decode steps on "
+        f"the card vs a full forward (kernels): max|diff| "
+        f"{['%.2e' % e for e in errs]} (tol 3e-3); cache length "
+        f"{caches['length']}")
+    return counts
+
+
+def jamba_grad_check(cfg, card, plain, host, batch) -> str:
+    """Loss and every parameter's gradient of the reduced jamba on one
+    batch, card (flash, ssd_scan and moe_gmm forward and backward at
+    jamba's own shapes, under nested remat) against host (plain routes),
+    leaf by leaf: |diff| <= JAMBA_GRAD_RTOL * |ref| + JAMBA_GRAD_RTOL / 10
+    * max|ref| (tests/test_torch_archs.py's gradient tolerance against
+    JAX). A backward kernel off by a constant factor fails here, where
+    AdamW's normalised update would hide it from the losses."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as model_lib
+
+    out = {}
+    for dev, params, c in (("cuda", card, cfg), ("cpu", host, plain)):
+        named = dict(params.named_parameters())
+        loss, _ = model_lib.train_loss(
+            params, c, train_mod.to_device(batch, dev),
+            train_mod.steal_table_for(c, dev))
+        grads = torch.autograd.grad(loss, list(named.values()))
+        out[dev] = (float(loss.detach()), dict(zip(named, grads)))
+    (lk, gk), (lh, gh) = out["cuda"], out["cpu"]
+    rel_loss = abs(lk - lh) / abs(lh)
+    if rel_loss > REDUCED_LOSS_RTOL:
+        raise AssertionError(f"jamba loss card {lk} vs host {lh}")
+    worst, worst_name = 0.0, ""
+    for name, want in gh.items():
+        got = gk[name].cpu()
+        scale = want.abs().max().item()
+        close_or_raise(f"jamba gradient {name}", got, want, JAMBA_GRAD_RTOL,
+                       atol=JAMBA_GRAD_RTOL / 10 * scale)
+        rel = ((got - want).abs().max() / scale).item() if scale else 0.0
+        if rel >= worst:
+            worst, worst_name = rel, name
+    return (f"({len(gh)} leaves, loss relative diff {rel_loss:.3e}): largest "
+            f"max|diff| / max|ref| {worst:.3e} at {worst_name} (rtol "
+            f"{JAMBA_GRAD_RTOL}, atol {JAMBA_GRAD_RTOL / 10} of max|ref|)")
 
 
 def _flat_bits(tree) -> dict:
@@ -1836,7 +2134,7 @@ def main() -> int:
         train_check_reduced(arch)
         log(f"[time] {arch} train phase and checks done at "
             f"{time.perf_counter()-t_all:.1f} s")
-    dense_serve_phase(gmm, fa, rms)
+    serve_check_phase(gmm, fa, rms, DENSE_SERVE, "dense-serve")
     torch.cuda.empty_cache()
     log(f"[time] {DENSE_SERVE} serve phase done at "
         f"{time.perf_counter()-t_all:.1f} s")
@@ -1844,36 +2142,67 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[time] resume phase done at {time.perf_counter()-t_all:.1f} s")
 
+    run = train_phase(gmm, fa, rms, HUBERT, tag=HUBERT)
+    dense[HUBERT] = run["counts"]
+    train_check_in_situ(run["cfg"], run["params"], run["batch"])
+    del run
+    torch.cuda.empty_cache()
+    train_check_reduced(HUBERT)
+    log(f"[time] {HUBERT} train phase and checks done at "
+        f"{time.perf_counter()-t_all:.1f} s")
+    jamba_counts = jamba_phase(gmm, fa, rms)
+    torch.cuda.empty_cache()
+    log(f"[time] {JAMBA} phase done at {time.perf_counter()-t_all:.1f} s")
+    serve_check_phase(gmm, fa, rms, VISION, "vision-serve",
+                      layers=VISION_LAYERS)
+    torch.cuda.empty_cache()
+    log(f"[time] {VISION} serve phase done at "
+        f"{time.perf_counter()-t_all:.1f} s")
+    serve_check_phase(gmm, fa, rms, COMMAND_R, "command-r-serve")
+    torch.cuda.empty_cache()
+    kv_repeat_check(COMMAND_R)
+    log(f"[time] {COMMAND_R} serve phase done at "
+        f"{time.perf_counter()-t_all:.1f} s")
+
     def entry(name, source, replaces, launches, rep):
         return dict(name=name, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{source}",
                     replaces=replaces, launches=launches, **rep)
     kernels = [
         entry("moe_gmm", "moe_gmm.cu", "src/repro/kernels/moe_gmm.py:43",
-              serve_launches + counts["moe_gmm"], gmm_res[REPORT_CASE]),
+              serve_launches + counts["moe_gmm"] + jamba_counts["moe_gmm"],
+              gmm_res[REPORT_CASE]),
         entry("moe_gmm_bwd", "moe_gmm.cu", "src/repro/kernels/moe_gmm.py:43",
-              counts["moe_gmm_bwd"], gmm_bwd_res[REPORT_CASE]),
+              counts["moe_gmm_bwd"] + jamba_counts["moe_gmm_bwd"],
+              gmm_bwd_res[REPORT_CASE]),
         entry("flash_attention_fwd", "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:90",
-              counts["flash_fwd"] + sum(c["flash_fwd"]
-                                        for c in dense.values()),
+              counts["flash_fwd"] + jamba_counts["flash_fwd"]
+              + sum(c["flash_fwd"] for c in dense.values()),
               flash_res[("fwd",) + FLASH_REPORT]),
         entry("flash_attention_bwd", "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:90",
-              counts["flash_bwd"] + sum(c["flash_bwd"]
-                                        for c in dense.values()),
+              counts["flash_bwd"] + jamba_counts["flash_bwd"]
+              + sum(c["flash_bwd"] for c in dense.values()),
               flash_res[("bwd",) + FLASH_REPORT]),
         entry("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:27",
               counts["rmsnorm"], rms_res[RMS_REPORT]),
         entry("ssd_scan_fwd", "ssd_scan.cu",
-              "src/repro/kernels/ssd_scan.py:75", mamba_counts["ssd_fwd"],
+              "src/repro/kernels/ssd_scan.py:75",
+              mamba_counts["ssd_fwd"] + jamba_counts["ssd_fwd"],
               ssd_res[SSD_REPORT]["fwd"]),
         entry("ssd_scan_bwd", "ssd_scan.cu",
-              "src/repro/kernels/ssd_scan.py:75", mamba_counts["ssd_bwd"],
+              "src/repro/kernels/ssd_scan.py:75",
+              mamba_counts["ssd_bwd"] + jamba_counts["ssd_bwd"],
               ssd_res[SSD_REPORT]["bwd"]),
     ]
     log(f"[done] moe_gmm launches: serve {serve_launches} + train "
-        f"{counts['moe_gmm']} forward, {counts['moe_gmm_bwd']} backward; "
+        f"{counts['moe_gmm']} + jamba {jamba_counts['moe_gmm']} forward, "
+        f"{counts['moe_gmm_bwd']} + {jamba_counts['moe_gmm_bwd']} backward; "
+        f"jamba flash {jamba_counts['flash_fwd']} forward, "
+        f"{jamba_counts['flash_bwd']} backward, ssd_scan "
+        f"{jamba_counts['ssd_fwd']} forward, {jamba_counts['ssd_bwd']} "
+        "backward; "
         f"flash launches: granite train {counts['flash_fwd']} forward, "
         f"{counts['flash_bwd']} backward, "
         + ", ".join(f"{a} train {c['flash_fwd']} forward, {c['flash_bwd']} "

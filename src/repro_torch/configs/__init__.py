@@ -1,15 +1,19 @@
 """Architecture registry of the port: ``get(name)`` / ``ARCHS``.
 
-Only the architectures whose layers the port runs are registered; the
-others join with the slices that port their layers.
+The same ten architectures as the JAX package's registry.
 """
 
-from . import (granite_moe_1b_a400m, llama4_scout_17b_a16e, mamba2_1_3b,
-               qwen2_5_3b, qwen3_14b, stablelm_1_6b)
-from .base import ArchConfig
+from . import (command_r_35b, granite_moe_1b_a400m, hubert_xlarge,
+               jamba_1_5_large_398b, llama4_scout_17b_a16e,
+               llama_3_2_vision_90b, mamba2_1_3b, qwen2_5_3b, qwen3_14b,
+               stablelm_1_6b)
+from .base import SHAPES, ArchConfig, ShapeSpec
 
-_MODULES = [granite_moe_1b_a400m, llama4_scout_17b_a16e, stablelm_1_6b,
-            qwen2_5_3b, qwen3_14b, mamba2_1_3b]
+_MODULES = [
+    llama_3_2_vision_90b, granite_moe_1b_a400m, llama4_scout_17b_a16e,
+    stablelm_1_6b, qwen2_5_3b, command_r_35b, qwen3_14b,
+    jamba_1_5_large_398b, hubert_xlarge, mamba2_1_3b,
+]
 
 ARCHS: dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 
@@ -20,4 +24,4 @@ def get(name: str) -> ArchConfig:
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "get", "ArchConfig"]
+__all__ = ["ARCHS", "get", "ArchConfig", "ShapeSpec", "SHAPES"]

@@ -2,8 +2,9 @@
 
 Each architecture file instantiates :class:`ArchConfig` with the exact
 published numbers; ``reduced()`` derives the same-family small config
-for CPU tests. The JAX package's shape grid, dry-run and sharding fields
-have no counterpart here yet: nothing on the port's path reads them.
+for CPU tests. ``SHAPES`` is the JAX package's shape grid (the data
+pipeline sizes its batches from a :class:`ShapeSpec`); its dry-run and
+sharding fields have no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -16,6 +17,23 @@ import torch
 LayerKind = Literal["attn", "mamba", "cross"]
 FfnKind = Literal["mlp", "moe", "none"]
 Slot = tuple[LayerKind, FfnKind]       # (mixer kind, ffn kind)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+# The LM shape grid (same for every arch; applicability filters below).
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +118,25 @@ class ArchConfig:
     def sub_quadratic(self) -> bool:
         """True if sequence cost is sub-quadratic (SSM/hybrid)."""
         return "mamba" in {k for k, _ in self.pattern}
+
+    def shapes(self) -> list[str]:
+        """Applicable shape cells for this arch."""
+        out = ["train_4k", "prefill_32k"]
+        if not self.is_encoder:
+            out.append("decode_32k")
+            if self.sub_quadratic:
+                out.append("long_500k")
+        return out
+
+    def skipped_shapes(self) -> dict[str, str]:
+        sk = {}
+        if self.is_encoder:
+            sk["decode_32k"] = "encoder-only: no decode step"
+            sk["long_500k"] = "encoder-only: no decode step"
+        elif not self.sub_quadratic:
+            sk["long_500k"] = ("pure full-attention arch: 500k decode "
+                               "needs sub-quadratic attention")
+        return sk
 
     def reduced(self) -> "ArchConfig":
         """Same-family tiny config for CPU tests (the JAX package's own)."""

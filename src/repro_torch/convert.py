@@ -4,9 +4,10 @@
 AdamW state (``m``, ``v`` factored or not, ``count``).
 
 The input is the JAX parameter tree with its leaves as numpy arrays
-(``jax.tree.map(np.asarray, params)``): ``embed``, ``final_norm``,
-optional ``lm_head``, and ``blocks``, a list over pattern slots whose
-leaves carry a leading ``repeats`` axis. Those are unstacked into the
+(``jax.tree.map(np.asarray, params)``): ``embed`` (none for an arch that
+takes frontend embeddings), ``final_norm``, optional ``lm_head``, and
+``blocks``, a list over pattern slots (1 for a dense model, 5 for the
+vision model, 8 for jamba) whose leaves carry a leading ``repeats`` axis. Those are unstacked into the
 port's per-layer modules as ``optim.stacked_layout`` maps them, layer
 ``r * len(pattern) + si`` taking index ``r`` of slot ``si``. bf16 leaves
 arrive as ``ml_dtypes.bfloat16`` arrays,

@@ -1,3 +1,5 @@
-from .pipeline import PipelineConfig, Prefetcher, TokenPipeline
+from .pipeline import (PipelineConfig, Prefetcher, TokenPipeline,
+                       pipeline_for_arch)
 
-__all__ = ["PipelineConfig", "TokenPipeline", "Prefetcher"]
+__all__ = ["PipelineConfig", "TokenPipeline", "Prefetcher",
+           "pipeline_for_arch"]

@@ -29,7 +29,7 @@ from typing import Iterator
 
 import numpy as np
 
-__all__ = ["PipelineConfig", "TokenPipeline", "Prefetcher"]
+__all__ = ["PipelineConfig", "TokenPipeline", "Prefetcher", "pipeline_for_arch"]
 
 _MASK64 = (1 << 64) - 1
 
@@ -193,3 +193,17 @@ class Prefetcher:
         except queue.Empty:
             pass
 
+
+
+def pipeline_for_arch(arch_cfg, shape, seed: int = 0) -> TokenPipeline:
+    """Pipeline matching an (ArchConfig, ShapeSpec) cell: frame embeddings
+    for an ``embeds_input`` arch, patch embeddings (``media``) for a VLM."""
+    return TokenPipeline(PipelineConfig(
+        vocab_size=arch_cfg.vocab_size,
+        seq_len=shape.seq_len,
+        global_batch=shape.global_batch,
+        seed=seed,
+        embeds_dim=arch_cfg.d_model if arch_cfg.embeds_input else 0,
+        media_tokens=arch_cfg.num_media_tokens,
+        d_model=arch_cfg.d_model,
+    ))

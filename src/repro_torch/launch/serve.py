@@ -8,10 +8,12 @@ prompt batch, greedy-decode with KV caches, report latency/throughput.
 
 Runs on the CUDA device unless ``--device cpu`` is given. ``--moe-impl
 kernel`` sends the expert FFN through the hand-written ``moe_gmm``
-kernel (the config's own default is ``einsum``). Weights and prompts come
-from seeded ``torch.Generator``s: the weights from one on the device,
-the prompts from one on the host, so a seed gives the same prompts on any
-device.
+kernel (the config's own default is ``einsum``). Weights, prompts and a
+VLM's media come from seeded ``torch.Generator``s: the weights from one
+on the device, the prompts and media from ones on the host, so a seed
+gives the same prompts and media on any device. The media (B, M, D) are
+the stub's patch embeddings, drawn N(0, 1) in the parameter dtype as the
+JAX launcher draws them. An encoder-only arch has no decode and exits.
 """
 
 from __future__ import annotations
@@ -31,13 +33,27 @@ def make_prompts(cfg, batch: int, prompt_len: int, seed: int):
     return torch.randint(1, cfg.vocab_size, (batch, prompt_len), generator=g)
 
 
-def generate(cfg, params, prompts, gen: int, device=None, steal_table=None):
-    """Greedy generation: prefill ``prompts`` (B, P), then ``gen - 1``
+def make_media(cfg, batch: int, seed: int):
+    """A VLM's stub patch embeddings (B, M, D) in the parameter dtype, or
+    None for an arch without media."""
+    if not cfg.num_media_tokens:
+        return None
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((batch, cfg.num_media_tokens, cfg.d_model),
+                       generator=g).to(cfg.param_dtype)
+
+
+def generate(cfg, params, prompts, gen: int, device=None, steal_table=None,
+             media=None):
+    """Greedy generation: prefill ``prompts`` (B, P) (with ``media``
+    (B, M, D) for a VLM's cross-attention layers), then ``gen - 1``
     decode steps. Returns (tokens (B, gen) on the host, stats) with
     stats = dict(prefill_s, decode_s, length) timed to the device's end.
     """
     dev = default_device(device)
     prompts = prompts.to(dev)
+    if media is not None:
+        media = media.to(dev)
     B, P = prompts.shape
 
     def sync():
@@ -46,7 +62,8 @@ def generate(cfg, params, prompts, gen: int, device=None, steal_table=None):
 
     sync()
     t0 = time.perf_counter()
-    logits, caches = model_lib.prefill(params, cfg, prompts, max_len=P + gen,
+    logits, caches = model_lib.prefill(params, cfg, prompts, media=media,
+                                       max_len=P + gen,
                                        steal_table=steal_table)
     tok = logits[:, -1].argmax(dim=-1, keepdim=True)
     sync()
@@ -93,7 +110,8 @@ def main(argv=None):
         cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     B, P = args.batch, args.prompt_len
     prompts = make_prompts(cfg, B, P, args.seed)
-    gen, st = generate(cfg, params, prompts, args.gen, dev)
+    media = make_media(cfg, B, args.seed)
+    gen, st = generate(cfg, params, prompts, args.gen, dev, media=media)
 
     per_tok = st["decode_s"] / max(args.gen - 1, 1)
     print(f"[serve] {cfg.name}: batch={B} prompt={P} gen={args.gen}")

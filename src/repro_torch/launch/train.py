@@ -13,6 +13,9 @@ monitor.
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch mamba2-1.3b --steps 10 --global-batch 2 --seq-len 4096 \
         --ssm-impl kernel
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch hubert-xlarge --steps 10 --global-batch 2 --seq-len 4096 \
+        --attn-impl kernel
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \
         --device cpu --steps 30 --global-batch 4 --seq-len 32 \
         --checkpoint-dir /tmp/ckpt
@@ -20,7 +23,9 @@ monitor.
 Runs on the CUDA device unless ``--device cpu`` is given. Remat is off
 with ``--reduced`` and "full" otherwise, as in the JAX launcher. Weights
 come from a seeded ``torch.Generator`` on the device; the batches from
-the stateless pipeline, the same arrays as the JAX launcher's. With
+the stateless pipeline (``pipeline_for_arch``: frame embeddings for an
+encoder such as hubert, patch embeddings for a VLM), the same arrays as
+the JAX launcher's (the model casts the embeddings to its dtype). With
 ``--checkpoint-dir`` the run resumes from the directory's latest step
 (weights and AdamW state, in the JAX package's on-disk layout, so either
 package's checkpoint serves), saves every ``--checkpoint-every`` steps in
@@ -40,7 +45,8 @@ from repro_torch import configs, convert, default_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import topology as topo_mod
 from repro_torch.core.routing import expert_steal_table
-from repro_torch.data import PipelineConfig, Prefetcher, TokenPipeline
+from repro_torch.configs import ShapeSpec
+from repro_torch.data import Prefetcher, pipeline_for_arch
 from repro_torch.models import model as model_lib
 from repro_torch.optim import (AdamWConfig, accumulate_gradients, adamw_init,
                                adamw_update, compressed_gradients)
@@ -128,9 +134,9 @@ def main(argv=None):
     steal = steal_table_for(cfg, dev)
     opt_cfg = AdamWConfig(lr_peak=args.lr, warmup_steps=args.warmup,
                           total_steps=args.steps)
-    pipe = TokenPipeline(PipelineConfig(
-        vocab_size=cfg.vocab_size, seq_len=args.seq_len,
-        global_batch=args.global_batch, seed=args.seed))
+    pipe = pipeline_for_arch(
+        cfg, ShapeSpec("cli", args.seq_len, args.global_batch, "train"),
+        seed=args.seed)
 
     start_step, mgr, tree = 0, None, None
     if args.checkpoint_dir:

@@ -1,7 +1,7 @@
 """Model building blocks (port of ``repro/models/layers.py``): norms, RoPE,
-GQA attention with a KV cache, the SwiGLU MLP, MoE with locality-aware
-routing and an optional shared expert, the Mamba2
-(SSD) mixer with its conv and SSM state.
+GQA attention with a KV cache, gated cross attention onto media, the
+SwiGLU MLP, MoE with locality-aware routing and an optional shared
+expert, the Mamba2 (SSD) mixer with its conv and SSM state.
 
 Conventions, as in the JAX package:
   * activations (B, S, D); attention BSHD; weights stored (d_in, d_out)
@@ -16,8 +16,7 @@ weights; its ``forward`` takes the config, so one set of weights can run
 either ``moe_impl``. Differences from the JAX package:
   * the KV cache is written in place at ``length`` (JAX returns a new
     buffer through ``dynamic_update_slice``); a write past the cache's
-    end raises, where JAX clamps the start;
-  * the cross-attention layer joins with a later slice.
+    end raises, where JAX clamps the start.
 
 ``attn_impl="kernel"`` sends attention without a cache (training) through
 the ``flash_attention`` kernel, as the JAX package does; cached attention
@@ -54,7 +53,7 @@ def normal_(p: torch.Tensor, scale: float, generator: torch.Generator):
     with torch.no_grad():
         z = torch.randn(p.shape, generator=generator, device=p.device,
                         dtype=torch.float32)
-        p.copy_(z * scale)
+        p.copy_(z.mul_(scale))      # in place: no second f32 temporary
 
 
 # ----------------------------------------------------------------------
@@ -163,6 +162,56 @@ class Attention(nn.Module):
                                      window=cfg.attn_window,
                                      kv_offset=kv_off)
         return out.reshape(B, S, H * Dh) @ self.wo, new_cache
+
+
+class CrossAttention(nn.Module):
+    """Gated cross attention onto media embeddings (B, M, D), as
+    ``init_cross_attention``/``cross_attention`` of the JAX package
+    (llama-3.2-vision): q and k are RMS-normed per head, the attention is
+    bidirectional through ``attention_ref`` (no kernel, as in JAX), and
+    the output is scaled by ``tanh(gate)``, computed in f32. The gate
+    starts at zero, so a fresh layer adds nothing."""
+
+    def __init__(self, cfg, *, device, dtype):
+        super().__init__()
+        D, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+            cfg.head_dim
+        self.wq = new_param((D, H * Dh), device, dtype)
+        self.wk = new_param((D, Hkv * Dh), device, dtype)
+        self.wv = new_param((D, Hkv * Dh), device, dtype)
+        self.wo = new_param((H * Dh, D), device, dtype)
+        self.q_norm = new_param((Dh,), device, dtype, 1.0)
+        self.k_norm = new_param((Dh,), device, dtype, 1.0)
+        self.gate = new_param((1,), device, dtype, 0.0)
+
+    def init_weights(self, generator: torch.Generator):
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            normal_(w, 1.0 / math.sqrt(w.shape[0]), generator)
+
+    def forward(self, x, cfg, *, media=None, cache=None):
+        """cache: None (train, prefill: k/v are projected from ``media``)
+        | dict(k, v) of projected media (decode reuses them). Returns
+        (y, dict(k, v))."""
+        B, S, _ = x.shape
+        H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = rmsnorm((x @ self.wq).reshape(B, S, H, Dh), self.q_norm,
+                    cfg.norm_eps)
+        if cache is None:
+            if media is None:
+                raise ValueError("a cross-attention layer needs media")
+            M = media.shape[1]
+            k = (media @ self.wk).reshape(B, M, Hkv, Dh)
+            v = (media @ self.wv).reshape(B, M, Hkv, Dh)
+            k = rmsnorm(k, self.k_norm, cfg.norm_eps)
+            if cfg.kv_repeat > 1:
+                k = k.repeat_interleave(cfg.kv_repeat, dim=2)
+                v = v.repeat_interleave(cfg.kv_repeat, dim=2)
+        else:
+            k, v = cache["k"], cache["v"]
+        out = kref.attention_ref(q, k, v, causal=False)
+        out = out.reshape(B, S, H * Dh) @ self.wo
+        return torch.tanh(self.gate.float()).to(out.dtype) * out, \
+            dict(k=k, v=v)
 
 
 def attn_cache_init(cfg, batch, max_len, dtype, device):

@@ -9,6 +9,12 @@ the JAX ones, so the same weights can run under another config switch
 (for example ``moe_impl``). ``jax.random`` cannot be replayed in torch:
 weights come from a ``torch.Generator`` with the JAX package's scales,
 and equal weights for a comparison come through ``convert.from_jax``.
+
+Modality frontends are stubs, as in the JAX package: an ``embeds_input``
+arch (hubert) takes precomputed frame embeddings ``embeds`` (B, S, D) in
+place of tokens and has no ``embed`` leaf, only its ``lm_head``; a VLM
+takes precomputed patch embeddings ``media`` (B, M, D) for its
+cross-attention layers.
 """
 
 from __future__ import annotations
@@ -26,19 +32,18 @@ class Model(nn.Module):
 
     def __init__(self, cfg, *, device):
         super().__init__()
-        if cfg.embeds_input or cfg.num_media_tokens:
-            raise NotImplementedError("frontend embeddings and media join "
-                                      "with a later slice of the port")
         dtype = cfg.param_dtype
         D, V = cfg.d_model, cfg.vocab_size
-        self.embed = layers.new_param((V, D), device, dtype)
+        if not cfg.embeds_input:
+            self.embed = layers.new_param((V, D), device, dtype)
         self.blocks = stack.build_layers(cfg, device=device, dtype=dtype)
         self.final_norm = layers.new_param((D,), device, dtype, 1.0)
-        if not cfg.tie_embeddings:
+        if cfg.embeds_input or not cfg.tie_embeddings:
             self.lm_head = layers.new_param((D, V), device, dtype)
 
     def init_weights(self, generator: torch.Generator):
-        layers.normal_(self.embed, 0.02, generator)
+        if hasattr(self, "embed"):
+            layers.normal_(self.embed, 0.02, generator)
         for blk in self.blocks:
             blk.mix.init_weights(generator)
             if blk.ffn_kind != "none":
@@ -80,13 +85,21 @@ def active_param_count(cfg) -> int:
     return total - expert + expert * cfg.moe_top_k // cfg.moe_num_experts
 
 
-def _embed(params: Model, tokens):
+def _embed(params: Model, cfg, tokens=None, embeds=None):
+    if cfg.embeds_input:
+        if embeds is None:
+            raise ValueError(f"{cfg.name} takes frontend embeddings")
+        return embeds.to(cfg.param_dtype)
     return params.embed[tokens.long()]
+
+
+def _media(cfg, media):
+    return None if media is None else media.to(cfg.param_dtype)
 
 
 def _head(params: Model, cfg, x):
     x = layers.rmsnorm(x, params.final_norm, cfg.norm_eps)
-    w = params.embed.T if cfg.tie_embeddings else params.lm_head
+    w = params.lm_head if hasattr(params, "lm_head") else params.embed.T
     return (x @ w).float()
 
 
@@ -95,22 +108,27 @@ def _positions(B, S, start, device):
             ).expand(B, S)
 
 
-def forward(params: Model, cfg, tokens, steal_table=None):
-    """Full-sequence logits (teacher forcing). Returns (logits, aux_loss)."""
-    x = _embed(params, tokens)
+def forward(params: Model, cfg, tokens=None, embeds=None, media=None,
+            steal_table=None):
+    """Full-sequence logits (teacher forcing / encoder forward). Returns
+    (logits, aux_loss)."""
+    x = _embed(params, cfg, tokens, embeds)
     B, S = x.shape[:2]
     x, _, aux = stack.apply_stack(params.blocks, cfg, x,
                                   positions=_positions(B, S, 0, x.device),
+                                  media=_media(cfg, media),
                                   steal_table=steal_table, mode="train")
     return _head(params, cfg, x), aux
 
 
 def train_loss(params: Model, cfg, batch, steal_table=None):
     """Cross-entropy (+ router aux + z-loss), as ``model.py:81-99`` of
-    the JAX package. batch: dict with ``tokens`` and ``labels`` (B, S)
-    (-100 = masked). Returns (loss, dict(ce, aux, z_loss))."""
-    logits, aux = forward(params, cfg, batch["tokens"],
-                          steal_table=steal_table)
+    the JAX package. batch: dict with ``tokens`` (or ``embeds``),
+    ``labels`` (B, S) (-100 = masked) and optional ``media``. Returns
+    (loss, dict(ce, aux, z_loss))."""
+    logits, aux = forward(params, cfg, tokens=batch.get("tokens"),
+                          embeds=batch.get("embeds"),
+                          media=batch.get("media"), steal_table=steal_table)
     labels = batch["labels"].long()
     valid = labels >= 0
     labels_safe = torch.where(valid, labels, 0)
@@ -126,14 +144,15 @@ def train_loss(params: Model, cfg, batch, steal_table=None):
 
 
 @torch.no_grad()
-def prefill(params: Model, cfg, tokens, max_len: int | None = None,
-            steal_table=None):
+def prefill(params: Model, cfg, tokens=None, embeds=None, media=None,
+            max_len: int | None = None, steal_table=None):
     """Process a prompt, returning (last_logits (B, 1, V), caches)."""
-    x = _embed(params, tokens)
+    x = _embed(params, cfg, tokens, embeds)
     B, S = x.shape[:2]
     caches = stack.init_caches(cfg, B, max_len or S, x.dtype, x.device)
     x, caches, _ = stack.apply_stack(params.blocks, cfg, x,
                                      positions=_positions(B, S, 0, x.device),
+                                     media=_media(cfg, media),
                                      caches=caches, mode="prefill",
                                      steal_table=steal_table)
     return _head(params, cfg, x[:, -1:]), caches
@@ -142,8 +161,9 @@ def prefill(params: Model, cfg, tokens, max_len: int | None = None,
 @torch.no_grad()
 def decode_step(params: Model, cfg, caches, tokens, steal_table=None):
     """One decode step. tokens: (B, 1). Returns (logits, caches); the
-    caches' K/V buffers are updated in place."""
-    x = _embed(params, tokens)
+    caches' K/V buffers are updated in place (cross layers reuse the
+    media projected by prefill)."""
+    x = _embed(params, cfg, tokens)
     B = x.shape[0]
     pos = _positions(B, 1, caches["length"], x.device)
     x, caches, _ = stack.apply_stack(params.blocks, cfg, x, positions=pos,

@@ -45,6 +45,10 @@ def _card():
     # head dim 128, stablelm-1.6b's MHA 32/32 at 64
     (512, 512, 16, 2, 128, True, None, 0),
     (512, 512, 32, 32, 64, True, None, 0),
+    # hubert-xlarge's: bidirectional MHA 16/16 at head dim 80 (the D-128
+    # tiles with 48 padded columns), and a ragged edge
+    (512, 512, 16, 16, 80, False, None, 0),
+    (300, 300, 4, 4, 80, False, None, 0),
 ])
 def test_flash_attention_kernel_on_card(dtype, Sq, Skv, Hq, Hkv, D, causal,
                                         window, off):

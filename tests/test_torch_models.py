@@ -264,6 +264,10 @@ def test_param_counts_match_published_sizes():
         "granite-moe-1b-a400m": (1.0e9, 1.6e9),
         "llama4-scout-17b-a16e": (95e9, 118e9),
         "stablelm-1.6b": (1.4e9, 1.9e9),
+        "command-r-35b": (28e9, 38e9),
+        "llama-3.2-vision-90b": (80e9, 95e9),
+        "jamba-1.5-large-398b": (370e9, 420e9),
+        "hubert-xlarge": (0.8e9, 1.3e9),
     }
     assert sorted(expected) == sorted(configs.ARCHS)
     for arch, (lo, hi) in expected.items():

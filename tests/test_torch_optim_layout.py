@@ -1,8 +1,10 @@
 """The port's AdamW on a model's parameters against the JAX package's on
-its stacked tree: reduced granite-moe, mamba2 and qwen2.5-3b (two
-layers, float32), factored and not, three steps of the same gradients
-on both sides (through ``from_jax``), every leaf of the parameters and of
-``m`` and ``v`` compared in the JAX layout (``to_jax``, ``opt_to_jax``).
+its stacked tree: reduced granite-moe, mamba2, qwen2.5-3b and hubert (two
+layers), jamba (two periods of 8 slots) and llama-3.2-vision (two of 5,
+a cross layer's (1,) gate among them), float32, factored and not,
+three steps of the same gradients on both sides (through ``from_jax``),
+every leaf of the parameters and of ``m`` and ``v`` compared in the JAX
+layout (``to_jax``, ``opt_to_jax``).
 
 JAX stacks a slot's per-layer weights on a leading ``repeats`` axis, so
 its per-layer vectors (norm weights, qkv biases, Mamba2's ``A_log``,
@@ -26,7 +28,8 @@ from repro.models import model as jmodel  # noqa: E402
 from repro_torch import configs, convert, optim  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 
-ARCHS = ["granite-moe-1b-a400m", "mamba2-1.3b", "qwen2.5-3b"]
+ARCHS = ["granite-moe-1b-a400m", "mamba2-1.3b", "qwen2.5-3b",
+         "jamba-1.5-large-398b", "llama-3.2-vision-90b", "hubert-xlarge"]
 STEPS = 3
 # float32 on both sides, the same operations per element, which XLA may
 # contract or reorder (the means of the factored statistics sum in another

@@ -1,8 +1,10 @@
 """The port's training step against JAX's ``build_train_step`` at full
 width with the depth cut to one layer, so that both packages' weights and
 Adam state fit the host at float32: granite-moe-1b-a400m (d 1024, 16
-heads / 8 KV, 32 experts top-8, vocab 49155) and qwen2.5-3b (d 2048, 16
-heads / 2 KV of 128, qkv bias, FF 11008, tied vocab 151936), remat full.
+heads / 8 KV, 32 experts top-8, vocab 49155), qwen2.5-3b (d 2048, 16
+heads / 2 KV of 128, qkv bias, FF 11008, tied vocab 151936) and the
+encoder hubert-xlarge (frame embeddings of width 1280, bidirectional MHA
+16/16 at head dim 80, FF 5120, 504 targets), remat full.
 Same weights (``from_jax``), same batches, the schedule of the on-card
 train phase (lr 3e-4, warm-up 2, 10 total). The reduced-size tests cannot
 see a fault that only shows at this width: the 32-expert router and its
@@ -28,7 +30,8 @@ from repro import configs as jconfigs  # noqa: E402
 from repro import optim as joptim  # noqa: E402
 from repro.core import routing as jrouting  # noqa: E402
 from repro.core import topology as jtopo  # noqa: E402
-from repro.data import PipelineConfig, TokenPipeline  # noqa: E402
+from repro.configs import ShapeSpec  # noqa: E402
+from repro.data.pipeline import pipeline_for_arch  # noqa: E402
 from repro.launch import train as jtrain  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro_torch import configs, convert, optim  # noqa: E402
@@ -60,8 +63,7 @@ def _run(arch, impls, seq):
         steal = jrouting.expert_steal_table(jtopo.tpu_pod_2d(1, E),
                                             np.arange(E), jc.moe_steal_policy)
     okw = dict(lr_peak=3e-4, warmup_steps=2, total_steps=10)
-    pipe = TokenPipeline(PipelineConfig(vocab_size=jc.vocab_size,
-                                        seq_len=seq, global_batch=2, seed=0))
+    pipe = pipeline_for_arch(jc, ShapeSpec("t", seq, 2, "train"), seed=0)
     batches = [pipe.batch_at(s) for s in range(STEPS)]
 
     # JAX first, then the port, so that one package's state is alive at a
@@ -120,3 +122,10 @@ def test_full_width_dense_train_steps_match_jax(arch):
     assert (tc.d_model, tc.num_heads, tc.num_kv_heads, tc.head_dim,
             tc.d_ff, tc.vocab_size, tc.qkv_bias, tc.tie_embeddings) == \
         (2048, 16, 2, 128, 11008, 151936, True, True)
+
+
+def test_full_width_encoder_train_steps_match_jax():
+    tc = _run("hubert-xlarge", dict(attn_impl="kernel"), seq=32)
+    assert (tc.d_model, tc.num_heads, tc.num_kv_heads, tc.head_dim,
+            tc.d_ff, tc.vocab_size, tc.is_encoder, tc.embeds_input) == \
+        (1280, 16, 16, 80, 5120, 504, True, True)
