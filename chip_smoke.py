@@ -89,7 +89,25 @@ imports nothing of JAX or of the JAX package. It
     64/8 at 128, tied 256000-row head; 30.28 B parameters, 60.6 GB in
     bf16) as step 8 serves qwen3-14b, and holds ``kv_repeat=2`` to
     ``kv_repeat=1`` on its reduced config;
-14. prints the ``kernels`` JSON line and, last, the device JSON line.
+14. [dryrun], on the host before the card phases: ``launch/dryrun.py``'s
+    ``run_cell`` (placeholder rank, meta tensors) at mesh (1, 1) with the
+    exact settings of each full-width train phase (granite, mamba2,
+    qwen2.5-3b, stablelm-1.6b, hubert-xlarge: batch 2 x 4096, remat full,
+    AdamW, bf16, the kernel routes) predicts its per-device peak memory
+    and FLOPs a step; after each train phase the step's arguments must
+    equal the card's byte for byte, the step's own part of the card's
+    peak (in the bytes the tensors asked for) lie within 0.1 % of the
+    accounting's, and ``max_memory_allocated`` within 10 % of the
+    prediction plus the bytes resident outside the step (named and
+    printed);
+15. [mesh], after the learning run: a one-rank NCCL world and the
+    production mesh's counterpart at (1, 1); full-width granite placed
+    by the role rules (every leaf Replicate) trains 3 steps of the dry
+    run's train step through flash and moe_gmm as DTensors with the
+    mesh's steal table (launch counts asserted per step), against the
+    same steps on plain tensors: losses and weights equal bit for bit;
+16. prints the ``kernels`` JSON line (the [mesh] run's launches
+    included) and, last, the device JSON line.
 
 Any failure raises and exits non-zero before the last line is printed.
 """
@@ -229,6 +247,24 @@ JAMBA_GRAD_RTOL = 2e-3
 # between runs), the resumed losses must lie within their spread: their
 # largest relative difference of the uninterrupted run's
 RESUME_ARCH, RESUME_LAYERS, RESUME_AT = "qwen2.5-3b", 4, 5
+
+# [dryrun]: launch/dryrun.py's run_cell at mesh (1, 1) with each full-width
+# train phase's exact settings predicts its per-device peak; the card's
+# torch.cuda.max_memory_allocated() over the phase's steps must lie within
+# DRYRUN_MEM_TOL of it (the accounting plus the bytes resident outside the
+# step, by name), and the step's own part (the peak less what was live
+# when the steps began, in the bytes the tensors asked for) within
+# DRYRUN_STEP_TOL of the accounting's. DRYRUN_FLOOR_TFLOP: PERF.md §2's
+# floors table, beside the predicted FLOPs a step.
+DRYRUN_MEM_TOL = 0.10
+DRYRUN_STEP_TOL = 0.001
+DRYRUN_FLOOR_TFLOP = {"granite-moe-1b-a400m": 136.0, "mamba2-1.3b": 88.0,
+                      "qwen2.5-3b": 225.0, "stablelm-1.6b": 100.0,
+                      "hubert-xlarge": 120.0}
+# [mesh]: granite trained at full width through DTensors on a one-rank
+# NCCL mesh (1, 1) for this many steps, against the same steps on plain
+# tensors
+MESH_STEPS = 3
 
 ARCH = "granite-moe-1b-a400m"
 BATCH, PROMPT, GEN, SEED = 4, 64, 32, 0
@@ -1111,6 +1147,7 @@ def train_phase(gmm, fa, rms, arch: str = ARCH, tag: str = "train") -> dict:
                   for k, v in params.state_dict().items()}
     held_before = held_loss()
     torch.cuda.synchronize()
+    resident = resident_outside_step(params, opt_state, batches[0])
     torch.cuda.reset_peak_memory_stats()
     _reset(gmm, fa, rms)
     losses, times = [], []
@@ -1129,6 +1166,7 @@ def train_phase(gmm, fa, rms, arch: str = ARCH, tag: str = "train") -> dict:
                                  f"{per_step}")
     counts = _counts(gmm, fa, rms)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    peaks = step_peaks()
     log(f"[{tag}] loss on a batch never trained on (pipeline step 1000): "
         f"{held_before:.4f} before, {held_loss():.4f} after the "
         f"{TRAIN_STEPS} steps")
@@ -1173,7 +1211,8 @@ def train_phase(gmm, fa, rms, arch: str = ARCH, tag: str = "train") -> dict:
                              "the plain routes")
     del opt_state
     return dict(counts=counts, cfg=cfg, params=params, batch=batches[0],
-                losses=losses, plain=plain, ms=ms, peak=peak)
+                losses=losses, plain=plain, ms=ms, peak=peak,
+                peaks=peaks, resident=resident)
 
 
 def _compare(block, names, got, want) -> str:
@@ -1421,6 +1460,7 @@ def mamba_train_phase(gmm, fa, rms) -> dict:
     init_state = {k: v.to("cpu", copy=True)
                   for k, v in params.state_dict().items()}
     torch.cuda.synchronize()
+    resident = resident_outside_step(params, opt_state, batches[0])
     torch.cuda.reset_peak_memory_stats()
     _reset(gmm, fa, rms)
     losses, times = [], []
@@ -1440,6 +1480,7 @@ def mamba_train_phase(gmm, fa, rms) -> dict:
                                  f"{per_step}")
     counts = _counts(gmm, fa, rms)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    peaks = step_peaks()
     steady = times[2:]
     ms = 1e3 * sum(steady) / len(steady)
     log(f"[mamba] steps 3-{TRAIN_STEPS}: {ms:.3f} ms/step, "
@@ -1475,7 +1516,8 @@ def mamba_train_phase(gmm, fa, rms) -> dict:
         raise AssertionError("training through ssd_scan departs from the "
                              "plain route")
     del opt_state
-    return dict(counts=counts, cfg=cfg, params=params, batch=batches[0])
+    return dict(counts=counts, cfg=cfg, params=params, batch=batches[0],
+                peak=peak, peaks=peaks, resident=resident)
 
 
 def mamba_check_in_situ(cfg, params, batch) -> None:
@@ -2063,6 +2105,239 @@ def resume_phase() -> None:
                              f"their spread {spread:.3e}")
 
 
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def resident_outside_step(params, opt_state, batch) -> dict:
+    """What is allocated on the card when a train phase's steps start,
+    split into the step's own arguments (the weights, the AdamW state and
+    the step's batch, which the dry run accounts) and the rest: the
+    phase's other batches and what earlier phases still hold (cuBLAS
+    workspaces among them). ``requested`` is the bytes the live tensors
+    asked for; ``total`` counts the allocator's blocks, which may be
+    larger (a cached block is handed out whole when what is left of it
+    would be small)."""
+    args = (sum(p.numel() * p.element_size() for p in params.parameters())
+            + _tree_bytes(opt_state["m"]) + _tree_bytes(opt_state["v"])
+            + _tree_bytes(batch))
+    total = torch.cuda.memory_allocated()
+    requested = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    return dict(total=total, args=args, other=total - args,
+                requested=requested)
+
+
+def step_peaks() -> dict:
+    """The card's peaks since the last reset: allocator blocks
+    (``max_memory_allocated``) and the bytes the tensors asked for."""
+    return dict(allocated=torch.cuda.max_memory_allocated(),
+                requested=torch.cuda.memory_stats()[
+                    "requested_bytes.all.peak"])
+
+
+def dryrun_phase() -> dict:
+    """launch/dryrun.py's run_cell on the host (placeholder rank, meta
+    tensors) for each full-width train phase at mesh (1, 1) with its exact
+    settings: batch 2 x 4096 with the dtypes of the pipeline's batches
+    (f32 frame embeddings for hubert), one microbatch, remat full, AdamW
+    (f32 moments), bf16, the kernel routes. Returns arch -> record."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import pipeline_for_arch
+    from repro_torch.launch import dryrun
+
+    out = tempfile.mkdtemp(prefix="dryrun-")
+    shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    preds = {}
+    for arch in (ARCH, MAMBA, *DENSE_TRAIN, HUBERT):
+        t0 = time.perf_counter()
+        over = dict(ssm_impl="kernel") if arch == MAMBA else \
+            dict(attn_impl="kernel", moe_impl="kernel")
+        pipe = pipeline_for_arch(configs.get(arch), ShapeSpec(
+            "train", TRAIN_SEQ, TRAIN_BATCH, "train"), seed=SEED)
+        dtypes = {k: torch.from_numpy(v[:1]).dtype
+                  for k, v in pipe.batch_at(0).items()}
+        rec = dryrun.run_cell(arch, "train_4k", "single", skip_existing=False,
+                              verbose=False, out_dir=out, shape_spec=shape,
+                              mesh_shape=(1, 1), micro_override=1,
+                              cfg_overrides=over, batch_dtypes=dtypes,
+                              variant="card")
+        mem = rec["memory"]
+        preds[arch] = rec
+        log(f"[dryrun] {arch}: predicted per-device peak "
+            f"{mem['peak_bytes']/2**30:.3f} GiB = arguments "
+            f"{mem['argument_bytes']/2**30:.3f} (weights, AdamW state, "
+            f"batch) + step {mem['temp_bytes']/2**30:.3f}; FLOPs a step "
+            f"{rec['cost']['flops_per_device']/1e12:.1f} T (PERF.md floors "
+            f"table: ~{DRYRUN_FLOOR_TFLOP[arch]:.0f} T); accounting on the "
+            f"host in {time.perf_counter() - t0:.1f} s, not a measurement")
+    dist.destroy_process_group()
+    return preds
+
+
+def dryrun_check(arch: str, rec: dict, peaks: dict, resident: dict) -> str:
+    """Hold a train phase's measured memory against the dry run's
+    accounting: the step's arguments byte for byte; the step's own part
+    (the peak less what was live when the steps began) in the bytes the
+    tensors asked for within DRYRUN_STEP_TOL; the whole peak, the bytes
+    resident outside the step added, within DRYRUN_MEM_TOL. The step's
+    part in allocator blocks is printed beside it: the difference is the
+    caching allocator's block rounding, which the accounting (512-byte
+    blocks) does not model."""
+    mem = rec["memory"]
+    meas = peaks["allocated"]
+    pred = mem["peak_bytes"] + resident["other"]
+    rel = (meas - pred) / pred
+    step = peaks["requested"] - resident["requested"]
+    step_rel = (step - mem["temp_bytes"]) / mem["temp_bytes"]
+    blocks = meas - resident["total"]
+    line = (f"[dryrun] {arch}: max_memory_allocated {meas/2**30:.3f} GiB vs "
+            f"predicted {pred/2**30:.3f} GiB = dry run "
+            f"{mem['peak_bytes']/2**30:.3f} + resident outside the "
+            f"step {resident['other']/2**30:.3f} (the phase's other batches "
+            "and earlier phases' tensors), off by "
+            f"{100*rel:+.2f}% (tol {100*DRYRUN_MEM_TOL:.0f}%); arguments "
+            f"{mem['argument_bytes']} B in the dry run, {resident['args']} B "
+            f"on the card; the step's own part {step} B requested vs "
+            f"{mem['temp_bytes']} B predicted, off by {100*step_rel:+.4f}% "
+            f"(tol {100*DRYRUN_STEP_TOL:.1f}%); in allocator blocks "
+            f"{blocks} B ({blocks - step:+d} B of block rounding)")
+    log(line)
+    if mem["argument_bytes"] != resident["args"]:
+        raise AssertionError(f"{arch}: the dry run's arguments are "
+                             f"{mem['argument_bytes']} B, the card's "
+                             f"{resident['args']} B")
+    if abs(step_rel) > DRYRUN_STEP_TOL:
+        raise AssertionError(f"{arch}: the dry run's step part is off by "
+                             f"{100*step_rel:+.4f}%")
+    if abs(rel) > DRYRUN_MEM_TOL:
+        raise AssertionError(f"{arch}: the dry run's peak is off by "
+                             f"{100*rel:+.2f}%")
+    return line
+
+
+def mesh_phase(gmm, fa, rms) -> dict:
+    """Full-width granite through DTensors: a one-rank NCCL world, the
+    production mesh's counterpart at (1, 1), every leaf placed by the role
+    rules (all Replicate: fit_spec drops size-1 axes), MESH_STEPS steps of
+    the dry run's train step through flash and moe_gmm with the mesh's
+    steal table, launch counts asserted per step; then the same steps on
+    plain tensors from the same weights: losses and weights must be equal
+    bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import pipeline_for_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_production_mesh, \
+        mesh_steal_table
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    dev = torch.device("cuda")
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_production_mesh(shape=(1, 1), device_type="cuda")
+        shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+        cfg = dataclasses.replace(
+            dryrun.adapt_config(configs.get(ARCH), shape, mesh, micro=1),
+            attn_impl="kernel", moe_impl="kernel")
+        steal = torch.as_tensor(mesh_steal_table(
+            mesh, cfg.moe_num_experts, cfg.moe_steal_policy), device=dev)
+        opt_cfg = AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=2,
+                              total_steps=TRAIN_STEPS)
+        pipe = pipeline_for_arch(cfg, shape, seed=SEED)
+        batches = [train_mod.to_device(pipe.batch_at(s), dev)
+                   for s in range(MESH_STEPS)]
+        L = cfg.num_layers
+        per_step = dict(moe_gmm=6 * L, moe_gmm_bwd=6 * L, flash_fwd=2 * L,
+                        flash_bwd=3 * L, rmsnorm=0, ssd_fwd=0, ssd_bwd=0)
+
+        def run(placed: bool):
+            params = model_lib.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+            specs = shd.param_specs(mesh, params, cfg.sharding_profile)
+            if placed:
+                shd.distribute_model(params, mesh, specs)
+            state = adamw_init(dict(params.named_parameters()), opt_cfg,
+                               period=len(cfg.pattern))
+            step = dryrun.make_train_step(cfg, opt_cfg, 1, steal,
+                                          mesh if placed else None)
+            losses, times, counts = [], [], []
+            for b in batches:
+                if placed:
+                    b = shd.distribute_tree(b, mesh, shd.batch_specs(mesh, b))
+                before = _counts(gmm, fa, rms)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, loss, _ = step(params, state, b)
+                loss = loss.full_tensor() if isinstance(loss, DTensor) \
+                    else loss
+                losses.append(float(loss))
+                times.append(time.perf_counter() - t0)
+                counts.append({k: v - before[k] for k, v in
+                               _counts(gmm, fa, rms).items()})
+            weights = {n: (p.to_local() if isinstance(p, DTensor) else p)
+                       .detach().to("cpu", copy=True)
+                       for n, p in params.named_parameters()}
+            kinds = sorted({type(p).__name__ for p in params.parameters()})
+            placements = sorted({str(tuple(p.placements))
+                                 for p in params.parameters()
+                                 if isinstance(p, DTensor)})
+            del params, state
+            torch.cuda.empty_cache()
+            return losses, times, counts, weights, kinds, placements
+
+        d_loss, d_ms, d_counts, d_w, kinds, placements = run(True)
+        log(f"[mesh] {cfg.name} on mesh {tuple(mesh.mesh.shape)} "
+            f"{mesh.mesh_dim_names} (NCCL, one rank): parameters {kinds} "
+            f"placed {placements}; steal table from the mesh; "
+            f"{MESH_STEPS} steps, losses {['%.6f' % x for x in d_loss]}, "
+            f"{['%.1f' % (1e3 * t) for t in d_ms]} ms; launches per step "
+            f"{d_counts[0]}")
+        for i, c in enumerate(d_counts):
+            if c != per_step:
+                raise AssertionError(f"[mesh] step {i + 1}: launches {c}, "
+                                     f"expected {per_step}")
+        p_loss, p_ms, p_counts, p_w, _, _ = run(False)
+        log(f"[mesh] the same steps on plain tensors: losses "
+            f"{['%.6f' % x for x in p_loss]}, "
+            f"{['%.1f' % (1e3 * t) for t in p_ms]} ms; launches per step "
+            f"{p_counts[0]}")
+        differ = [n for n in p_w if not torch.equal(p_w[n], d_w[n])]
+        if d_loss != p_loss or differ:
+            raise AssertionError(f"[mesh] DTensor and plain steps differ: "
+                                 f"losses {d_loss} vs {p_loss}; weights "
+                                 f"{differ[:8]}")
+        log(f"[mesh] losses and all {len(p_w)} weights equal bit for bit; "
+            f"step time (steps 2-{MESH_STEPS}) DTensor "
+            f"{1e3 * sum(d_ms[1:]) / (MESH_STEPS - 1):.1f} ms, plain "
+            f"{1e3 * sum(p_ms[1:]) / (MESH_STEPS - 1):.1f} ms")
+        total = {k: sum(c[k] for c in d_counts) for k in per_step}
+        return total
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2084,6 +2359,8 @@ def main() -> int:
     for name, text in _build.build_logs.items():
         for line in text.strip().splitlines():
             log(f"[build] {name}: {line.strip()}")
+    preds = dryrun_phase()
+    log(f"[time] dry run (host) done at {time.perf_counter()-t_all:.1f} s")
 
     gmm_res = kernel_phase(gmm)
     gmm_bwd_res = gmm_backward_phase(gmm)
@@ -2104,6 +2381,8 @@ def main() -> int:
 
     train = train_phase(gmm, fa, rms)
     counts = train["counts"]
+    dry = [dryrun_check(ARCH, preds[ARCH], train["peaks"],
+                       train["resident"])]
     train_check_in_situ(train["cfg"], train["params"], train["batch"])
     del train
     torch.cuda.empty_cache()
@@ -2113,9 +2392,14 @@ def main() -> int:
     train_learning_phase()
     torch.cuda.empty_cache()
     log(f"[time] learning run done at {time.perf_counter()-t_all:.1f} s")
+    mesh_counts = mesh_phase(gmm, fa, rms)
+    torch.cuda.empty_cache()
+    log(f"[time] mesh phase done at {time.perf_counter()-t_all:.1f} s")
 
     mamba = mamba_train_phase(gmm, fa, rms)
     mamba_counts = mamba["counts"]
+    dry.append(dryrun_check(MAMBA, preds[MAMBA], mamba["peaks"],
+                            mamba["resident"]))
     mamba_check_in_situ(mamba["cfg"], mamba["params"], mamba["batch"])
     del mamba
     torch.cuda.empty_cache()
@@ -2128,6 +2412,8 @@ def main() -> int:
     for arch in DENSE_TRAIN:
         run = train_phase(gmm, fa, rms, arch, tag=arch)
         dense[arch] = run["counts"]
+        dry.append(dryrun_check(arch, preds[arch], run["peaks"],
+                                run["resident"]))
         train_check_in_situ(run["cfg"], run["params"], run["batch"])
         del run
         torch.cuda.empty_cache()
@@ -2144,6 +2430,8 @@ def main() -> int:
 
     run = train_phase(gmm, fa, rms, HUBERT, tag=HUBERT)
     dense[HUBERT] = run["counts"]
+    dry.append(dryrun_check(HUBERT, preds[HUBERT], run["peaks"],
+                            run["resident"]))
     train_check_in_situ(run["cfg"], run["params"], run["batch"])
     del run
     torch.cuda.empty_cache()
@@ -2170,19 +2458,21 @@ def main() -> int:
                     replaces=replaces, launches=launches, **rep)
     kernels = [
         entry("moe_gmm", "moe_gmm.cu", "src/repro/kernels/moe_gmm.py:43",
-              serve_launches + counts["moe_gmm"] + jamba_counts["moe_gmm"],
-              gmm_res[REPORT_CASE]),
+              serve_launches + counts["moe_gmm"] + jamba_counts["moe_gmm"]
+              + mesh_counts["moe_gmm"], gmm_res[REPORT_CASE]),
         entry("moe_gmm_bwd", "moe_gmm.cu", "src/repro/kernels/moe_gmm.py:43",
-              counts["moe_gmm_bwd"] + jamba_counts["moe_gmm_bwd"],
-              gmm_bwd_res[REPORT_CASE]),
+              counts["moe_gmm_bwd"] + jamba_counts["moe_gmm_bwd"]
+              + mesh_counts["moe_gmm_bwd"], gmm_bwd_res[REPORT_CASE]),
         entry("flash_attention_fwd", "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:90",
               counts["flash_fwd"] + jamba_counts["flash_fwd"]
+              + mesh_counts["flash_fwd"]
               + sum(c["flash_fwd"] for c in dense.values()),
               flash_res[("fwd",) + FLASH_REPORT]),
         entry("flash_attention_bwd", "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:90",
               counts["flash_bwd"] + jamba_counts["flash_bwd"]
+              + mesh_counts["flash_bwd"]
               + sum(c["flash_bwd"] for c in dense.values()),
               flash_res[("bwd",) + FLASH_REPORT]),
         entry("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:27",
@@ -2212,6 +2502,9 @@ def main() -> int:
         f"own; ssd_scan {mamba_counts['ssd_fwd']} forward, "
         f"{mamba_counts['ssd_bwd']} backward launches in the mamba2 train "
         f"run; total {time.perf_counter()-t_all:.1f} s")
+    for line in dry:                        # the dry run's five checks
+        log(line)
+    log(f"[done] [mesh] launches (DTensor run): {mesh_counts}")
     log(card_line())                        # again, beside the results
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

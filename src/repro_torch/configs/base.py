@@ -3,8 +3,10 @@
 Each architecture file instantiates :class:`ArchConfig` with the exact
 published numbers; ``reduced()`` derives the same-family small config
 for CPU tests. ``SHAPES`` is the JAX package's shape grid (the data
-pipeline sizes its batches from a :class:`ShapeSpec`); its dry-run and
-sharding fields have no counterpart here yet.
+pipeline and the dry run size their batches from a :class:`ShapeSpec`).
+The activation specs and the sharding profile are set per mesh by the
+launcher (``launch/dryrun.py:adapt_config``); see ``launch/shardings.py``
+for the spec format.
 """
 
 from __future__ import annotations
@@ -55,11 +57,26 @@ class ArchConfig:
     rope_theta: float = 1e6
     attn_window: int | None = None
     attn_impl: str = "ref"           # 'ref' | 'kernel'
+    # KV head replication for TP > kv_heads (launcher sets per mesh):
+    # k/v are repeated this many times before use/caching so the stored
+    # head dim divides the model axis (standard GQA tensor-parallel trade).
     kv_repeat: int = 1
     # long-sequence attention: above the threshold, loop over q chunks so
     # the score slab stays (chunk × Skv) instead of (Sq × Skv)
     attn_chunk: int = 1024
     attn_chunk_threshold: int = 8192
+    # activation sharding constraints (set by the launcher per mesh; None
+    # = let DTensor propagate). Tuples of axis names per dim.
+    attn_q_spec: tuple | None = None
+    attn_kv_spec: tuple | None = None
+    ssm_act_spec: tuple | None = None
+    moe_group_spec: tuple | None = None
+    moe_xin_spec: tuple | None = None
+    moe_h_spec: tuple | None = None
+    # JAX ties each slot's weight gathers to the previous slot's output
+    # (an XLA scheduling barrier); eager PyTorch gathers at use already,
+    # so the port keeps the field for the launcher and reads it nowhere
+    serialize_slot_gathers: bool = False
 
     # modality
     is_encoder: bool = False
@@ -95,6 +112,11 @@ class ArchConfig:
     remat: str = "full"              # none|full|dots
     router_aux_weight: float = 0.01
     z_loss_weight: float = 1e-4
+
+    # sharding profile: '2d' (TP+FSDP) | 'ep_only' (experts on "model",
+    # dense FSDP across both axes — for small-d_model MoE) |
+    # 'ep_replicated' (everything but the experts replicated)
+    sharding_profile: str = "2d"
 
     def __post_init__(self):
         if self.head_dim == 0:

@@ -87,23 +87,23 @@ def one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
 
 def _fill_positions(choice: torch.Tensor, active: torch.Tensor,
                     used: torch.Tensor, num_experts: int, capacity: int):
-    """Greedy in-order capacity fill for one routing attempt.
+    """Greedy in-order capacity fill for one routing attempt, for each
+    routed group along the leading dims.
 
-    choice: (T,) expert id per token; active: (T,) tokens still waiting.
-    used: (E,) slots already taken. Returns (placed, position, new_used).
+    choice: (..., T) expert id per token; active: (..., T) tokens still
+    waiting. used: (..., E) slots already taken. Returns (placed,
+    position, new_used).
     """
     choice_l = choice.long()
     onehot = one_hot(choice, num_experts, torch.int32)
-    onehot = onehot * active[:, None].to(torch.int32)
-    # position of each token within its chosen expert's queue; the scan
-    # runs along the contiguous axis of the (E, T) transpose (a scan along
-    # the outer axis of (T, E) is far slower on the card)
-    onehot_t = onehot.t().contiguous()
-    pos_in_expert = torch.cumsum(onehot_t, dim=1, dtype=torch.int32) \
+    onehot = onehot * active[..., None].to(torch.int32)
+    onehot_t = onehot.transpose(-1, -2).contiguous()
+    pos_in_expert = torch.cumsum(onehot_t, dim=-1, dtype=torch.int32) \
         - onehot_t
-    pos = pos_in_expert.gather(0, choice_l[None, :])[0] + used[choice_l]
+    pos = pos_in_expert.gather(-2, choice_l[..., None, :])[..., 0, :] \
+        + used.gather(-1, choice_l)
     placed = active & (pos < capacity)
-    new_used = used + torch.minimum(onehot.sum(dim=0, dtype=torch.int32),
+    new_used = used + torch.minimum(onehot.sum(dim=-2, dtype=torch.int32),
                                     capacity - used)
     return placed, pos, new_used
 
@@ -113,30 +113,31 @@ def route(gate_logits: torch.Tensor, cfg: RoutingConfig,
     """Top-k routing with locality-aware overflow stealing.
 
     Args:
-      gate_logits: (T, E) router scores for a routed group.
+      gate_logits: (T, E) router scores for a routed group, or (..., T, E)
+        for many groups at once, each routed on its own.
       steal_table: (E, E-1) steal order, nearest victim first. Required
         when ``cfg.steal_attempts > 0``.
 
-    Returns dict with:
+    Returns dict with (each with the leading group dims):
       expert:   (T, K) int32 — final expert of each (token, slot); -1 drop.
       slot:     (T, K) int32 — capacity slot within that expert; -1 drop.
       weight:   (T, K) f32   — combine weights (renormalised gate probs).
       aux_loss: scalar load-balancing auxiliary (Switch-style).
       drop_fraction: scalar — fraction of (token, slot) pairs dropped.
     """
-    T, E = gate_logits.shape
+    *lead, T, E = gate_logits.shape
     if E != cfg.num_experts:
         raise ValueError(f"gate width {E} != num_experts {cfg.num_experts}")
     dev = gate_logits.device
     probs = torch.softmax(gate_logits.float(), dim=-1)
     # stable descending sort: lower index first among ties, as lax.top_k
     sorted_p, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_e = sorted_p[:, :cfg.top_k], order[:, :cfg.top_k]
+    top_p, top_e = sorted_p[..., :cfg.top_k], order[..., :cfg.top_k]
 
     # Switch-Transformer auxiliary load-balance loss.
-    density = one_hot(top_e[:, 0], E, torch.float32).mean(dim=0)
-    router_prob = probs.mean(dim=0)
-    aux_loss = E * torch.sum(density * router_prob)
+    density = one_hot(top_e[..., 0], E, torch.float32).mean(dim=-2)
+    router_prob = probs.mean(dim=-2)
+    aux_loss = E * torch.sum(density * router_prob, dim=-1)
 
     table = None
     if cfg.steal_attempts > 0:
@@ -148,11 +149,11 @@ def route(gate_logits: torch.Tensor, cfg: RoutingConfig,
     # Flatten (token, k-slot) pairs; earlier k-slots get priority, matching
     # the paper's depth-first "own queue first" preference.
     n = cfg.top_k * T
-    choice = top_e.T.reshape(-1)                          # (K*T,)
-    flat_active = torch.ones(n, dtype=torch.bool, device=dev)
-    flat_expert = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    flat_slot = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    used = torch.zeros(E, dtype=torch.int32, device=dev)
+    choice = top_e.transpose(-1, -2).reshape(*lead, n)    # (..., K*T)
+    flat_active = torch.ones((*lead, n), dtype=torch.bool, device=dev)
+    flat_expert = torch.full((*lead, n), -1, dtype=torch.int32, device=dev)
+    flat_slot = torch.full((*lead, n), -1, dtype=torch.int32, device=dev)
+    used = torch.zeros((*lead, E), dtype=torch.int32, device=dev)
 
     for attempt in range(cfg.steal_attempts + 1):
         placed, pos, used = _fill_positions(choice, flat_active, used,
@@ -165,13 +166,13 @@ def route(gate_logits: torch.Tensor, cfg: RoutingConfig,
             # overflow tokens walk the victim list of their *current*
             # expert: nearest device first (DFWSPT/DFWSRPT).
             choice = table[choice, attempt]
-    expert = flat_expert.reshape(cfg.top_k, T).T          # (T, K)
-    slot = flat_slot.reshape(cfg.top_k, T).T
-    keep = expert >= 0
+    expert = flat_expert.reshape(*lead, cfg.top_k, T).transpose(-1, -2)
+    slot = flat_slot.reshape(*lead, cfg.top_k, T).transpose(-1, -2)
+    keep = expert >= 0                                    # (..., T, K)
     w = top_p * keep
     w = w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-9)
     return dict(expert=expert, slot=slot, weight=w, aux_loss=aux_loss,
-                drop_fraction=1.0 - keep.float().mean())
+                drop_fraction=1.0 - keep.float().mean(dim=(-2, -1)))
 
 
 def dispatch_combine_weights(routing: dict, num_experts: int, capacity: int):

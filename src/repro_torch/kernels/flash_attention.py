@@ -12,24 +12,34 @@ masked in the kernel). Head dims above 128 raise.
 
 A CPU tensor takes the plain version (:func:`flash_attention_plain`,
 the oracle ``attention_ref``) under autograd. A CUDA tensor launches the
-kernels or raises; its gradient is a ``torch.autograd.Function`` whose
-backward is three kernel launches (the delta pre-pass, dK/dV, dQ). A row
-that sees no key gives 0 (and zero gradients) on the card, as the TPU
-kernel does, where the oracle gives NaN. ``fwd_launches`` and
-``bwd_launches`` count kernel launches and nothing else.
+kernels or raises: it goes through the custom ops
+``torch.ops.repro_torch.flash_attention_fwd`` (out, lse) and
+``flash_attention_bwd`` (dq, dk, dv and the delta workspace), whose
+autograd formula is the backward op, three kernel launches (the delta
+pre-pass, dK/dV, dQ). A meta tensor (the dry run's) takes the same ops,
+which there only allocate what the CUDA path allocates; each op has a
+FLOP formula for ``FlopCounterMode`` (the unmasked score pairs × head
+dim: 4 per pair forward, 10 backward). A row that sees no key gives 0
+(and zero gradients) on the card, as the TPU kernel does, where the
+oracle gives NaN. ``fwd_launches`` and ``bwd_launches`` count kernel
+launches and nothing else.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .ref import attention_ref
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
-           "flash_attention_bwd", "fwd_launches", "bwd_launches"]
+           "flash_attention_bwd", "score_pairs", "fwd_launches",
+           "bwd_launches"]
 
 fwd_launches = 0
 bwd_launches = 0
@@ -96,12 +106,23 @@ def flash_attention_fwd(q, k, v, causal, scale, window, kv_offset):
     return out, lse
 
 
+def _bwd_outputs(q, k, v, lse):
+    """What the backward allocates: dq, dk, dv and the delta workspace
+    (the per-row sum of dout · out, f32, shaped like lse)."""
+    return (*(torch.empty_like(t) for t in (q, k, v)),
+            torch.empty_like(lse))
+
+
 def flash_attention_bwd(q, k, v, out, lse, dout, causal, scale, window,
                         kv_offset):
     """The backward kernels on contiguous CUDA tensors: (dq, dk, dv)."""
+    return _bwd(q, k, v, out, lse, dout, causal, scale, window,
+                kv_offset)[:3]
+
+
+def _bwd(q, k, v, out, lse, dout, causal, scale, window, kv_offset):
     global bwd_launches
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty_like(lse)
+    dq, dk, dv, delta = _bwd_outputs(q, k, v, lse)
     launch = _build.kernel_function("flash_attention", "flash_attention_bwd",
                                     _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
@@ -110,25 +131,87 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal, scale, window,
                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                *_shape_args(q, k, causal, scale, window, kv_offset))
     bwd_launches += 3              # delta pre-pass, dK/dV, dQ
-    return dq, dk, dv
+    return dq, dk, dv, delta
 
 
-class _Flash(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale, window, kv_offset):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = flash_attention_fwd(q, k, v, causal, scale, window,
-                                       kv_offset)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (causal, scale, window, kv_offset)
-        return out
+# ----------------------------------------------------------------------
+# the custom ops: CUDA launches, meta/fake allocation, autograd, FLOPs
+# ----------------------------------------------------------------------
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         dout.contiguous(), *ctx.args)
-        return dq, dk, dv, None, None, None, None
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            scale: float, window: Optional[int], kv_offset: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_fwd(q, k, v, causal, scale, window, kv_offset)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, causal, scale, window, kv_offset):
+    B, Sq, Hq, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, Hq, Sq),
+                                            dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+            causal: bool, scale: float, window: Optional[int],
+            kv_offset: int
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor]:
+    return _bwd(q, k, v, out, lse, dout, causal, scale, window, kv_offset)
+
+
+@_bwd_op.register_fake
+def _(q, k, v, out, lse, dout, causal, scale, window, kv_offset):
+    return _bwd_outputs(q, k, v, lse)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, scale, window, kv_offset = inputs
+    out, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.args = (causal, scale, window, kv_offset)
+
+
+def _backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv, _ = _bwd_op(q, k, v, out, lse, dout.contiguous(), *ctx.args)
+    return dq, dk, dv, None, None, None, None
+
+
+_fwd_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def score_pairs(Sq: int, Skv: int, causal: bool, window: int | None,
+                kv_offset: int) -> int:
+    """The (query, key) pairs the mask leaves: key position j sees query
+    position i + kv_offset when j <= it (causal) and j > it - window."""
+    pos = np.arange(Sq, dtype=np.int64) + kv_offset
+    hi = np.minimum(Skv, pos + 1) if causal else np.full(Sq, Skv)
+    lo = np.maximum(0, pos - window + 1) if window is not None else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _flops(q_shape, k_shape, causal, window, kv_offset, per_pair):
+    B, Sq, Hq, D = q_shape
+    return per_pair * B * Hq * D * score_pairs(Sq, k_shape[1], causal,
+                                               window, kv_offset)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _fwd_flops(q, k, v, causal, scale, window, kv_offset, *args, **kwargs):
+    return _flops(q, k, causal, window, kv_offset, 4)   # QK^T, PV
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _bwd_flops(q, k, v, out, lse, dout, causal, scale, window, kv_offset,
+               *args, **kwargs):
+    # QK^T again, dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q
+    return _flops(q, k, causal, window, kv_offset, 10)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -140,7 +223,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      window=window, kv_offset=kv_offset)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
     D = q.shape[3]
@@ -150,4 +233,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     scale = D ** -0.5 if scale is None else scale
-    return _Flash.apply(q, k, v, causal, scale, window, kv_offset)
+    return _fwd_op(q.contiguous(), k.contiguous(), v.contiguous(), causal,
+                   float(scale), window, int(kv_offset))[0]

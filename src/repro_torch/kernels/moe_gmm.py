@@ -18,10 +18,13 @@ other widths take FMA tiles.
 
 A CPU tensor takes the plain version (:func:`moe_gmm_plain`) under
 autograd. A CUDA tensor launches a kernel on the current stream or
-raises: there is no fallback. On CUDA the gradient is a
-``torch.autograd.Function`` whose backward is two more launches (the
-JAX package takes the VJP of the oracle, i.e. the same two grouped
-GEMMs):
+raises: there is no fallback. It goes through the custom op
+``torch.ops.repro_torch.moe_gmm``, whose autograd formula is the ops
+``moe_gmm_dx`` and ``moe_gmm_dw``, two more launches (the JAX package
+takes the VJP of the oracle, i.e. the same two grouped GEMMs). A meta
+tensor (the dry run's) takes the same ops, which there only allocate
+their outputs; each op has a FLOP formula (2·Z·C·D·F) for
+``FlopCounterMode``. The backward kernels:
 
   * bf16 with D and F multiples of 8 and 16-byte aligned tensors: two
     kernels that read x, w and g as stored, with no copy:
@@ -42,6 +45,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .ref import moe_gmm_ref
@@ -154,22 +158,76 @@ def moe_gmm_bwd(x, w, g, period, need_dx=True, need_dw=True):
     return dx, dw
 
 
-class _MoeGmm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w, period):
-        global launches
-        ctx.save_for_backward(x, w)
-        ctx.period = period
-        out = _launch(x, w, period)
-        launches += 1
-        return out
+# ----------------------------------------------------------------------
+# the custom ops: CUDA launches, meta/fake allocation, autograd, FLOPs
+# ----------------------------------------------------------------------
 
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        dx, dw = moe_gmm_bwd(x, w, g.contiguous(), ctx.period,
-                             *ctx.needs_input_grad[:2])
-        return dx, dw, None
+@torch.library.custom_op("repro_torch::moe_gmm", mutates_args=(),
+                         device_types="cuda")
+def _op(x: torch.Tensor, w: torch.Tensor, period: int) -> torch.Tensor:
+    global launches
+    out = _launch(x, w, period)
+    launches += 1
+    return out
+
+
+@_op.register_fake
+def _(x, w, period):
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
+
+
+@torch.library.custom_op("repro_torch::moe_gmm_dx", mutates_args=(),
+                         device_types="cuda")
+def _dx_op(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+           period: int) -> torch.Tensor:
+    return moe_gmm_bwd(x, w, g, period, need_dw=False)[0]
+
+
+@_dx_op.register_fake
+def _(x, w, g, period):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("repro_torch::moe_gmm_dw", mutates_args=(),
+                         device_types="cuda")
+def _dw_op(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+           period: int) -> torch.Tensor:
+    return moe_gmm_bwd(x, w, g, period, need_dx=False)[1]
+
+
+@_dw_op.register_fake
+def _(x, w, g, period):
+    return torch.empty_like(w)
+
+
+def _setup_context(ctx, inputs, output):
+    x, w, period = inputs
+    ctx.save_for_backward(x, w)
+    ctx.period = period
+
+
+def _backward(ctx, g):
+    x, w = ctx.saved_tensors
+    g = g.contiguous()
+    need_dx, need_dw = ctx.needs_input_grad[:2]
+    dx = _dx_op(x, w, g, ctx.period) if need_dx else None
+    dw = _dw_op(x, w, g, ctx.period) if need_dw else None
+    return dx, dw, None
+
+
+_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def _flops(x_shape, w_shape):
+    Z, C, D = x_shape
+    return 2 * Z * C * D * w_shape[2]
+
+
+@register_flop_formula([torch.ops.repro_torch.moe_gmm,
+                        torch.ops.repro_torch.moe_gmm_dx,
+                        torch.ops.repro_torch.moe_gmm_dw])
+def _gmm_flops(x, w, *args, **kwargs):
+    return _flops(x, w)
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor,
@@ -178,11 +236,11 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor,
     period = _check(x, w, expert_period)
     if x.device.type == "cpu":
         return moe_gmm_plain(x, w, expert_period)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"moe_gmm runs on cuda or cpu, not {x.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("moe_gmm needs contiguous x and w")
     if x.shape[0] > _MAX_Z:
         raise ValueError(f"Z={x.shape[0]} exceeds the kernel's grid limit "
                          f"{_MAX_Z}")
-    return _MoeGmm.apply(x, w, period)
+    return _op(x, w, period)

@@ -6,18 +6,23 @@ kernel ``repro/kernels/rmsnorm.py:rmsnorm_kernel_call``; any row count and
 width run (the JAX op sends rows that do not tile to the oracle).
 
 A CPU tensor takes the plain version (:func:`rmsnorm_plain`) under
-autograd. A CUDA tensor launches the kernel or raises. Its backward is
-the plain version's autograd on the saved inputs, as the JAX package's
-is the oracle's VJP (``repro/kernels/ops.py:40-55``); no layer calls
-this kernel (``use_kernel`` is never set), so no path needs more.
-``launches`` counts kernel launches and nothing else.
+autograd. A CUDA tensor launches the kernel or raises, through the custom
+op ``torch.ops.repro_torch.rmsnorm`` (a meta tensor takes the op too,
+which there only allocates its output; its FLOP formula counts 4
+operations an element). Its backward is the plain version's autograd on
+the saved inputs, as the JAX package's is the oracle's VJP
+(``repro/kernels/ops.py:40-55``); no layer calls this kernel
+(``use_kernel`` is never set), so no path needs more. ``launches`` counts
+kernel launches and nothing else.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .ref import rmsnorm_ref
@@ -63,21 +68,38 @@ def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return out.reshape(x.shape)
 
 
-class _RmsNorm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w, eps):
-        ctx.save_for_backward(x, w)
-        ctx.eps = eps
-        return _launch(x, w, eps)
+@torch.library.custom_op("repro_torch::rmsnorm", mutates_args=(),
+                         device_types="cuda")
+def _op(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    return _launch(x, w, eps)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        with torch.enable_grad():
-            xx, ww = x.detach().requires_grad_(), w.detach().requires_grad_()
-            out = rmsnorm_ref(xx, ww, ctx.eps)
-            dx, dw = torch.autograd.grad(out, (xx, ww), g)
-        return dx, dw, None
+
+@_op.register_fake
+def _(x, w, eps):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _setup_context(ctx, inputs, output):
+    x, w, eps = inputs
+    ctx.save_for_backward(x, w)
+    ctx.eps = eps
+
+
+def _backward(ctx, g):
+    x, w = ctx.saved_tensors
+    with torch.enable_grad():
+        xx, ww = x.detach().requires_grad_(), w.detach().requires_grad_()
+        out = rmsnorm_ref(xx, ww, ctx.eps)
+        dx, dw = torch.autograd.grad(out, (xx, ww), g)
+    return dx, dw, None
+
+
+_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+@register_flop_formula(torch.ops.repro_torch.rmsnorm)
+def _flops(x_shape, w_shape, *args, **kwargs):
+    return 4 * math.prod(x_shape)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
@@ -86,8 +108,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     _check(x, w)
     if x.device.type == "cpu":
         return rmsnorm_plain(x, w, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"rmsnorm runs on cuda or cpu, not {x.device}")
     if x.numel() == 0:
         raise ValueError("rmsnorm of an empty tensor")
-    return _RmsNorm.apply(x, w, eps)
+    return _op(x, w, float(eps))

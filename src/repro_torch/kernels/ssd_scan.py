@@ -27,22 +27,30 @@ Two routes (:func:`route`):
 
 A CPU tensor takes the plain version (:func:`ssd_scan_plain`, the oracle
 ``ssd_chunked_ref``) under autograd. A CUDA tensor launches the kernels or
-raises; its gradient is a ``torch.autograd.Function`` whose backward is
-kernels too. ``fwd_launches`` and ``bwd_launches`` count kernel launches
-and nothing else (:data:`LAUNCHES` per call and route).
+raises: it goes through the custom op ``torch.ops.repro_torch.ssd_scan_fwd``
+(y, the final state, and the saved chunk states and C B^T, empty where
+the route keeps none), whose autograd formula is the op
+``ssd_scan_bwd`` (the four input gradients and its ``dstates``
+workspace). A meta tensor (the dry run's) takes the same ops, which
+there only allocate what the CUDA path allocates; each op has a FLOP
+formula (:func:`ssd_flops`) for ``FlopCounterMode``. ``fwd_launches``
+and ``bwd_launches`` count kernel launches and nothing else
+(:data:`LAUNCHES` per call and route).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .ref import ssd_chunked_ref
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "ssd_scan_fwd", "ssd_scan_bwd",
-           "kernel_chunk", "kernel_rows", "route", "LAUNCHES",
+           "kernel_chunk", "kernel_rows", "route", "ssd_flops", "LAUNCHES",
            "fwd_launches", "bwd_launches"]
 
 fwd_launches = 0
@@ -91,11 +99,17 @@ def kernel_chunk(chunk: int) -> int:
 
 def route(x, b) -> str:
     """The kernels a CUDA call takes: ``"tc"`` for bf16 with N and P
-    multiples of 16 and 16-byte aligned tensors, else ``"fma"``."""
+    multiples of 16 and 16-byte aligned tensors, else ``"fma"``. A meta
+    tensor counts as aligned where its offset into its storage is, as
+    every block of the CUDA allocator is."""
+    def aligned(t):
+        if t.device.type == "cuda":
+            return t.data_ptr() % 16 == 0
+        return t.storage_offset() * t.element_size() % 16 == 0
     N, P = b.shape[3], x.shape[3]
-    aligned = x.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
     return "tc" if (x.dtype == torch.bfloat16 and N % 16 == 0
-                    and P % 16 == 0 and aligned) else "fma"
+                    and P % 16 == 0 and aligned(x) and aligned(b)) \
+        else "fma"
 
 
 def kernel_rows(chunk: int, kind: str) -> int:
@@ -121,6 +135,27 @@ def _shape_args(x, b, L, kind):
             torch.cuda.current_stream(x.device).cuda_stream]
 
 
+def _fwd_outputs(x, b, chunk: int, keep: bool):
+    """What the forward allocates: y, the final state, the chunk states
+    (0 rows unless ``keep``) and, on the tensor-core route, C B^T of
+    every chunk and group (0 rows on the FMA route)."""
+    kind = route(x, b)
+    L = kernel_rows(chunk, kind)
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    nc = -(-S // L)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    hT = torch.empty((B, H, N, P), **f32)
+    # the tensor-core kernels keep each state as a zero-padded 128 x 64
+    # tile in their fragment order
+    state_shape = (N, P) if kind == "fma" else (MAX_STATE * MAX_HEAD_DIM,)
+    states = torch.empty((B if keep else 0, H, nc, *state_shape), **f32)
+    cb = torch.empty((B if kind == "tc" else 0, nc, G, MAX_CHUNK,
+                      MAX_CHUNK), **f32)
+    return y, hT, states, cb
+
+
 def ssd_scan_fwd(x, a, b, c, chunk: int, keep: bool):
     """The forward kernels on contiguous CUDA tensors, at the rows of
     ``kernel_rows(chunk, route(x, b))``: (y, final state, saved), saved
@@ -129,52 +164,54 @@ def ssd_scan_fwd(x, a, b, c, chunk: int, keep: bool):
     chunk and group, f32. The FMA route keeps the states as (B, H, nc, N,
     P); the tensor-core route keeps them, and C B^T, in its kernels' own
     fragment order (see the CUDA source)."""
+    y, hT, states, cb = _fwd(x, a, b, c, chunk, keep)
+    return y, hT, ((states, cb if cb.numel() else None) if keep else None)
+
+
+def _fwd(x, a, b, c, chunk: int, keep: bool):
+    """The launches of :func:`ssd_scan_fwd`, returning everything
+    :func:`_fwd_outputs` allocated."""
     global fwd_launches
     kind = route(x, b)
     L = kernel_rows(chunk, kind)
-    B, S, H, P = x.shape
-    G, N = b.shape[2], b.shape[3]
-    nc = -(-S // L)
-    y = torch.empty_like(x)
-    hT = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
-    # the tensor-core kernels keep each state as a zero-padded 128 x 64
-    # tile in their fragment order
-    state_shape = (N, P) if kind == "fma" else (MAX_STATE * MAX_HEAD_DIM,)
-    states = torch.empty((B, H, nc, *state_shape), dtype=torch.float32,
-                         device=x.device) if keep else None
-    sp = None if states is None else states.data_ptr()
+    y, hT, states, cb = _fwd_outputs(x, b, chunk, keep)
+    sp = states.data_ptr() if keep else None
     with torch.cuda.device(x.device):
         if kind == "tc":
-            cb = torch.empty((B, nc, G, MAX_CHUNK, MAX_CHUNK),
-                             dtype=torch.float32, device=x.device)
             launch = _build.kernel_function("ssd_scan", "ssd_scan_tc_fwd",
                                             _TC_FWD_ARGTYPES)
             launch(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
                    y.data_ptr(), hT.data_ptr(), sp, cb.data_ptr(),
                    *_shape_args(x, b, L, kind))
         else:
-            cb = None
             launch = _build.kernel_function("ssd_scan", "ssd_scan_fwd",
                                             _FWD_ARGTYPES)
             launch(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
                    y.data_ptr(), hT.data_ptr(), sp,
                    *_shape_args(x, b, L, kind))
     fwd_launches += LAUNCHES[kind][0]
-    return y, hT, ((states, cb) if keep else None)
+    return y, hT, states, cb
 
 
 def ssd_scan_bwd(x, a, b, c, saved, dy, dhT, chunk: int):
     """The backward kernels on contiguous CUDA tensors: (dx, da, db, dc).
     ``saved`` comes from :func:`ssd_scan_fwd` on the same inputs; ``dhT``
     (the final state's gradient) may be None (zero)."""
+    return _bwd(x, a, b, c, *saved, dy, dhT, chunk)[:4]
+
+
+def _bwd_outputs(x, a, b, c, states):
+    """What the backward allocates: dx, da, db, dc and the ``dstates``
+    workspace, as large as the saved states."""
+    return (torch.empty_like(x), torch.empty_like(a), torch.empty_like(b),
+            torch.empty_like(c), torch.empty_like(states))
+
+
+def _bwd(x, a, b, c, states, cb, dy, dhT, chunk):
     global bwd_launches
     kind = route(x, b)
     L = kernel_rows(chunk, kind)
-    states, cb = saved
-    dx, db, dc = torch.empty_like(x), torch.empty_like(b), \
-        torch.empty_like(c)
-    da = torch.empty_like(a)
-    dstates = torch.empty_like(states)
+    dx, da, db, dc, dstates = _bwd_outputs(x, a, b, c, states)
     dhp = None if dhT is None else dhT.data_ptr()
     with torch.cuda.device(x.device):
         if kind == "tc":
@@ -192,30 +229,90 @@ def ssd_scan_bwd(x, a, b, c, saved, dy, dhT, chunk: int):
                    dstates.data_ptr(), dx.data_ptr(), da.data_ptr(),
                    db.data_ptr(), dc.data_ptr(), *_shape_args(x, b, L, kind))
     bwd_launches += LAUNCHES[kind][1]
-    return dx, da, db, dc
+    return dx, da, db, dc, dstates
 
 
-class _Ssd(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, a, b, c, L):
-        x, a, b, c = (t.contiguous() for t in (x, a, b, c))
-        keep = any(ctx.needs_input_grad[:4])
-        y, hT, saved = ssd_scan_fwd(x, a, b, c, L, keep)
-        ctx.save_for_backward(x, a, b, c, *(saved or (None, None)))
-        ctx.L = L
-        ctx.set_materialize_grads(False)
-        return y, hT
+# ----------------------------------------------------------------------
+# the custom ops: CUDA launches, meta/fake allocation, autograd, FLOPs
+# ----------------------------------------------------------------------
 
-    @staticmethod
-    def backward(ctx, dy, dhT):
-        x, a, b, c, states, cb = ctx.saved_tensors
-        dy = torch.zeros_like(x) if dy is None else \
-            dy.to(x.dtype).contiguous()
-        if dhT is not None:
-            dhT = dhT.float().contiguous()
-        dx, da, db, dc = ssd_scan_bwd(x, a, b, c, (states, cb), dy, dhT,
-                                      ctx.L)
-        return dx, da, db, dc, None
+@torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=(),
+                         device_types="cuda")
+def _fwd_op(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor, chunk: int, keep: bool
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor]:
+    return _fwd(x, a, b, c, chunk, keep)
+
+
+@_fwd_op.register_fake
+def _(x, a, b, c, chunk, keep):
+    return _fwd_outputs(x, b, chunk, keep)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=(),
+                         device_types="cuda")
+def _bwd_op(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor, states: torch.Tensor, cb: torch.Tensor,
+            dy: torch.Tensor, dhT: Optional[torch.Tensor], chunk: int
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor, torch.Tensor]:
+    return _bwd(x, a, b, c, states, cb if cb.numel() else None, dy, dhT,
+                chunk)
+
+
+@_bwd_op.register_fake
+def _(x, a, b, c, states, cb, dy, dhT, chunk):
+    return _bwd_outputs(x, a, b, c, states)
+
+
+def _setup_context(ctx, inputs, output):
+    x, a, b, c, chunk, keep = inputs
+    _, _, states, cb = output
+    ctx.mark_non_differentiable(states, cb)
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(x, a, b, c, states, cb)
+    ctx.chunk = chunk
+
+
+def _backward(ctx, dy, dhT, _dstates, _dcb):
+    x, a, b, c, states, cb = ctx.saved_tensors
+    dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype).contiguous()
+    if dhT is not None:
+        dhT = dhT.float().contiguous()
+    dx, da, db, dc, _ = _bwd_op(x, a, b, c, states, cb, dy, dhT, ctx.chunk)
+    return dx, da, db, dc, None, None
+
+
+_fwd_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def ssd_flops(B, S, H, P, G, N, L) -> tuple[int, int]:
+    """Operations of one forward and one backward at the kernels' chunk
+    rows L: the dual form's causal triangle (C B^T and its products once
+    per head) and the state terms once per chunk."""
+    nc, tri = -(-S // L), L * (L + 1) // 2
+    per = B * H * nc
+    return (per * (2 * tri * (N + P) + 4 * L * N * P),
+            per * (2 * tri * (2 * P + 2 * N) + 8 * L * N * P))
+
+
+def _op_flops(x, b, chunk, backward: bool, x_dtype, aligned=True):
+    B, S, H, P = x
+    G, N = b[2], b[3]
+    kind = "tc" if (x_dtype == torch.bfloat16 and N % 16 == 0
+                    and P % 16 == 0 and aligned) else "fma"
+    return ssd_flops(B, S, H, P, G, N, kernel_rows(chunk, kind))[backward]
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_fwd, get_raw=True)
+def _fwd_flops(x, a, b, c, chunk, keep, *args, **kwargs):
+    return _op_flops(x.shape, b.shape, chunk, False, x.dtype)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd, get_raw=True)
+def _bwd_flops(x, a, b, c, states, cb, dy, dhT, chunk, *args, **kwargs):
+    return _op_flops(x.shape, b.shape, chunk, True, x.dtype)
 
 
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -225,7 +322,7 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     _check(x, a, b, c)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, a, b, c, chunk)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
     if x.dtype not in _DTYPE_CODES or b.dtype != x.dtype \
             or c.dtype != x.dtype or a.dtype != torch.float32:
@@ -239,4 +336,8 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                          f"{MAX_STATE} x {MAX_HEAD_DIM}")
     if x.numel() == 0 or b.numel() == 0:
         raise ValueError("ssd_scan of an empty tensor")
-    return _Ssd.apply(x, a, b, c, kernel_chunk(chunk))
+    keep = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, a, b, c))
+    y, hT, _, _ = _fwd_op(*(t.contiguous() for t in (x, a, b, c)),
+                          kernel_chunk(chunk), keep)
+    return y, hT

@@ -24,21 +24,39 @@ the ``flash_attention`` kernel, as the JAX package does; cached attention
 ``ssm_impl="kernel"`` sends the Mamba2 scan without a cache through the
 ``ssd_scan`` kernel; prefill with a carried state and single-step decode
 take the plain ``ssd_chunked_ref`` / ``ssd_ref`` on both routes.
+
+Distribution: with weights and batch held as DTensors (``launch/
+shardings.py``), every layer runs on them as written and DTensor
+propagates the placements. :func:`~repro_torch.models.distributed.constrain`
+redistributes an activation to the config's spec at the sites where the
+JAX package constrains its sharding (q, k/v, the MoE groups, dispatched
+tokens, hidden and expert outputs, the Mamba2 input). The kernels and the
+MoE router run on each rank's local shards through ``local_call``
+(``models/distributed.py``): local heads for flash and ``ssd_scan``,
+local experts and groups for ``moe_gmm``, local groups for the router. A
+plain tensor takes none of this.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
-from repro_torch.core.routing import RoutingConfig, one_hot, ring_steal_table, \
-    route
+from repro_torch.core.routing import (RoutingConfig, one_hot,
+                                      ring_steal_table, route)
+from repro_torch.core.sharding import batch_axes, fit_spec
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.models.distributed import (batch_split, constrain, entry,
+                                            entry_size, gathered, local_call,
+                                            merge_last, shard_index,
+                                            split_last, write_seq)
 
 
 def new_param(shape, device, dtype, fill=None) -> nn.Parameter:
@@ -119,12 +137,12 @@ class Attention(nn.Module):
         """
         B, S, _ = x.shape
         H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        q, k, v = (x @ gathered(w) for w in (self.wq, self.wk, self.wv))
         if cfg.qkv_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
-        q = q.reshape(B, S, H, Dh)
-        k = k.reshape(B, S, Hkv, Dh)
-        v = v.reshape(B, S, Hkv, Dh)
+        q = split_last(q, H, Dh)
+        k = split_last(k, Hkv, Dh)
+        v = split_last(v, Hkv, Dh)
         if cfg.qk_norm:
             q = rmsnorm(q, self.q_norm, cfg.norm_eps)
             k = rmsnorm(k, self.k_norm, cfg.norm_eps)
@@ -133,35 +151,65 @@ class Attention(nn.Module):
         if cfg.kv_repeat > 1:
             k = k.repeat_interleave(cfg.kv_repeat, dim=2)
             v = v.repeat_interleave(cfg.kv_repeat, dim=2)
+        q = constrain(q, cfg.attn_q_spec)
 
         new_cache = None
         if cache is None:
             kk, vv, kv_off = k, v, 0
+            kk = constrain(kk, cfg.attn_kv_spec)
+            vv = constrain(vv, cfg.attn_kv_spec)
         else:
             length = cache["length"]
             kk, vv = cache["k"], cache["v"]
             if length + S > kk.shape[1]:
                 raise ValueError(f"cache of {kk.shape[1]} positions cannot "
                                  f"take {S} more at {length}")
-            kk[:, length:length + S] = k                  # in place
-            vv[:, length:length + S] = v
+            write_seq(kk, k, length)                         # in place
+            write_seq(vv, v, length)
             new_cache = dict(k=kk, v=vv, length=length + S)
+            kk = constrain(kk, cfg.attn_kv_spec)
+            vv = constrain(vv, cfg.attn_kv_spec)
             kv_off = length
 
         causal = causal or cache is not None
-        if cfg.attn_impl == "kernel" and cache is None:
-            out = kops.flash_attention(q, kk, vv, causal=causal,
-                                       window=cfg.attn_window)
-        elif S >= cfg.attn_chunk_threshold:
-            # long prefill/training: bound the score slab to (chunk × Skv)
-            out = kref.attention_chunked_ref(
-                q, kk, vv, causal=causal, window=cfg.attn_window,
-                kv_offset=kv_off, chunk=cfg.attn_chunk)
-        else:
-            out = kref.attention_ref(q, kk, vv, causal=causal,
-                                     window=cfg.attn_window,
-                                     kv_offset=kv_off)
-        return out.reshape(B, S, H * Dh) @ self.wo, new_cache
+        kernel = cfg.attn_impl == "kernel" and cache is None
+
+        def core(q, kk, vv):
+            if kernel:
+                return kops.flash_attention(q, kk, vv, causal=causal,
+                                            window=cfg.attn_window)
+            if S >= cfg.attn_chunk_threshold:
+                # long prefill/training: bound the score slab to
+                # (chunk × Skv)
+                return kref.attention_chunked_ref(
+                    q, kk, vv, causal=causal, window=cfg.attn_window,
+                    kv_offset=kv_off, chunk=cfg.attn_chunk)
+            return kref.attention_ref(q, kk, vv, causal=causal,
+                                      window=cfg.attn_window,
+                                      kv_offset=kv_off)
+        return _attend(core, q, kk, vv, cfg) @ gathered(self.wo), new_cache
+
+
+def _attend(core, q, k, v, cfg):
+    """``core(q, k, v)`` (the flash kernel or the plain attention), its
+    heads merged: (B, S, H·Dh). On DTensors it runs on local heads: batch
+    split as ``attn_q_spec`` says, heads too where the q and kv heads both
+    divide the axis, every key position on each rank (a cache split along
+    its sequence is gathered); the merged output is split along H·Dh as
+    the heads were, so its gradient comes back in whole heads."""
+    def merged(q, k, v):
+        out = core(q, k, v)
+        return out.reshape(*out.shape[:2], -1)
+    if not isinstance(q, DTensor):
+        return merged(q, k, v)
+    mesh = q.device_mesh
+    qs = fit_spec(mesh, tuple(q.shape),
+                      cfg.attn_q_spec or (batch_axes(mesh),))
+    b, h = entry(qs, 0), entry(qs, 2)
+    if h is not None and k.shape[2] % entry_size(mesh, h):
+        h = None
+    spec = (b, None, h, None)
+    return local_call(merged, (q, k, v), (spec,) * 3, (b, None, h))
 
 
 class CrossAttention(nn.Module):
@@ -194,22 +242,23 @@ class CrossAttention(nn.Module):
         (y, dict(k, v))."""
         B, S, _ = x.shape
         H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        q = rmsnorm((x @ self.wq).reshape(B, S, H, Dh), self.q_norm,
+        q = rmsnorm(split_last(x @ gathered(self.wq), H, Dh), self.q_norm,
                     cfg.norm_eps)
+        q = constrain(q, cfg.attn_q_spec)
         if cache is None:
             if media is None:
                 raise ValueError("a cross-attention layer needs media")
-            M = media.shape[1]
-            k = (media @ self.wk).reshape(B, M, Hkv, Dh)
-            v = (media @ self.wv).reshape(B, M, Hkv, Dh)
+            k = split_last(media @ gathered(self.wk), Hkv, Dh)
+            v = split_last(media @ gathered(self.wv), Hkv, Dh)
             k = rmsnorm(k, self.k_norm, cfg.norm_eps)
             if cfg.kv_repeat > 1:
                 k = k.repeat_interleave(cfg.kv_repeat, dim=2)
                 v = v.repeat_interleave(cfg.kv_repeat, dim=2)
         else:
             k, v = cache["k"], cache["v"]
-        out = kref.attention_ref(q, k, v, causal=False)
-        out = out.reshape(B, S, H * Dh) @ self.wo
+        out = _attend(lambda q, k, v: kref.attention_ref(q, k, v,
+                                                         causal=False),
+                      q, k, v, cfg) @ gathered(self.wo)
         return torch.tanh(self.gate.float()).to(out.dtype) * out, \
             dict(k=k, v=v)
 
@@ -242,7 +291,8 @@ class MLP(nn.Module):
             normal_(w, 1.0 / math.sqrt(w.shape[0]), generator)
 
     def forward(self, x):
-        return (F.silu(x @ self.wg) * (x @ self.wu)) @ self.wd
+        return (F.silu(x @ gathered(self.wg)) * (x @ gathered(self.wu))) \
+            @ gathered(self.wd)
 
 
 def moe_capacity(cfg, group: int) -> int:
@@ -294,42 +344,75 @@ class MoE(nn.Module):
                              steal_attempts=cfg.moe_steal_attempts,
                              policy=cfg.moe_steal_policy)
         table = self.ring_table if steal_table is None else steal_table
-        rs = [route(xg1.float() @ self.router, rcfg, table) for xg1 in xg]
-        return (torch.stack([r["expert"] for r in rs]),
-                torch.stack([r["slot"] for r in rs]),
-                torch.stack([r["weight"] for r in rs]),
-                torch.stack([r["aux_loss"] for r in rs]))
+
+        def local(xg, router):
+            r = route(xg.float() @ router, rcfg, table)   # each group its own
+            return r["expert"], r["slot"], r["weight"], r["aux_loss"]
+        if not isinstance(xg, DTensor):
+            return local(xg, self.router)
+        mesh = xg.device_mesh
+        g = entry(fit_spec(mesh, tuple(xg.shape),
+                                      cfg.moe_group_spec or ()), 0)
+        return local_call(local, (xg, self.router), ((g,), ()),
+                           [(g,)] * 4)
 
     def forward(self, x, cfg, steal_table=None):
-        """Returns (y, aux_loss)."""
+        """Returns (y, aux_loss). On DTensors the block after routing runs
+        on local groups and experts (groups split as ``moe_xin_spec`` says
+        and experts too where E divides its axis): each rank dispatches its
+        groups' tokens to its own experts and the combined output is a
+        partial sum over the expert axis, which DTensor reduces."""
         B, S, D = x.shape
         E = cfg.moe_num_experts
         T = B * S
         G = min(cfg.moe_group, T)
         ngroups = T // G
-        xg = x.reshape(ngroups, G, D)
+        xg = constrain(x.reshape(ngroups, G, D), cfg.moe_group_spec)
         capacity = moe_capacity(cfg, G)
         expert, slot, weight, aux = self.route_groups(xg, cfg, steal_table)
-        e_oh = one_hot(expert, E, xg.dtype)                   # (g,s,K,E)
-        c_oh = one_hot(slot, capacity, xg.dtype)              # (g,s,K,C)
-        combine = torch.einsum("gske,gskc,gsk->gsec", e_oh, c_oh,
-                               weight.to(xg.dtype))
-        dispatch = torch.einsum("gske,gskc->gsec", e_oh, c_oh)
-        xin = torch.einsum("gsec,gsd->gecd", dispatch, xg)   # (g,E,C,D)
-        if cfg.moe_impl == "kernel":
-            flat = xin.reshape(ngroups * E, capacity, D).contiguous()
-            h = F.silu(kops.moe_gmm(flat, self.wg, E)) \
-                * kops.moe_gmm(flat, self.wu, E)
-            eout = kops.moe_gmm(h, self.wd, E).reshape(ngroups, E,
-                                                       capacity, D)
-        elif cfg.moe_impl == "einsum":
-            h = torch.einsum("gecd,edf->gecf", xin, self.wg)
-            u = torch.einsum("gecd,edf->gecf", xin, self.wu)
-            h = F.silu(h) * u
-            eout = torch.einsum("gecf,efd->gecd", h, self.wd)
+
+        def block(xg, expert, slot, weight, wg, wu, wd, first=0):
+            """Experts [first, first + len(wg)) on the groups of xg."""
+            El = wg.shape[0]
+            local = expert - first if first else expert
+            e_oh = one_hot(local, El, xg.dtype)                 # (g,s,K,E)
+            c_oh = one_hot(slot, capacity, xg.dtype)            # (g,s,K,C)
+            combine = torch.einsum("gske,gskc,gsk->gsec", e_oh, c_oh,
+                                   weight.to(xg.dtype))
+            dispatch = torch.einsum("gske,gskc->gsec", e_oh, c_oh)
+            xin = torch.einsum("gsec,gsd->gecd", dispatch, xg)  # (g,E,C,D)
+            xin = constrain(xin, cfg.moe_xin_spec)
+            if cfg.moe_impl == "kernel":
+                g = xin.shape[0]
+                flat = xin.reshape(g * El, capacity, D).contiguous()
+                h = F.silu(kops.moe_gmm(flat, wg, El)) \
+                    * kops.moe_gmm(flat, wu, El)
+                eout = kops.moe_gmm(h, wd, El).reshape(g, El, capacity, D)
+            elif cfg.moe_impl == "einsum":
+                h = torch.einsum("gecd,edf->gecf", xin, wg)
+                u = torch.einsum("gecd,edf->gecf", xin, wu)
+                h = F.silu(h) * u
+                h = constrain(h, cfg.moe_h_spec)
+                eout = torch.einsum("gecf,efd->gecd", h, wd)
+            else:
+                raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
+            eout = constrain(eout, cfg.moe_xin_spec)
+            return torch.einsum("gsec,gecd->gsd", combine, eout)
+
+        ws = (self.wg, self.wu, self.wd)
+        if not isinstance(xg, DTensor):
+            y = block(xg, expert, slot, weight, *ws)
         else:
-            raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
-        y = torch.einsum("gsec,gecd->gsd", combine, eout).reshape(B, S, D)
+            mesh = xg.device_mesh
+            xs = fit_spec(mesh, (ngroups, E, capacity, D),
+                              cfg.moe_xin_spec or (batch_axes(mesh),))
+            g, e = entry(xs, 0), entry(xs, 1)
+            first = 0 if e is None else \
+                shard_index(mesh, e) * (E // entry_size(mesh, e))
+            y = local_call(functools.partial(block, first=first),
+                            (xg, expert, slot, weight, *ws),
+                            ((g,),) * 4 + ((e,),) * 3, (g,), partial=e)
+        y = y.reshape(B, S, D)
         if hasattr(self, "shared"):
             y = y + self.shared(x)
         return y, aux.mean()
@@ -401,44 +484,71 @@ class Mamba(nn.Module):
         B, S, _ = x.shape
         d_inner, G, N, H = mamba_split(cfg)
         P = cfg.ssm_head_dim
-        proj = x @ self.in_proj
+        proj = batch_split(x @ gathered(self.in_proj))
         z, xbc, dtp = torch.split(proj, [d_inner, d_inner + 2 * G * N, H],
                                   dim=-1)
         conv_state = cache["conv"] if cache is not None else None
         xbc, new_conv = causal_conv(xbc, self.conv_w, self.conv_b,
                                     conv_state)
         xs, bmat, cmat = torch.split(xbc, [d_inner, G * N, G * N], dim=-1)
-        xs = xs.reshape(B, S, H, P)
-        bmat = bmat.reshape(B, S, G, N)
-        cmat = cmat.reshape(B, S, G, N)
+        xs = split_last(xs, H, P)
+        bmat = split_last(bmat, G, N)
+        cmat = split_last(cmat, G, N)
         dt = F.softplus(dtp.float() + self.dt_bias)              # (B,S,H)
         a = -torch.exp(self.A_log)[None, None, :] * dt
         x_dt = xs * dt[..., None].to(xs.dtype)
+        x_dt = constrain(x_dt, cfg.ssm_act_spec)
 
         if cache is None:
             if cfg.ssm_impl == "kernel":
-                y, _ = kops.ssd_scan(x_dt, a, bmat, cmat,
-                                     chunk=cfg.ssm_chunk)
+                y = _ssd(lambda *t: kops.ssd_scan(
+                    *t, chunk=cfg.ssm_chunk)[0], cfg, x_dt, a, bmat, cmat)
             elif cfg.ssm_impl == "ref":
-                y = kref.ssd_chunked_ref(x_dt, a, bmat, cmat,
-                                         chunk=cfg.ssm_chunk)
+                y = _ssd(lambda *t: kref.ssd_chunked_ref(
+                    *t, chunk=cfg.ssm_chunk), cfg, x_dt, a, bmat, cmat)
             else:
                 raise ValueError(f"unknown ssm_impl {cfg.ssm_impl!r}")
             new_cache = None
         elif S > 1:
-            y, hT = kref.ssd_chunked_ref(x_dt, a, bmat, cmat,
-                                         h0=cache["ssm"],
-                                         chunk=cfg.ssm_chunk,
-                                         return_state=True)
+            y, hT = _ssd(lambda *t: kref.ssd_chunked_ref(
+                *t[:4], h0=t[4], chunk=cfg.ssm_chunk, return_state=True),
+                cfg, x_dt, a, bmat, cmat, cache["ssm"])
             new_cache = dict(conv=new_conv, ssm=hT)
         else:
-            y, hT = kref.ssd_ref(x_dt, a, bmat, cmat, h0=cache["ssm"],
-                                 return_state=True)
+            y, hT = _ssd(lambda *t: kref.ssd_ref(
+                *t[:4], h0=t[4], return_state=True),
+                cfg, x_dt, a, bmat, cmat, cache["ssm"])
             new_cache = dict(conv=new_conv, ssm=hT)
         y = y + xs * self.D_skip[None, None, :, None].to(xs.dtype)
-        y = y.reshape(B, S, d_inner)
+        y = merge_last(y)                                  # (B, S, d_inner)
         y = rmsnorm(y * F.silu(z), self.out_norm, cfg.norm_eps)
-        return y @ self.out_proj, new_cache
+        return y @ gathered(self.out_proj), new_cache
+
+
+def _ssd(core, cfg, x, a, b, c, h0=None):
+    """``core(x, a, b, c[, h0])`` (the ``ssd_scan`` kernel or the plain
+    scan; y, or y and the final state with an initial state ``h0``) on
+    local heads: batch and heads split as ``ssm_act_spec`` says; B and C
+    split by group alongside, or whole when there is one group (every
+    local head reads it)."""
+    args = (x, a, b, c) if h0 is None else (x, a, b, c, h0)
+    if not isinstance(x, DTensor):
+        return core(*args)
+    mesh = x.device_mesh
+    xs = fit_spec(mesh, tuple(x.shape),
+                      cfg.ssm_act_spec or (batch_axes(mesh),))
+    bt, h = entry(xs, 0), entry(xs, 2)
+    G = b.shape[2]
+    g = h if h is not None and G % entry_size(mesh, h) == 0 else None
+    if h is not None and g is None and G != 1:
+        h = None
+    spec = (bt, None, h, None)
+    bspec = (bt, None, g, None)
+    specs = (spec, (bt, None, h), bspec, bspec)
+    if h0 is None:
+        return local_call(core, args, specs, spec)
+    state = (bt, h, None, None)
+    return local_call(core, args, specs + (state,), [spec, state])
 
 
 def mamba_cache_init(cfg, batch, dtype, device):

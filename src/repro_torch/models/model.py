@@ -24,7 +24,7 @@ from torch import nn
 
 from repro_torch import default_device
 
-from . import layers, stack
+from . import distributed, layers, stack
 
 
 class Model(nn.Module):
@@ -90,7 +90,7 @@ def _embed(params: Model, cfg, tokens=None, embeds=None):
         if embeds is None:
             raise ValueError(f"{cfg.name} takes frontend embeddings")
         return embeds.to(cfg.param_dtype)
-    return params.embed[tokens.long()]
+    return distributed.gathered(params.embed)[tokens.long()]
 
 
 def _media(cfg, media):
@@ -99,7 +99,8 @@ def _media(cfg, media):
 
 def _head(params: Model, cfg, x):
     x = layers.rmsnorm(x, params.final_norm, cfg.norm_eps)
-    w = params.lm_head if hasattr(params, "lm_head") else params.embed.T
+    w = distributed.gathered(params.lm_head if hasattr(params, "lm_head")
+                        else params.embed.T)
     return (x @ w).float()
 
 
@@ -132,12 +133,11 @@ def train_loss(params: Model, cfg, batch, steal_table=None):
     labels = batch["labels"].long()
     valid = labels >= 0
     labels_safe = torch.where(valid, labels, 0)
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = logp.gather(-1, labels_safe[..., None])[..., 0]
+    ll, lse = distributed.token_log_likelihood(logits, labels_safe)
     denom = torch.clamp(valid.sum(), min=1)
     ce = -(ll * valid).sum() / denom
     # z-loss stabilises the softmax normaliser at scale
-    zl = torch.square(torch.logsumexp(logits, dim=-1))
+    zl = torch.square(lse)
     z_loss = (zl * valid).sum() / denom
     loss = ce + cfg.router_aux_weight * aux + cfg.z_loss_weight * z_loss
     return loss, dict(ce=ce, aux=aux, z_loss=z_loss)
@@ -145,11 +145,15 @@ def train_loss(params: Model, cfg, batch, steal_table=None):
 
 @torch.no_grad()
 def prefill(params: Model, cfg, tokens=None, embeds=None, media=None,
-            max_len: int | None = None, steal_table=None):
-    """Process a prompt, returning (last_logits (B, 1, V), caches)."""
+            max_len: int | None = None, steal_table=None, caches=None):
+    """Process a prompt, returning (last_logits (B, 1, V), caches).
+    ``caches`` (empty, from ``stack.init_caches``, for example placed on
+    a mesh) are filled in place; by default they are made here, of
+    ``max_len`` positions (the prompt's length if None)."""
     x = _embed(params, cfg, tokens, embeds)
     B, S = x.shape[:2]
-    caches = stack.init_caches(cfg, B, max_len or S, x.dtype, x.device)
+    if caches is None:
+        caches = stack.init_caches(cfg, B, max_len or S, x.dtype, x.device)
     x, caches, _ = stack.apply_stack(params.blocks, cfg, x,
                                      positions=_positions(B, S, 0, x.device),
                                      media=_media(cfg, media),

@@ -8,8 +8,11 @@ execution order (layer ``r * len(pattern) + si`` is slot ``si`` of repeat
 shares one ``length`` counter, so train, prefill and decode share one
 code path: KV for self attention, conv and SSM state for Mamba2, the
 projected media for cross attention (prefill projects them, decode
-reuses them; training keeps none). Sharding constraints and
-``serialize_slot_gathers`` have no counterpart.
+reuses them; training keeps none). Sharding constraints are applied in
+``layers`` (``distributed.constrain``); ``serialize_slot_gathers`` is an
+XLA scheduling barrier (JAX ties each slot's weight gathers to the previous
+slot's output), and eager PyTorch already gathers a DTensor weight where
+it is used, so the port reads it nowhere.
 
 Remat: in ``mode="train"`` with ``cfg.remat != "none"`` each pattern
 period runs under ``torch.utils.checkpoint`` (non-reentrant), keeping
@@ -18,17 +21,44 @@ body. A one-slot pattern's period is one layer. A multi-slot period
 (jamba's 8 slots, vision's 5) is nested as in JAX: inside the period's
 checkpoint each slot runs under its own, so the backward holds one
 slot's internals at a time. Routing is deterministic, so the recompute
-routes the same way. ``"dots"`` (save matmul outputs) is not ported yet
-and raises.
+routes the same way. ``"dots"`` is JAX's
+``dots_with_no_batch_dims_saveable``: the same checkpoints, selective
+(``create_selective_checkpoint_contexts`` with :func:`dots_policy`), keep
+the outputs of ``aten.mm``/``aten.addmm`` (products without batch
+dims) and recompute everything else, ``aten.bmm`` and the kernels
+included.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from . import layers
+from . import distributed, layers
+
+
+SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the products without batch dims."""
+    return CheckpointPolicy.MUST_SAVE if op in SAVED_BY_DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint(fn, *args, remat: str, **kwargs):
+    """``fn`` under a non-reentrant checkpoint: nothing saved ("full") or
+    the ``dots_policy`` outputs ("dots")."""
+    if remat == "dots":
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, dots_policy)
+    elif remat != "full":
+        raise ValueError(f"unknown remat {remat!r}")
+    return checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
 
 class Layer(nn.Module):
@@ -62,7 +92,7 @@ class Layer(nn.Module):
             y, new_cache = self.mix(hin, cfg, media=media, cache=cache)
         else:
             y, new_cache = self.mix(hin, cfg, cache=cache)
-        h = h + y
+        h = distributed.batch_split(h + y)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if self.ffn_kind != "none":
             hin = layers.rmsnorm(h, self.ln2, cfg.norm_eps)
@@ -70,7 +100,7 @@ class Layer(nn.Module):
                 y, aux = self.ffn(hin, cfg, steal_table)
             else:
                 y = self.ffn(hin)
-            h = h + y
+            h = distributed.batch_split(h + y)
         return h, new_cache, aux
 
 
@@ -113,10 +143,7 @@ def apply_stack(blocks: nn.ModuleList, cfg, x, *, positions, media=None,
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "train":
         caches = None
-    remat = mode == "train" and cfg.remat != "none"
-    if remat and cfg.remat != "full":
-        raise NotImplementedError(f"remat={cfg.remat!r} joins with a later "
-                                  "slice of the port")
+    remat = cfg.remat if mode == "train" and cfg.remat != "none" else None
     if caches is None:
         kw = dict(positions=positions, media=media, steal_table=steal_table)
         x, aux = _train_stack(blocks, cfg, x, kw, remat)
@@ -136,10 +163,11 @@ def apply_stack(blocks: nn.ModuleList, cfg, x, *, positions, media=None,
 
 def _run_layers(group, cfg, x, aux, kw, remat):
     """The layers of ``group`` in turn, each under its own checkpoint
-    when ``remat``; returns (x, aux plus the layers' aux losses)."""
+    when ``remat`` ("full" or "dots"); returns (x, aux plus the layers'
+    aux losses)."""
     for layer in group:
         if remat:
-            x, _, a = checkpoint(layer, x, cfg, use_reentrant=False, **kw)
+            x, _, a = _checkpoint(layer, x, cfg, remat=remat, **kw)
         else:
             x, _, a = layer(x, cfg, **kw)
         aux = aux + a
@@ -157,6 +185,6 @@ def _train_stack(blocks, cfg, x, kw, remat):
         return _run_layers(blocks, cfg, x, aux, kw, remat)
     for r in range(len(blocks) // period):
         group = blocks[r * period:(r + 1) * period]
-        x, aux = checkpoint(_run_layers, group, cfg, x, aux, kw, True,
-                            use_reentrant=False)
+        x, aux = _checkpoint(_run_layers, group, cfg, x, aux, kw, remat,
+                             remat=remat)
     return x, aux

@@ -23,6 +23,13 @@ decayed and, under ``factored``, factored across the slot's layers, with
 that layout in the state (``stacked``: slot key -> the R layer names in
 repeat order); names outside ``blocks.`` are top-level leaves, as in
 JAX.
+
+Parameters may be DTensors (``launch/shardings.py``). A gradient can
+come back with other placements than its parameter (``Partial`` where
+the parameter is ``Shard``): every gradient is redistributed to its
+parameter's placements before it is accumulated or applied, and each new
+value to its target's before it is written in place. The global norm is
+then a reduction over all shards.
 """
 
 from __future__ import annotations
@@ -57,6 +64,16 @@ class AdamWConfig:
     # dtype of the first moment, for models whose state would not fit
     factored: bool = False
     m_dtype: str = "float32"
+
+
+def placed_like(x, ref):
+    """``x`` redistributed to ``ref``'s placements when both are DTensors
+    that differ in them; otherwise ``x``."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor) and isinstance(ref, DTensor) \
+            and tuple(x.placements) != tuple(ref.placements):
+        return x.redistribute(ref.device_mesh, ref.placements)
+    return x
 
 
 def _f32(x) -> torch.Tensor:
@@ -127,17 +144,25 @@ def adamw_init(params: Tensors, cfg: AdamWConfig | None = None, *,
         stacked = stacked_layout(params, period)
 
     def zeros(shape, like):
+        """f32 zeros of ``shape`` on ``like``'s device (replicated on its
+        mesh when ``like`` is a DTensor: factored statistics)."""
+        from torch.distributed.tensor import DTensor, Replicate
+        if isinstance(like, DTensor):
+            mesh = like.device_mesh
+            return DTensor.from_local(
+                torch.zeros(shape, dtype=torch.float32,
+                            device=like.to_local().device),
+                mesh, [Replicate()] * mesh.ndim, run_check=False)
         return torch.zeros(shape, dtype=torch.float32, device=like.device)
 
     def v_init(p, jax_rank):
         if cfg.factored and jax_rank >= 2:
             return dict(vr=zeros(p.shape[:-1], p),
                         vc=zeros(p.shape[:-2] + p.shape[-1:], p))
-        return zeros(p.shape, p)
+        return torch.zeros_like(p, dtype=torch.float32)
 
     state = dict(
-        m={k: torch.zeros(p.shape, dtype=m_dt, device=p.device)
-           for k, p in params.items()},
+        m={k: torch.zeros_like(p, dtype=m_dt) for k, p in params.items()},
         v={}, count=0, stacked=stacked)
     grouped = {k: names for k, names in stacked.items()
                if cfg.factored and params[names[0]].dim() == 1}
@@ -167,8 +192,9 @@ def clip_by_global_norm(grads: Tensors, max_norm: float):
 def _factored_vh(v: dict, gf: torch.Tensor, cfg: AdamWConfig, b2c: float):
     """Update the row and column statistics in place; returns v-hat."""
     g2 = gf * gf + 1e-30
-    v["vr"].copy_(cfg.b2 * v["vr"] + (1 - cfg.b2) * g2.mean(-1))
-    v["vc"].copy_(cfg.b2 * v["vc"] + (1 - cfg.b2) * g2.mean(-2))
+    for key, dim in (("vr", -1), ("vc", -2)):
+        v[key].copy_(placed_like(
+            cfg.b2 * v[key] + (1 - cfg.b2) * g2.mean(dim), v[key]))
     vr, vc = v["vr"], v["vc"]
     return (vr[..., :, None] * vc[..., None, :]
             / torch.clamp(vr.mean(-1)[..., None, None], min=1e-30)) / b2c
@@ -179,6 +205,7 @@ def adamw_update(grads: Tensors, state: dict, params: Tensors,
                  cfg: AdamWConfig):
     """One AdamW step: ``params`` and ``state``'s moments are updated in
     place. Returns (params, new_state, metrics)."""
+    grads = {k: placed_like(g, params[k]) for k, g in grads.items()}
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
     count = state["count"] + 1
     lr = cosine_schedule(cfg, count)
@@ -193,8 +220,8 @@ def adamw_update(grads: Tensors, state: dict, params: Tensors,
         pf = p.float()
         if p.dim() + (name in per_layer) >= 2:   # decay where JAX's rank >= 2
             step = step + cfg.weight_decay * pf
-        p.copy_((pf - lr * step).to(p.dtype))
-        m.copy_(m_new.to(m.dtype))
+        p.copy_(placed_like((pf - lr * step).to(p.dtype), p))
+        m.copy_(placed_like(m_new.to(m.dtype), m))
 
     grouped = factored_slots(state)
     for key, names in grouped.items():         # vectors across the slot
@@ -211,19 +238,22 @@ def adamw_update(grads: Tensors, state: dict, params: Tensors,
         if isinstance(v, dict):
             vh = _factored_vh(v, gf, cfg, b2c)
         else:
-            v.copy_(cfg.b2 * v + (1 - cfg.b2) * gf * gf)
+            v.copy_(placed_like(cfg.b2 * v + (1 - cfg.b2) * gf * gf, v))
             vh = v / b2c
         apply(name, gf, vh)
     return params, dict(state, count=count), dict(lr=lr, grad_norm=gnorm)
 
 
 def accumulate_gradients(loss_fn: Callable, params: Tensors, batch: dict,
-                         num_microbatches: int):
+                         num_microbatches: int, acc_dtype=None):
     """Mean loss and gradients over ``num_microbatches`` slices of the
     batch's leading axis. ``loss_fn(microbatch) -> (loss, metrics)``
     reads ``params``. One microbatch gives gradients in each parameter's
-    dtype; more are summed in f32 and divided by their number, as the
-    JAX package does. Returns (loss, grads, metrics of the last slice).
+    dtype; with more, each microbatch's gradients are cast into a buffer
+    of ``acc_dtype`` (a dtype or its name; default float32) and summed
+    there, and the f32 sum is divided by their number at the end, as the
+    JAX package does (a bf16 buffer halves the second gradient-sized
+    buffer). Returns (loss, grads, metrics of the last slice).
     """
     names = list(params)
     tensors = [params[k] for k in names]
@@ -231,27 +261,29 @@ def accumulate_gradients(loss_fn: Callable, params: Tensors, batch: dict,
     def grads_of(mb):
         loss, metrics = loss_fn(mb)
         gs = torch.autograd.grad(loss, tensors, allow_unused=True)
-        return loss.detach(), {k: torch.zeros_like(t) if g is None else g
-                               for k, t, g in zip(names, tensors, gs)}, \
+        return loss.detach(), {
+            k: torch.zeros_like(t) if g is None else placed_like(g, t)
+            for k, t, g in zip(names, tensors, gs)}, \
             {k: v.detach() for k, v in metrics.items()}
 
     if num_microbatches <= 1:
         return grads_of(batch)
-    loss_sum = torch.zeros((), dtype=torch.float32)
-    acc = {k: torch.zeros(t.shape, dtype=torch.float32, device=t.device)
-           for k, t in params.items()}
+    acc_dt = getattr(torch, acc_dtype) if isinstance(acc_dtype, str) \
+        else (acc_dtype or torch.float32)
+    acc = {k: torch.zeros_like(t, dtype=acc_dt) for k, t in params.items()}
     for i in range(num_microbatches):
         def part(x):
             mb = x.shape[0] // num_microbatches
             return x[i * mb:(i + 1) * mb]
         loss, grads, metrics = grads_of({k: part(x) for k, x in
                                          batch.items()})
-        loss_sum = loss_sum.to(loss.device) + loss.float()
+        loss_sum = loss.float() if i == 0 else loss_sum + loss.float()
         for k, g in grads.items():
-            acc[k] += g.float()
+            acc[k] += g.to(acc_dt)
         del grads
     n = float(num_microbatches)
-    return loss_sum / n, {k: g / n for k, g in acc.items()}, metrics
+    return loss_sum / n, {k: g.float() / n for k, g in acc.items()}, \
+        metrics
 
 
 # ----------------------------------------------------------------------

@@ -1,0 +1,28 @@
+"""The port's dry run over half the grid's archs (part 1 of 2) on the
+one-pod mesh (16,16): every arch × shape on placeholder ranks, ``ok`` or
+``skipped`` with JAX's reason, argument bytes equal to JAX's specs' local
+shards (see ``tests/_torch_dryrun_grid.py``)."""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+import _torch_dryrun_grid as grid  # noqa: E402
+from repro.launch import shardings as jshd  # noqa: E402
+
+
+@pytest.fixture
+def spec_only(monkeypatch):
+    monkeypatch.setattr(jshd, "NamedSharding", lambda mesh, spec: spec)
+
+
+@pytest.mark.parametrize("arch,shape", grid.grid(1))
+def test_dryrun_cell_on_one_pod(arch, shape, tmp_path, spec_only):
+    grid.check_cell(arch, shape, "single", tmp_path)

@@ -175,3 +175,24 @@ def test_fill_positions_equal_outer_axis_cumsum(seed):
     assert not bool(placed.all()) and bool(placed.any())
     assert torch.equal(new_used, used + torch.minimum(
         onehot.sum(dim=0, dtype=torch.int32), cap - used))
+
+
+@pytest.mark.parametrize("kind", ["random", "tied", "skewed"])
+@pytest.mark.parametrize("attempts", [0, 2])
+def test_batched_groups_route_as_each_group_alone(kind, attempts):
+    """Many groups in one call (the MoE layer's): each group gets what
+    the port's one-group route and JAX's give it alone."""
+    top_k = 3 if kind == "tied" else 2
+    kwargs = dict(num_experts=E, top_k=top_k, capacity=12,
+                  steal_attempts=attempts)
+    logits = np.stack([_logits(kind, seed=s) for s in range(4)])
+    table = TABLES["topology"]
+    batched = routing.route(torch.from_numpy(logits),
+                            routing.RoutingConfig(**kwargs), table)
+    assert batched["expert"].shape == (4, 64, top_k)
+    assert batched["aux_loss"].shape == (4,)
+    for g in range(4):
+        jr, tr = _both(logits[g], kwargs, table)
+        _assert_same(jr, {k: v[g] for k, v in batched.items()})
+        for k in ("expert", "slot", "weight", "aux_loss", "drop_fraction"):
+            assert torch.equal(batched[k][g], tr[k]), k

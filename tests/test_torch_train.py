@@ -305,12 +305,22 @@ def test_remat_on_and_off_give_equal_grads(weights):
 
 
 def test_remat_dots_is_not_ported_and_raises(weights):
+    """remat="dots" on the kernel routes gives remat="none"'s loss and
+    gradients. (The name dates from when "dots" raised; it is kept so the
+    test's history reads on. "dots" is now a selective checkpoint that
+    keeps the mm outputs.)"""
     _, jp_np = weights
-    _, tc = _cfgs(remat="dots")
-    tp = convert.from_jax(jp_np, tc, "cpu")
-    with pytest.raises(NotImplementedError, match="dots"):
-        model.train_loss(tp, tc, _torch_batch(_batch()),
-                         steal_table=torch.as_tensor(_steal(4)))
+    steal = torch.as_tensor(_steal(4))
+    b = _torch_batch(_batch())
+    out = []
+    for remat in ("none", "dots"):
+        _, tc = _cfgs("kernel", "kernel", remat)
+        tp = convert.from_jax(jp_np, tc, "cpu")
+        loss, _ = model.train_loss(tp, tc, b, steal_table=steal)
+        out.append((loss, torch.autograd.grad(loss, list(tp.parameters()))))
+    assert torch.equal(out[0][0], out[1][0])
+    for a, c in zip(out[0][1], out[1][1]):
+        torch.testing.assert_close(a, c, rtol=1e-6, atol=1e-7)
 
 
 def test_ten_step_loss_trajectory_matches_jax_train_step(weights):
