@@ -106,8 +106,27 @@ imports nothing of JAX or of the JAX package. It
     run's train step through flash and moe_gmm as DTensors with the
     mesh's steal table (launch counts asserted per step), against the
     same steps on plain tensors: losses and weights equal bit for bit;
-16. prints the ``kernels`` JSON line (the [mesh] run's launches
-    included) and, last, the device JSON line.
+    then the DTensor run's weights are saved through ``convert.to_jax``'s
+    DTensor path and ``save`` ("full" entries: each leaf's mesh has one
+    device), restored into plain tensors and held bit for bit against
+    the plain run's weights;
+16. [elastic], after [resume]: full-width, full-depth granite through
+    flash and moe_gmm (the train phase's batch, schedule and steal
+    table) driven by the port's ``Supervisor`` over a modelled fleet
+    (ELASTIC: 4 hosts, ``multi_pod(2, 4, 4)`` behind mesh (4, 8), a
+    checkpoint every 4 steps, chips 5 and 6 lost before step 6, host 3
+    3x slower from step 5); its callbacks save and restore real
+    checkpoints (~13.4 GB, the JAX layout, under TMPDIR). The events
+    must equal the stub run's, every executed step's loss (the replays
+    included) and the final weights the uninterrupted run's (bit for
+    bit where two uninterrupted runs agree, else within their spread),
+    the restored weights and state what was saved, bit for bit, and
+    each step's launch counts the train phase's;
+17. [examples], last: the port's four examples as shipped
+    (``repro_torch.examples``) on the card, what each prints or returns
+    checked;
+18. prints the ``kernels`` JSON line (the [mesh] and [elastic] runs'
+    launches included) and, last, the device JSON line.
 
 Any failure raises and exits non-zero before the last line is printed.
 """
@@ -293,6 +312,77 @@ LEARN_STEPS, LEARN_LR, LEARN_WARMUP = 100, 3e-4, 20
 # slots in later layers, and those flips grow through 24 layers. A wrong
 # kernel gives a relative L2 near 1 or above.
 LOGIT_REL_L2_TOL = 0.15
+
+# [elastic]: the train phase's granite run (full width and depth, the
+# same batch, steps and schedule) driven by the port's Supervisor over a
+# modelled fleet: 4 hosts, the 32 chips of multi_pod(2, 4, 4) behind the
+# (4, 8) mesh, model axis 8; a checkpoint every 4 steps; chips 5 and 6
+# fail before step 6; host 3 runs 3x slower than the others from step 5.
+# Host 0's step time is the one measured, the others' are modelled from
+# it as in the JAX example (equal, the straggler's 3x).
+ELASTIC = dict(num_hosts=4, checkpoint_every=4, topology=(2, 4, 4),
+               mesh_shape=(4, 8), model_axis_size=8, failure={6: [5, 6]},
+               straggler=3, straggler_from=5, slowdown=3.0)
+
+
+def elastic_times(step: int, t: float, sched: dict = ELASTIC) -> list[float]:
+    """The hosts' step times at ``step`` under ``sched``, host 0's being
+    ``t``: the others' equal, the straggler's ``slowdown`` times it from
+    ``straggler_from`` on."""
+    return [t * (sched["slowdown"] if h == sched["straggler"]
+                 and step >= sched["straggler_from"] else 1.0)
+            for h in range(sched["num_hosts"])]
+
+
+def elastic_supervisor(supervisor_cls, topology, run_step, save, restore,
+                       remesh, sched: dict = ELASTIC):
+    """The Supervisor of ``sched`` (the class and the topology module
+    given, so that the host tests build JAX's the same way)."""
+    return supervisor_cls(
+        num_hosts=sched["num_hosts"],
+        checkpoint_every=sched["checkpoint_every"], run_step=run_step,
+        save=save, restore=restore, remesh=remesh,
+        topo=topology.multi_pod(*sched["topology"]),
+        mesh_shape=sched["mesh_shape"],
+        model_axis_size=sched["model_axis_size"])
+
+
+def elastic_stub_run(supervisor_cls, topology, sched: dict = ELASTIC,
+                     steps: int = TRAIN_STEPS) -> dict:
+    """``sched`` over ``steps`` steps with stub callbacks and a unit step
+    time: the events, the executed and the saved steps, and each remesh
+    plan's fields."""
+    out = dict(executed=[], saved=[], plans=[])
+
+    def run_step(s):
+        out["executed"].append(s)
+        return elastic_times(s, 1.0, sched)
+
+    def save(s):
+        out["saved"].append(s)
+
+    def restore():
+        return out["saved"][-1] if out["saved"] else 0
+
+    def remesh(plan):
+        out["plans"].append((plan.surviving, plan.mesh_shape, plan.dropped,
+                             plan.data_parallel_scale))
+    sup = elastic_supervisor(supervisor_cls, topology, run_step, save,
+                             restore, remesh, sched)
+    out["final"] = sup.run(0, steps, inject_failure=sched["failure"])
+    out["events"] = sup.events
+    return out
+
+
+def example_schedule() -> dict:
+    """``repro_torch.examples.elastic_failover``'s schedule as an
+    ELASTIC-style dict."""
+    from repro_torch.examples import elastic_failover as ef
+    return dict(num_hosts=ef.NUM_HOSTS, checkpoint_every=ef.CHECKPOINT_EVERY,
+                topology=ef.TOPOLOGY, mesh_shape=ef.MESH_SHAPE,
+                model_axis_size=ef.MODEL_AXIS, failure=ef.FAILURE,
+                straggler=ef.STRAGGLER, straggler_from=ef.STRAGGLER_FROM,
+                slowdown=ef.SLOWDOWN)
 
 
 def log(msg: str) -> None:
@@ -2105,6 +2195,298 @@ def resume_phase() -> None:
                              f"their spread {spread:.3e}")
 
 
+def _same_bits(what: str, got: dict, want: dict) -> None:
+    """Two checkpoint trees' leaves (``_flat_bits``) equal bit for bit."""
+    differ = [k for k in want if k not in got
+              or not torch.equal(got[k], want[k])]
+    if got.keys() != want.keys() or differ:
+        raise AssertionError(f"{what}: differs from what was saved in "
+                             f"{differ[:8]}")
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def elastic_phase(gmm, fa, rms) -> dict:
+    """Full-width, full-depth granite through the kernels, driven by the
+    port's Supervisor over the modelled fleet of ELASTIC: two
+    uninterrupted TRAIN_STEPS-step runs, then the supervised run, whose
+    callbacks train a step (host 0's time measured, the others' modelled
+    from it), save through ``CheckpointManager.save_sync`` (the JAX
+    layout, under TMPDIR), restore through ``restore_latest`` +
+    ``from_jax`` / ``opt_from_jax``, and record the remesh plans. Checks:
+    (a) the events and executed steps equal the stub run's; (b) every
+    executed step's loss, the replays included, the uninterrupted run's
+    at that step and (c) the final weights the uninterrupted run's, bit
+    for bit where the two uninterrupted runs agree bit for bit, otherwise
+    within their spread; (d) the restored tree, weights and state equal
+    what was saved, bit for bit; (e) each executed step's launch counts
+    those train_phase asserts. Returns the launch counts of the
+    supervised run."""
+    import tempfile
+    from repro_torch import configs, convert
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.core import topology
+    from repro_torch.data import pipeline_for_arch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import Supervisor
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(configs.get(ARCH), attn_impl="kernel",
+                              moe_impl="kernel", remat="full")
+    steal = train_mod.steal_table_for(cfg, dev)
+    opt_cfg = AdamWConfig(lr_peak=TRAIN_LR, warmup_steps=2,
+                          total_steps=TRAIN_STEPS)
+    pipe = pipeline_for_arch(
+        cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"), seed=SEED)
+    batches = [train_mod.to_device(pipe.batch_at(s), dev)
+               for s in range(TRAIN_STEPS)]
+    step_fn = train_mod.build_train_step(cfg, opt_cfg, 1, steal)
+    L = cfg.num_layers
+    per_step = dict(moe_gmm=6 * L, moe_gmm_bwd=6 * L, flash_fwd=2 * L,
+                    flash_bwd=3 * L, rmsnorm=0, ssd_fwd=0, ssd_bwd=0)
+
+    def fresh():
+        p = model_lib.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        return p, adamw_init(dict(p.named_parameters()), opt_cfg,
+                             period=len(cfg.pattern))
+
+    runs = []
+    for _ in range(2):
+        p, st = fresh()
+        losses = []
+        for s in range(TRAIN_STEPS):
+            p, st, _, loss, _ = step_fn(p, st, None, batches[s])
+            losses.append(float(loss))
+        runs.append((losses, {k: v.detach().to("cpu", copy=True)
+                              for k, v in p.state_dict().items()}))
+        del p, st
+    (la, wa), (lb, wb) = runs
+    same = la == lb and all(torch.equal(wa[k], wb[k]) for k in wa)
+    spread = max(abs(a - b) / abs(a) for a, b in zip(la, lb))
+    w_spread = {k: float((wa[k].float() - wb[k].float()).abs().max())
+                for k in wa}
+    del runs, wb
+    log(f"[elastic] {cfg.name} at full width and depth ({L} layers), batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, lr {TRAIN_LR}, warm-up 2, "
+        f"{TRAIN_STEPS} steps; two uninterrupted runs "
+        f"{['%.6f' % x for x in la]} and {['%.6f' % x for x in lb]}: bit "
+        f"for bit {same} (largest relative difference {spread:.3e})")
+
+    def held(what: str, got: float, want: float) -> float:
+        rel = abs(got - want) / abs(want)
+        if (got != want) if same else not rel <= spread:
+            raise AssertionError(f"[elastic] {what}: {got!r} against the "
+                                 f"uninterrupted run's {want!r} (relative "
+                                 f"{rel:.3e}, their spread {spread:.3e}, "
+                                 f"bit for bit {same})")
+        return rel
+
+    state = dict(zip(("params", "opt"), fresh()))
+    executed, saves, restores, plans, kept = [], [], [], [], {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_") as d:
+        mgr = CheckpointManager(d, keep_last=1)
+
+        def run_step(s):
+            before = _counts(gmm, fa, rms)
+            t0 = time.perf_counter()
+            state["params"], state["opt"], _, loss, _ = step_fn(
+                state["params"], state["opt"], None, batches[s])
+            loss = float(loss)                  # waits for the device
+            t = time.perf_counter() - t0
+            got = {k: v - before[k] for k, v in _counts(gmm, fa, rms).items()}
+            executed.append((s, loss, t))
+            log(f"[elastic] step {s} loss {loss:.6f} {t * 1e3:.1f} ms  "
+                f"launches {got}")
+            if got != per_step:
+                raise AssertionError(f"[elastic] step {s}: launches {got}, "
+                                     f"expected {per_step}")
+            return elastic_times(s, t)
+
+        def save(s):
+            kept.clear()                        # only the latest is read
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            snap = {"params": convert.to_jax(state["params"], cfg,
+                                             numpy=False),
+                    "opt": convert.opt_to_jax(state["opt"], cfg,
+                                              numpy=False)}
+            t_snap = time.perf_counter() - t0
+            mgr.save_sync(s, snap)
+            t_all = time.perf_counter() - t0
+            nbytes = _dir_bytes(os.path.join(d, f"step_{s:09d}"))
+            kept[s] = _flat_bits(snap)
+            saves.append((s, nbytes, t_snap, t_all))
+            log(f"[elastic] checkpoint at step {s}: {nbytes / 1e9:.3f} GB in "
+                f"{t_all:.2f} s ({t_snap:.2f} s to the host, "
+                f"{nbytes / 1e9 / (t_all - t_snap):.2f} GB/s written)")
+
+        def restore():
+            del state["params"], state["opt"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step, tree = mgr.restore_latest()
+            t_read = time.perf_counter() - t0
+            _same_bits("[elastic] the checkpoint read back", _flat_bits(tree),
+                       kept[step])
+            t1 = time.perf_counter()
+            state["params"] = convert.from_jax(tree["params"], cfg, dev)
+            state["opt"] = convert.opt_from_jax(tree["opt"], cfg, dev)
+            torch.cuda.synchronize()
+            t_all = t_read + time.perf_counter() - t1
+            del tree
+            _same_bits("[elastic] the restored weights and state",
+                       _flat_bits({"params": convert.to_jax(
+                           state["params"], cfg, numpy=False),
+                           "opt": convert.opt_to_jax(state["opt"], cfg,
+                                                     numpy=False)}),
+                       kept[step])
+            restores.append((step, t_read, t_all))
+            log(f"[elastic] restored step {step} in {t_all:.2f} s ("
+                f"{t_read:.2f} s reading the checkpoint); weights and state "
+                "equal what was saved bit for bit")
+            return step
+
+        def remesh(plan):
+            plans.append(plan)
+            log(f"[elastic] remesh plan: mesh {plan.mesh_shape}, surviving "
+                f"{list(plan.surviving)}, dropped {len(plan.dropped)}, data "
+                f"parallel scale {plan.data_parallel_scale}")
+
+        sup = elastic_supervisor(Supervisor, topology, run_step, save,
+                                 restore, remesh)
+        _reset(gmm, fa, rms)
+        t0 = time.perf_counter()
+        final = sup.run(0, TRAIN_STEPS, inject_failure=ELASTIC["failure"])
+        t_run = time.perf_counter() - t0
+        counts = _counts(gmm, fa, rms)
+        weights = {k: v.detach().to("cpu", copy=True)
+                   for k, v in state["params"].state_dict().items()}
+        del state
+    stub = elastic_stub_run(Supervisor, topology)
+    log(f"[elastic] events {sup.events}")
+    if sup.events != stub["events"] or final != stub["final"] \
+            or [s for s, _, _ in executed] != stub["executed"]:
+        raise AssertionError(f"[elastic] events {sup.events}, executed "
+                             f"{[s for s, _, _ in executed]}, against the "
+                             f"stub run's {stub['events']}, "
+                             f"{stub['executed']}")
+    if [(p.surviving, p.mesh_shape, p.dropped, p.data_parallel_scale)
+            for p in plans] != stub["plans"]:
+        raise AssertionError("[elastic] the remesh plans differ from the "
+                             "stub run's")
+    rels = [held(f"step {s}'s loss", loss, la[s]) for s, loss, _ in executed]
+    differ = [k for k in wa if not torch.equal(weights[k], wa[k])]
+    beyond = [k for k in differ if same or float(
+        (weights[k].float() - wa[k].float()).abs().max()) > w_spread[k]]
+    if beyond:
+        raise AssertionError(f"[elastic] final weights differ from the "
+                             f"uninterrupted run's in {beyond[:8]} (bit "
+                             f"for bit {same}; beyond the two runs' "
+                             "largest difference)")
+    seen, replayed = set(), []
+    for s, _, t in executed:
+        if s in seen:
+            replayed.append((s, t))
+        seen.add(s)
+    t_replay = sum(t for _, t in replayed)
+    log(f"[elastic] stub run's events equal; executed steps "
+        f"{[s for s, _, _ in executed]}, replayed {[s for s, _ in replayed]} "
+        f"({len(replayed)} steps, {t_replay:.2f} s of step time); every "
+        f"executed loss equals the uninterrupted run's "
+        f"({'bit for bit' if same else 'within their spread'}; largest "
+        f"relative difference {max(rels):.3e}); final weights "
+        f"{'equal bit for bit' if not differ else f'{len(differ)} leaves differ (allowed: the uninterrupted runs differ)'}; "
+        f"supervised run {t_run:.1f} s; launches {counts}")
+    return dict(counts=counts, saves=saves, restores=restores,
+                replayed=replayed, t_run=t_run)
+
+
+class _Tee:
+    """A stdout that also keeps what is written."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def examples_phase() -> dict:
+    """Each of the port's four examples as shipped, on the card (their
+    own default device), with what it prints or returns checked:
+    elastic_failover's events equal the stub run of its schedule;
+    train_lm's phase 2 resumes from phase 1's checkpoint (under TMPDIR)
+    and ends on a finite loss; serve_batch prints three architectures'
+    prefill and decode; quickstart's stealing lowers the drop fraction.
+    Returns each example's seconds."""
+    import contextlib
+    import tempfile
+    from repro_torch.core import topology
+    from repro_torch.examples import (elastic_failover, quickstart,
+                                      serve_batch, train_lm)
+    from repro_torch.runtime import Supervisor
+
+    times = {}
+
+    def run(name, fn, *args):
+        tee = _Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            out = fn(*args)
+        times[name] = time.perf_counter() - t0
+        return out, tee.text()
+
+    (events, losses), _ = run("elastic_failover", elastic_failover.main, [])
+    sched = example_schedule()
+    stub = elastic_stub_run(Supervisor, topology, sched,
+                            elastic_failover.STEPS)
+    if events != stub["events"] or len(losses) != len(stub["executed"]) \
+            or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"[examples] elastic_failover: events {events} "
+                             f"against the stub run's {stub['events']}; "
+                             f"{len(losses)} losses")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_lm_") as d:
+        loss, text = run("train_lm", train_lm.main, ["--checkpoint-dir", d])
+    if "[train] resumed from step 20" not in text \
+            or not math.isfinite(loss):
+        raise AssertionError(f"[examples] train_lm: phase 2 did not resume "
+                             f"from phase 1's step 20, or its loss {loss} "
+                             "is not finite")
+    tokens, text = run("serve_batch", serve_batch.main, [])
+    if list(tokens) != list(serve_batch.ARCHS) \
+            or text.count("[serve] prefill") != 3 \
+            or text.count("[serve] decode") != 3:
+        raise AssertionError("[examples] serve_batch did not serve its "
+                             "three architectures")
+    got, _ = run("quickstart", quickstart.main, [])
+    if not got["drop_stealing"] < got["drop_vanilla"] \
+            or not math.isfinite(got["loss"]):
+        raise AssertionError(f"[examples] quickstart: {got}")
+    log(f"[examples] elastic_failover events equal the stub run's "
+        f"({len(events)} events, {len(losses)} executed steps, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}); train_lm resumed at step "
+        f"20, final loss {loss:.4f}; serve_batch served "
+        f"{', '.join(serve_batch.ARCHS)}; quickstart drop "
+        f"{got['drop_vanilla']:.4f} -> {got['drop_stealing']:.4f} with "
+        f"stealing, loss {got['loss']:.4f}; seconds "
+        + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+    return times
+
+
 def _tree_bytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(_tree_bytes(v) for v in tree.values())
@@ -2224,6 +2606,36 @@ def dryrun_check(arch: str, rec: dict, peaks: dict, resident: dict) -> str:
     return line
 
 
+def mesh_save(params, cfg) -> dict:
+    """The DTensor model's weights through ``convert.to_jax``'s DTensor
+    path and ``save`` under TMPDIR, then ``restore`` into plain CPU
+    tensors: the restored tree, its entries (every one must be "full"),
+    bytes and times."""
+    import json
+    import tempfile
+    from repro_torch import convert
+    from repro_torch.checkpoint import CheckpointManager, restore
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CheckpointManager(d).save_sync(MESH_STEPS, {
+            "params": convert.to_jax(params, cfg, numpy=False)})
+        save_s = time.perf_counter() - t0
+        path = os.path.join(d, f"step_{MESH_STEPS:09d}")
+        with open(os.path.join(path, "index.json")) as f:
+            index = json.load(f)["arrays"]
+        nbytes = _dir_bytes(path)
+        t0 = time.perf_counter()
+        tree = restore(d, MESH_STEPS)
+        restore_s = time.perf_counter() - t0
+    if not all("full" in m for m in index.values()):
+        raise AssertionError("[mesh] a one-device mesh's leaf was saved by "
+                             "blocks")
+    return dict(tree=tree, entries=len(index), bytes=nbytes, save_s=save_s,
+                restore_s=restore_s)
+
+
 def mesh_phase(gmm, fa, rms) -> dict:
     """Full-width granite through DTensors: a one-rank NCCL world, the
     production mesh's counterpart at (1, 1), every leaf placed by the role
@@ -2237,7 +2649,7 @@ def mesh_phase(gmm, fa, rms) -> dict:
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
-    from repro_torch import configs
+    from repro_torch import configs, convert
     from repro_torch.configs import ShapeSpec
     from repro_torch.data import pipeline_for_arch
     from repro_torch.launch import dryrun
@@ -2299,6 +2711,8 @@ def mesh_phase(gmm, fa, rms) -> dict:
             weights = {n: (p.to_local() if isinstance(p, DTensor) else p)
                        .detach().to("cpu", copy=True)
                        for n, p in params.named_parameters()}
+            if placed:
+                saved.update(mesh_save(params, cfg))
             kinds = sorted({type(p).__name__ for p in params.parameters()})
             placements = sorted({str(tuple(p.placements))
                                  for p in params.parameters()
@@ -2307,6 +2721,7 @@ def mesh_phase(gmm, fa, rms) -> dict:
             torch.cuda.empty_cache()
             return losses, times, counts, weights, kinds, placements
 
+        saved = {}
         d_loss, d_ms, d_counts, d_w, kinds, placements = run(True)
         log(f"[mesh] {cfg.name} on mesh {tuple(mesh.mesh.shape)} "
             f"{mesh.mesh_dim_names} (NCCL, one rank): parameters {kinds} "
@@ -2328,6 +2743,15 @@ def mesh_phase(gmm, fa, rms) -> dict:
             raise AssertionError(f"[mesh] DTensor and plain steps differ: "
                                  f"losses {d_loss} vs {p_loss}; weights "
                                  f"{differ[:8]}")
+        want = _flat_bits({"params": convert.to_jax(p_w, cfg, numpy=False)})
+        _same_bits("[mesh] the DTensor run's checkpoint, restored",
+                   _flat_bits(saved["tree"]), want)
+        log(f"[mesh] the DTensor run's weights saved through convert.to_jax "
+            f"and save ({saved['entries']} entries, all 'full': each leaf's "
+            f"mesh has one device): {saved['bytes'] / 1e9:.3f} GB in "
+            f"{saved['save_s']:.2f} s, restored in {saved['restore_s']:.2f} "
+            f"s into plain tensors, equal to the plain run's weights bit "
+            "for bit")
         log(f"[mesh] losses and all {len(p_w)} weights equal bit for bit; "
             f"step time (steps 2-{MESH_STEPS}) DTensor "
             f"{1e3 * sum(d_ms[1:]) / (MESH_STEPS - 1):.1f} ms, plain "
@@ -2427,6 +2851,9 @@ def main() -> int:
     resume_phase()
     torch.cuda.empty_cache()
     log(f"[time] resume phase done at {time.perf_counter()-t_all:.1f} s")
+    elastic = elastic_phase(gmm, fa, rms)
+    torch.cuda.empty_cache()
+    log(f"[time] elastic phase done at {time.perf_counter()-t_all:.1f} s")
 
     run = train_phase(gmm, fa, rms, HUBERT, tag=HUBERT)
     dense[HUBERT] = run["counts"]
@@ -2451,6 +2878,10 @@ def main() -> int:
     kv_repeat_check(COMMAND_R)
     log(f"[time] {COMMAND_R} serve phase done at "
         f"{time.perf_counter()-t_all:.1f} s")
+    examples_phase()
+    torch.cuda.empty_cache()
+    log(f"[time] examples phase done at {time.perf_counter()-t_all:.1f} s")
+    el = elastic["counts"]
 
     def entry(name, source, replaces, launches, rep):
         return dict(name=name, route="cuda",
@@ -2459,20 +2890,22 @@ def main() -> int:
     kernels = [
         entry("moe_gmm", "moe_gmm.cu", "src/repro/kernels/moe_gmm.py:43",
               serve_launches + counts["moe_gmm"] + jamba_counts["moe_gmm"]
-              + mesh_counts["moe_gmm"], gmm_res[REPORT_CASE]),
+              + mesh_counts["moe_gmm"] + el["moe_gmm"],
+              gmm_res[REPORT_CASE]),
         entry("moe_gmm_bwd", "moe_gmm.cu", "src/repro/kernels/moe_gmm.py:43",
               counts["moe_gmm_bwd"] + jamba_counts["moe_gmm_bwd"]
-              + mesh_counts["moe_gmm_bwd"], gmm_bwd_res[REPORT_CASE]),
+              + mesh_counts["moe_gmm_bwd"] + el["moe_gmm_bwd"],
+              gmm_bwd_res[REPORT_CASE]),
         entry("flash_attention_fwd", "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:90",
               counts["flash_fwd"] + jamba_counts["flash_fwd"]
-              + mesh_counts["flash_fwd"]
+              + mesh_counts["flash_fwd"] + el["flash_fwd"]
               + sum(c["flash_fwd"] for c in dense.values()),
               flash_res[("fwd",) + FLASH_REPORT]),
         entry("flash_attention_bwd", "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:90",
               counts["flash_bwd"] + jamba_counts["flash_bwd"]
-              + mesh_counts["flash_bwd"]
+              + mesh_counts["flash_bwd"] + el["flash_bwd"]
               + sum(c["flash_bwd"] for c in dense.values()),
               flash_res[("bwd",) + FLASH_REPORT]),
         entry("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:27",
@@ -2505,6 +2938,8 @@ def main() -> int:
     for line in dry:                        # the dry run's five checks
         log(line)
     log(f"[done] [mesh] launches (DTensor run): {mesh_counts}")
+    log(f"[done] [elastic] launches (the supervised run, replays "
+        f"included): {el}")
     log(card_line())                        # again, beside the results
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

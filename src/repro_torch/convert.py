@@ -21,6 +21,20 @@ port's parameter raises.
 both packages the same weights; ``to_jax`` gives the port's weights (or
 gradients) back in the JAX tree's layout, so a test compares them leaf by
 leaf, and a checkpoint holds the same tree whichever package wrote it.
+
+A model placed on a mesh (``launch/shardings.distribute_model``) has
+DTensor parameters. ``to_jax`` and ``opt_to_jax`` with ``numpy=False``
+keep each rank's part: a stacked leaf becomes a DTensor whose local
+block is the stack of the layers' local blocks, copied to the host, its
+``Shard`` dims shifted by one for the ``repeats`` axis; a top-level leaf
+keeps its placements. Both are built by ``DTensor.from_local`` on the
+host twin of the mesh, with no collective, so a checkpoint writes each
+rank's blocks (``checkpoint.save``). A DTensor on a one-device mesh
+comes out a plain host tensor, as a plain tensor does. The way back is
+``from_jax`` of a restored (whole) tree, then ``distribute_model`` with
+the target mesh's specs; :func:`specs_to_jax` and :func:`opt_specs_to_jax`
+give ``launch/shardings``' specs in the JAX tree's layout, for
+``CheckpointManager.restore_latest(mesh, specs)``.
 """
 
 from __future__ import annotations
@@ -33,7 +47,7 @@ from repro_torch.models.model import Model
 from repro_torch.optim import factored_slots, slot_of, stacked_layout
 
 __all__ = ["from_jax", "to_jax", "opt_from_jax", "opt_to_jax", "to_tensor",
-           "to_numpy"]
+           "to_numpy", "specs_to_jax", "opt_specs_to_jax"]
 
 
 def to_tensor(arr) -> torch.Tensor:
@@ -51,26 +65,98 @@ def to_tensor(arr) -> torch.Tensor:
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor as a numpy array, bit for bit; bf16 comes out as its
-    ``uint16`` bits (numpy has no bf16 of its own)."""
-    t = t.detach().cpu().contiguous()
+    ``uint16`` bits (numpy has no bf16 of its own). A DTensor must lie
+    on a one-device mesh."""
+    t = _local(t).detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.uint16).numpy()
     return t.numpy()
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _sharded(t):
+    """``t`` if it is a DTensor over more than one device, else None."""
+    return t if _is_dtensor(t) and t.device_mesh.size() > 1 else None
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A plain tensor, or the whole of a DTensor on a one-device mesh."""
+    if not _is_dtensor(t):
+        return t
+    if _sharded(t) is not None:
+        raise ValueError(f"a DTensor over {t.device_mesh.size()} devices "
+                         "has no whole local tensor: take numpy=False")
+    return t.detach().to_local()
+
+
+def _host_twin(mesh):
+    """``mesh``'s twin on the CPU: the same rank grid and axis names with
+    device type "cpu" and no process groups of its own."""
+    from torch.distributed.device_mesh import DeviceMesh
+    return DeviceMesh("cpu", mesh.mesh, mesh_dim_names=mesh.mesh_dim_names,
+                      _init_backend=False)
+
+
+def _host_mesh(mesh):
+    """``mesh`` itself on the CPU, else its host twin, so that
+    ``DTensor.from_local`` leaves a host block on the host."""
+    return mesh if mesh.device_type == "cpu" else _host_twin(mesh)
+
+
+def _from_local(local: torch.Tensor, like, placements, shape):
+    """A DTensor of the host block ``local`` on ``like``'s mesh, or on
+    that mesh's host twin when it is not a CPU mesh."""
+    from torch.distributed.tensor import DTensor
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, _host_mesh(like.device_mesh),
+                              placements, shape=torch.Size(shape),
+                              stride=stride)
+
+
 def _host(t: torch.Tensor) -> torch.Tensor:
-    """A CPU copy of its own: later updates of ``t`` leave it alone."""
-    return t.detach().to("cpu", copy=True)
+    """A CPU copy of its own: later updates of ``t`` leave it alone. A
+    DTensor over several devices keeps its placements, each rank's block
+    copied (:func:`_from_local`)."""
+    if _sharded(t) is None:
+        return _local(t).detach().to("cpu", copy=True)
+    local = t.detach().to_local().to("cpu", copy=True)
+    return _from_local(local, t, t.placements, tuple(t.shape))
 
 
 def _host_stack(leaves) -> torch.Tensor:
     """The per-layer tensors stacked into one CPU tensor of its own, each
-    copied once."""
-    out = torch.empty((len(leaves),) + tuple(leaves[0].shape),
-                      dtype=leaves[0].dtype, device="cpu")
-    for r, x in enumerate(leaves):
+    copied once. Per-layer DTensors over several devices (one mesh, one
+    placement) stack their local blocks: a DTensor with a leading
+    ``repeats`` axis, each ``Shard(d)`` now ``Shard(d + 1)``."""
+    from torch.distributed.tensor import Replicate, Shard
+    first = _sharded(leaves[0])
+    blocks = [_local(x) for x in leaves] if first is None else \
+        [x.detach().to_local() for x in leaves]
+    out = torch.empty((len(leaves),) + tuple(blocks[0].shape),
+                      dtype=blocks[0].dtype, device="cpu")
+    for r, x in enumerate(blocks):
         out[r].copy_(x.detach())
-    return out
+    if first is None:
+        return out
+    for x in leaves:
+        if x.device_mesh != first.device_mesh \
+                or x.placements != first.placements:
+            raise ValueError("a slot's layers lie on different meshes or "
+                             "placements")
+    placements = []
+    for pl in first.placements:
+        if type(pl) is Shard:
+            placements.append(Shard(pl.dim + 1))
+        elif isinstance(pl, Replicate):
+            placements.append(pl)
+        else:
+            raise ValueError(f"cannot stack a leaf placed {pl}")
+    return _from_local(out, first, placements,
+                       (len(leaves),) + tuple(first.shape))
 
 
 def _is_factored(node) -> bool:
@@ -147,16 +233,27 @@ def from_jax(params_np: dict, cfg, device=None) -> Model:
     return model
 
 
-def _tree(named: dict, cfg, numpy: bool) -> dict:
+def _np_stack(leaves) -> np.ndarray:
+    return np.stack([to_numpy(x) for x in leaves])
+
+
+def _spec_stack(specs) -> tuple:
+    """The spec of a stacked leaf: the layers' spec behind a replicated
+    ``repeats`` axis."""
+    if any(x != specs[0] for x in specs):
+        raise ValueError(f"a slot's layers have different specs: {specs}")
+    return (None,) + tuple(specs[0])
+
+
+def _tree(named: dict, cfg, numpy: bool = False, leaf_fn=None,
+          stack=None) -> dict:
     """Per-layer leaves (tensors, or factored ``{vr, vc}`` dicts of them)
     stacked on a leading ``repeats`` axis per pattern slot, as
     :func:`optim.stacked_layout` groups them; numpy arrays
-    (:func:`to_numpy`) or CPU tensors of their own."""
-    leaf_fn = to_numpy if numpy else _host
-
-    def stack(leaves):
-        return np.stack([to_numpy(x) for x in leaves]) if numpy \
-            else _host_stack(leaves)
+    (:func:`to_numpy`) or CPU tensors of their own, or what ``leaf_fn``
+    and ``stack`` make of a top-level leaf and of a slot's layers."""
+    leaf_fn = leaf_fn or (to_numpy if numpy else _host)
+    stack = stack or (_np_stack if numpy else _host_stack)
     layout = stacked_layout(named, len(cfg.pattern))
     out: dict = {"blocks": [{} for _ in cfg.pattern]}
     per_layer = {n for names in layout.values() for n in names}
@@ -208,6 +305,27 @@ def opt_to_jax(state: dict, cfg, numpy: bool = True) -> dict:
     count = np.asarray(state["count"], np.int32)
     return dict(m=_tree(state["m"], cfg, numpy), v=vtree,
                 count=count if numpy else torch.from_numpy(count))
+
+
+def specs_to_jax(p_specs: dict, cfg) -> dict:
+    """``launch/shardings.param_specs``' specs (by the port's parameter
+    names) as a tree of the JAX parameter tree's layout: a stacked leaf's
+    spec leads with a replicated ``repeats`` axis."""
+    return _tree(p_specs, cfg, leaf_fn=tuple, stack=_spec_stack)
+
+
+def opt_specs_to_jax(o_specs: dict, cfg) -> dict:
+    """``launch/shardings.opt_state_specs``' specs in the layout of
+    :func:`opt_to_jax`'s tree (``count`` None: left on the host)."""
+    slots = {k for k, x in o_specs["v"].items()
+             if isinstance(x, dict) and k.startswith("slot")}
+    vtree = _tree({k: x for k, x in o_specs["v"].items() if k not in slots},
+                  cfg, leaf_fn=tuple, stack=_spec_stack)
+    for key in slots:
+        si, path = slot_of(key)
+        _put(vtree["blocks"][si], path,
+             {k: tuple(x) for k, x in o_specs["v"][key].items()})
+    return dict(m=specs_to_jax(o_specs["m"], cfg), v=vtree, count=None)
 
 
 def opt_from_jax(state_np: dict, cfg, device=None) -> dict:

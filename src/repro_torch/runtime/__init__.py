@@ -1,3 +1,4 @@
-from .ft import HeartbeatMonitor
+from .ft import HeartbeatMonitor, RemeshPlan, Supervisor, plan_elastic_remesh
 
-__all__ = ["HeartbeatMonitor"]
+__all__ = ["HeartbeatMonitor", "RemeshPlan", "Supervisor",
+           "plan_elastic_remesh"]
