@@ -122,10 +122,31 @@ imports nothing of JAX or of the JAX package. It
     bit where two uninterrupted runs agree, else within their spread),
     the restored weights and state what was saved, bit for bit, and
     each step's launch counts the train phase's;
-17. [examples], last: the port's four examples as shipped
+17. [examples]: the port's four examples as shipped
     (``repro_torch.examples``) on the card, what each prints or returns
     checked;
-18. prints the ``kernels`` JSON line (the [mesh] and [elastic] runs'
+18. [cp], after the flash kernels: qwen3-14b's attention at full width
+    (40 q heads over 8 kv heads of 128, bf16, causal, batch 1 x 4096 and
+    1 x 32768) split along its keys as the model splits it where the
+    stored KV heads do not divide a 16-way model axis: K/V cut into 16
+    blocks, each through the flash forward kernel at its own (negative)
+    ``kv_offset``, merged by the model's ``merge_blocks``, then each
+    block's backward with the merged out and lse; each block's out, lse,
+    dQ share, dK and dV held against the block computed plainly in f32 at
+    the block's own scale (planted faults in the last block must be
+    refused), and the merged out and lse, the summed dQ and each block's
+    dK/dV against one flash call over all keys (16 forward and 48
+    backward launches asserted), each block's time
+    beside the one call's (the causal imbalance); and one decode query at
+    position 32767 over 16 cache blocks through the plain route against
+    the whole-cache plain attention;
+19. [roofline], last: ``launch/roofline.py``'s floors (compute from the
+    dry run's FLOPs, memory and collectives from closed forms, at the
+    H100's spec-sheet rates) of each full-width train phase's [dryrun]
+    record beside its measured ms/step (no floor may exceed it), and of
+    qwen3-14b's and llama4-scout's ``prefill_32k`` at mesh (16, 16),
+    whose records one dry-run process makes on the host;
+20. prints the ``kernels`` JSON line (the [mesh] and [elastic] runs'
     launches included) and, last, the device JSON line.
 
 Any failure raises and exits non-zero before the last line is printed.
@@ -138,6 +159,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -280,6 +302,20 @@ DRYRUN_STEP_TOL = 0.001
 DRYRUN_FLOOR_TFLOP = {"granite-moe-1b-a400m": 136.0, "mamba2-1.3b": 88.0,
                       "qwen2.5-3b": 225.0, "stablelm-1.6b": 100.0,
                       "hubert-xlarge": 120.0}
+# [cp]: qwen3-14b's attention (q heads, kv heads, head dim) at full width,
+# split along its keys into as many blocks as the production mesh's model
+# axis has ranks, at these sequence lengths (train_4k's, prefill_32k's)
+CP_HEADS = (40, 8, 128)
+CP_RANKS = 16
+CP_SEQS = (4096, 32768)
+# [roofline]: the dry-run cells at the production mesh (16, 16) whose
+# K/V the model splits along the sequence (40 q and 8 kv heads do not
+# divide the 16-way model axis), made on the host by one dry-run process.
+# Their prefill: torch 2.11's DTensor cannot propagate placements for the
+# training step's embedding gradient (an index_put) on a (16, 16) mesh,
+# which torch 2.13 does; train_4k's records come from a newer torch
+ROOFLINE_CELLS = (("qwen3-14b", "prefill_32k", "single"),
+                  ("llama4-scout-17b-a16e", "prefill_32k", "single"))
 # [mesh]: granite trained at full width through DTensors on a one-rank
 # NCCL mesh (1, 1) for this many steps, against the same steps on plain
 # tensors
@@ -728,6 +764,387 @@ def flash_phase(fa) -> dict:
             del qr, kr, vr, ql, kl, vl, lout
             torch.cuda.empty_cache()
     return results
+
+
+def block_close_or_raise(what: str, got, want, tol: float) -> float:
+    """Hold a result at its own scale: |got - want| <= atol + tol |want|
+    elementwise with atol = tol * min(1, max |want|) (close_or_raise's
+    where the values reach 1, smaller where they do not), and the error's
+    RMS within tol of want's RMS, so that a result whose values are small
+    everywhere cannot pass by a tolerance larger than they are. Returns
+    the RMS ratio."""
+    got, want = got.float(), want.float()
+    close_or_raise(what, got, want, tol,
+                   atol=tol * min(1.0, want.abs().max().item()))
+    rel = ((got - want).norm() / want.norm()).item()
+    if not rel <= tol:
+        raise AssertionError(f"{what}: RMS of the error {rel:.3e} of the "
+                             f"reference's, beyond {tol}")
+    return rel
+
+
+def lse_close_or_raise(what: str, got, want, tol: float) -> float:
+    """A log-sum-exp: -inf (no key seen) at the same rows as want, and
+    within tol absolute elsewhere (an absolute error in lse is the
+    relative error of the sum of exponentials). Returns the max error."""
+    got, want = got.float(), want.float()
+    seen = torch.isfinite(want)
+    if not (torch.equal(seen, torch.isfinite(got))
+            and bool((got[~seen] == -math.inf).all())):
+        raise AssertionError(f"{what}: rows with no key differ from the "
+                             "reference's (lse -inf)")
+    return close_or_raise(what, got[seen], want[seen], 0.0, atol=tol)
+
+
+def cp_block_plain(q, kb, vb, off, out, lse, do):
+    """One key block of a causal attention split along its keys, plainly
+    in f32 with the kernel's scale, one kv head at a time: the block's
+    (out_r, lse_r) and its gradients given the merged out and lse, where
+    dq_r is the block's share of dq. With P = exp(s - lse) over the
+    block's keys and dS = P (dO v^T - rowsum(dO · out)): dq_r = scale
+    dS k, dk_r = scale dS^T q, dv_r = P^T dO. Rows before the block's
+    first visible key give out 0, lse -inf and dq 0."""
+    B, S, Hq, D = q.shape
+    L, Hkv = kb.shape[1], kb.shape[2]
+    g, scale = Hq // Hkv, D ** -0.5
+    first = min(S, max(0, -off))            # the first row that sees a key
+    f32 = dict(dtype=torch.float32, device=q.device)
+    o_r, dq_r = torch.zeros(q.shape, **f32), torch.zeros(q.shape, **f32)
+    lse_r = torch.full((B, Hq, S), -math.inf, **f32)
+    dk_r, dv_r = torch.empty(kb.shape, **f32), torch.empty(vb.shape, **f32)
+    qpos = torch.arange(first, S, device=q.device)[:, None] + off
+    hidden = torch.arange(L, device=q.device)[None, :] > qpos
+    for h in range(Hkv):
+        hs = slice(h * g, (h + 1) * g)
+        qh, doh = q[:, first:, hs].float(), do[:, first:, hs].float()
+        kh, vh = kb[:, :, h].float(), vb[:, :, h].float()
+        s = torch.einsum("bsgd,bld->bgsl", qh, kh).mul_(scale)
+        s.masked_fill_(hidden, -math.inf)
+        m = s.amax(-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        p = torch.exp(s - m)
+        den = p.sum(-1, keepdim=True)
+        seen = den > 0
+        o_r[:, first:, hs] = torch.einsum(
+            "bgsl,bld->bsgd", p / torch.where(seen, den, 1.0), vh)
+        lse_r[:, hs, first:] = torch.where(seen, m + torch.log(den),
+                                           -math.inf)[..., 0]
+        del p
+        p = torch.exp(s - lse[:, hs, first:, None].float())
+        del s
+        delta = (doh * out[:, first:, hs].float()).sum(-1)     # (B, S', g)
+        ds = p * (torch.einsum("bsgd,bld->bgsl", doh, vh)
+                  - delta.transpose(1, 2)[..., None])
+        dq_r[:, first:, hs] = torch.einsum("bgsl,bld->bsgd", ds, kh) * scale
+        dk_r[:, :, h] = torch.einsum("bgsl,bsgd->bld", ds, qh) * scale
+        dv_r[:, :, h] = torch.einsum("bgsl,bsgd->bld", p, doh)
+        del p, ds
+    return o_r, lse_r, dq_r, dk_r, dv_r
+
+
+CP_PARTS = ("out", "lse", "dq", "dk", "dv")
+
+
+def cp_block_check(name: str, got, want, dt) -> dict:
+    """A block's (out_r, lse_r, dq_r, dk_r, dv_r) from the kernels against
+    ``cp_block_plain``'s, each at the block's own scale; part -> error
+    (the RMS ratio, for lse the max absolute error)."""
+    return {part: (lse_close_or_raise if part == "lse" else
+                   block_close_or_raise)(
+                f"{name} {part}", a, b,
+                FLASH_TOL[dt] if part in ("out", "lse") else
+                FLASH_GRAD_TOL[dt])
+            for part, a, b in zip(CP_PARTS, got, want)}
+
+
+def refuses(what: str, check, *args) -> None:
+    """Raise unless ``check(*args)`` raises: a planted fault it missed."""
+    try:
+        check(*args)
+    except AssertionError:
+        return
+    raise AssertionError(f"{what}: the check passed a planted fault")
+
+
+def cp_phase(fa) -> dict:
+    """[cp]: qwen3-14b's attention split along its keys into CP_RANKS
+    blocks on one card, as each rank of a 16-way model axis runs its
+    block: the flash kernels at each block's kv_offset (negative past the
+    first), merged by the model's ``merge_blocks``. Each block's (out_r,
+    lse_r) and its backward (with the merged out and lse) are held
+    against the block computed plainly in f32 (``cp_block_plain``) at the
+    block's own scale, and the check must refuse planted faults in the
+    last block (its output zeroed, its lse -inf, its dK/dV zeroed);
+    the merged out and lse, the summed dQ and each block's dK/dV are
+    held against one flash call over all keys. Then one decode query
+    over the blocks of a 32768-position cache through the plain route,
+    against the whole-cache plain attention. Returns the per-block
+    times."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models.distributed import merge_blocks
+    Hq, Hkv, D = CP_HEADS
+    n, dt = CP_RANKS, torch.bfloat16
+    scale = D ** -0.5
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    log(f"[cp] qwen3-14b attention ({Hq}/{Hkv} heads of {D}, bf16, causal) "
+        f"split along its keys into {n} blocks (one a rank of a {n}-way "
+        f"model axis), each through the flash kernels at its kv_offset, "
+        f"merged by merge_blocks; each block held against itself computed "
+        f"plainly in f32, and the merged results against one flash call "
+        f"over all keys, at the reference's own scale (|err| <= tol (max "
+        f"|ref| + |ref|) and RMS(err) <= tol RMS(ref), tol: forward "
+        f"{FLASH_TOL[dt]}, gradients {FLASH_GRAD_TOL[dt]}; lse within "
+        f"{FLASH_TOL[dt]} absolute, -inf at the same rows); {card_line()}")
+    results = {}
+    for S in CP_SEQS:
+        L = S // n
+        q, do = (torch.randn((1, S, Hq, D), generator=g, device="cuda")
+                 .to(dt) for _ in range(2))
+        k, v = (torch.randn((1, S, Hkv, D), generator=g, device="cuda")
+                .to(dt) for _ in range(2))
+        args = (True, scale, None)
+        one, one_lse = fa.flash_attention_fwd(q, k, v, *args, 0)
+        one_grads = fa.flash_attention_bwd(q, k, v, one, one_lse, do, *args,
+                                           0)
+        blocks = [(k[:, r * L:(r + 1) * L].contiguous(),
+                   v[:, r * L:(r + 1) * L].contiguous(), -r * L)
+                  for r in range(n)]
+        name = f"[cp] S {S}"
+        f0, b0 = fa.fwd_launches, fa.bwd_launches
+        parts = [fa.flash_attention_fwd(q, kb, vb, *args, off)
+                 for kb, vb, off in blocks]
+        outs = torch.stack([o for o, _ in parts])
+        lses = torch.stack([l for _, l in parts])
+        del parts
+        out, lse = merge_blocks(outs, lses)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+        dk, dv = [], []
+        block_err = dict.fromkeys(CP_PARTS, 0.0)
+        for r, (kb, vb, off) in enumerate(blocks):
+            grads = fa.flash_attention_bwd(q, kb, vb, out, lse, do, *args,
+                                           off)
+            got = (outs[r], lses[r], *grads)
+            want = cp_block_plain(q, kb, vb, off, out, lse, do)
+            at = f"{name} block {r} (kv_offset {off})"
+            for part, e in cp_block_check(at, got, want, dt).items():
+                block_err[part] = max(block_err[part], e)
+            if r == n - 1:
+                zero = torch.zeros_like
+                refuses(f"{at}, output zeroed", cp_block_check, at,
+                        (zero(got[0]), *got[1:]), want, dt)
+                refuses(f"{at}, lse -inf (no key seen)", cp_block_check,
+                        at, (got[0], torch.full_like(got[1], -math.inf),
+                             *got[2:]), want, dt)
+                refuses(f"{at}, dK and dV zeroed", cp_block_check, at,
+                        (*got[:3], zero(got[3]), zero(got[4])), want, dt)
+            del want
+            dq += grads[0].float()
+            dk.append(grads[1])
+            dv.append(grads[2])
+        del outs, lses, got, grads
+        torch.cuda.synchronize()
+        launches = (fa.fwd_launches - f0, fa.bwd_launches - b0)
+        if launches != (n, 3 * n):
+            raise AssertionError(f"{name}: launches {launches}, "
+                                 f"expected ({n}, {3 * n})")
+        err = dict(
+            out=block_close_or_raise(f"{name} out", out, one, FLASH_TOL[dt]),
+            lse=lse_close_or_raise(f"{name} lse", lse, one_lse,
+                                   FLASH_TOL[dt]),
+            dq=block_close_or_raise(f"{name} dq", dq, one_grads[0],
+                                    FLASH_GRAD_TOL[dt]),
+            dk=cp_slices_close(f"{name} dk", dk, one_grads[1], dt),
+            dv=cp_slices_close(f"{name} dv", dv, one_grads[2], dt))
+        del dq, dk, dv
+        if S == CP_SEQS[0]:
+            err["autograd"] = cp_autograd_check(fa, q, do, blocks, one,
+                                                one_grads)
+        del one_grads
+        fwd = [event_ms(lambda: fa.flash_attention_fwd(q, kb, vb, *args,
+                                                       off))
+               for kb, vb, off in blocks]
+        bwd = [event_ms(lambda: fa.flash_attention_bwd(
+            q, kb, vb, out, lse, do, *args, off)) for kb, vb, off in blocks]
+        one_fwd = event_ms(lambda: fa.flash_attention_fwd(q, k, v, *args, 0))
+        one_bwd = event_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, one, one_lse, do, *args, 0))
+        log(f"{name}: each block vs itself in f32, worst over the {n} "
+            f"blocks: RMS(err)/RMS(ref) out {block_err['out']:.3e} dq "
+            f"{block_err['dq']:.3e} dk {block_err['dk']:.3e} dv "
+            f"{block_err['dv']:.3e}, max|err| lse {block_err['lse']:.3e}; "
+            f"the last block's planted faults (output zeroed, lse -inf, "
+            f"dK/dV zeroed) refused")
+        log(f"{name}: merged vs one call: RMS(err)/RMS(ref) out "
+            f"{err['out']:.3e} dq {err['dq']:.3e} dk {err['dk']:.3e} dv "
+            f"{err['dv']:.3e}, max|err| lse {err['lse']:.3e}; launches "
+            f"{launches[0]} forward, {launches[1]} backward")
+        log(f"{name}: forward ms per block (rank 0 first) "
+            f"{[round(t, 4) for t in fwd]}, sum {sum(fwd):.4f}, max "
+            f"{max(fwd):.4f}, one call {one_fwd:.4f}; backward ms per block "
+            f"{[round(t, 4) for t in bwd]}, sum {sum(bwd):.4f}, max "
+            f"{max(bwd):.4f}, one call {one_bwd:.4f} (causal: rank 0's "
+            f"block is seen by every row, the last by 1/{n} of them)")
+        results[S] = dict(err=err, block_err=block_err, fwd=fwd, bwd=bwd,
+                          one_fwd=one_fwd, one_bwd=one_bwd)
+        del q, k, v, do, one, one_lse, out, lse, blocks
+        torch.cuda.empty_cache()
+
+    # decode (flash-decoding): one query at the cache's last position
+    S = CP_SEQS[-1]
+    L, pos = S // n, CP_SEQS[-1] - 1
+    q = torch.randn((1, 1, Hq, D), generator=g, device="cuda").to(dt)
+    k, v = (torch.randn((1, S, Hkv, D), generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    parts = [kref.attention_lse_ref(q, k[:, r * L:(r + 1) * L],
+                                    v[:, r * L:(r + 1) * L], causal=True,
+                                    kv_offset=pos - r * L)
+             for r in range(n)]
+    out, lse = merge_blocks(torch.stack([o for o, _ in parts]),
+                            torch.stack([l for _, l in parts]))
+    want, want_lse = kref.attention_lse_ref(q, k, v, causal=True,
+                                            kv_offset=pos)
+    whole = kref.attention_ref(q, k, v, causal=True, kv_offset=pos)
+    torch.cuda.synchronize()
+    err = max(block_close_or_raise("[cp] decode out", out, whole,
+                                   FLASH_TOL[dt]),
+              block_close_or_raise("[cp] decode out (lse route)", out, want,
+                                   FLASH_TOL[dt]))
+    lse_err = lse_close_or_raise("[cp] decode lse", lse, want_lse,
+                                 FLASH_TOL[dt])
+    refuses("[cp] decode, the last block zeroed", block_close_or_raise,
+            "[cp] decode out", merge_blocks(
+                torch.stack([o for o, _ in parts[:-1]]
+                            + [torch.zeros_like(parts[-1][0])]),
+                torch.stack([l for _, l in parts]))[0], whole, FLASH_TOL[dt])
+    log(f"[cp] decode: one query at position {pos} over {n} cache blocks "
+        f"of {L} through the plain route, merged, vs the whole-cache plain "
+        f"attention: RMS(err)/RMS(ref) out {err:.3e}, max|err| lse "
+        f"{lse_err:.3e}; the last block zeroed refused")
+    del q, k, v, parts, out, lse, want, want_lse, whole
+    torch.cuda.empty_cache()
+    return results
+
+
+def cp_slices_close(what: str, got: list, want, dt) -> float:
+    """dK or dV of each key block against its slice of the one call's,
+    each at the slice's own scale; the worst RMS ratio."""
+    L = got[0].shape[1]
+    return max(block_close_or_raise(f"{what} block {r}", g,
+                                    want[:, r * L:(r + 1) * L],
+                                    FLASH_GRAD_TOL[dt])
+               for r, g in enumerate(got))
+
+
+def cp_autograd_check(fa, q, do, blocks, one, one_grads):
+    """The model's kernel route for a key block, ``flash_attention_split``
+    (one autograd function: forward kernel, merge, backward kernels with
+    the merged out and lse), on each block in turn under autograd, its
+    merge taking the other blocks' (out, lse) from the forward kernels'
+    results as the other ranks' all-reduces would: every block's output
+    against the one call's, dQ summed and each block's dK/dV against its
+    gradients at their own scale; launches 1 forward and 3 backward a
+    block."""
+    from repro_torch.models.distributed import merge_blocks
+    parts = [fa.flash_attention_fwd(q, kb, vb, True, q.shape[-1] ** -0.5,
+                                    None, off) for kb, vb, off in blocks]
+    outs = torch.stack([o for o, _ in parts])
+    lses = torch.stack([l for _, l in parts])
+    del parts
+    dq = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+    dk, dv, err = [], [], 0.0
+    f0, b0 = fa.fwd_launches, fa.bwd_launches
+    for r, (kb, vb, off) in enumerate(blocks):
+        def merge(o, l, r=r):
+            return merge_blocks(
+                torch.cat([outs[:r], o[None], outs[r + 1:]]),
+                torch.cat([lses[:r], l[None], lses[r + 1:]]))
+        ts = [t.clone().requires_grad_() for t in (q, kb, vb)]
+        o = fa.flash_attention_split(*ts, merge, causal=True, kv_offset=off)
+        a, b, c = torch.autograd.grad(o, ts, do)
+        err = max(err, block_close_or_raise(f"[cp] split block {r} out", o,
+                                            one, FLASH_TOL[q.dtype]))
+        dq += a.float()
+        dk.append(b)
+        dv.append(c)
+    torch.cuda.synchronize()
+    n = len(blocks)
+    launches = (fa.fwd_launches - f0, fa.bwd_launches - b0)
+    if launches != (n, 3 * n):
+        raise AssertionError(f"[cp] flash_attention_split: launches "
+                             f"{launches}, expected ({n}, {3 * n})")
+    err = max(err, block_close_or_raise("[cp] split dq", dq, one_grads[0],
+                                        FLASH_GRAD_TOL[q.dtype]),
+              cp_slices_close("[cp] split dk", dk, one_grads[1], q.dtype),
+              cp_slices_close("[cp] split dv", dv, one_grads[2], q.dtype))
+    log(f"[cp] S {q.shape[1]}: flash_attention_split under autograd, block "
+        f"by block: worst RMS(err)/RMS(ref) {err:.3e} over outputs and "
+        f"gradients; launches {launches[0]} forward, {launches[1]} "
+        f"backward")
+    return err
+
+
+def roofline_phase(preds: dict, measured: dict) -> list:
+    """[roofline]: each full-width train phase's floor from its [dryrun]
+    record (mesh (1, 1)) at the H100's spec-sheet rates beside its
+    measured ms/step: a floor above the measured step means the
+    accounting is wrong. Then the floors of ROOFLINE_CELLS at (16, 16),
+    whose records one dry-run process (``python -m
+    repro_torch.launch.dryrun``, placeholder ranks) writes into a
+    temporary directory."""
+    import tempfile
+
+    from repro_torch.launch import roofline
+    lines = []
+    log(f"[roofline] floors at spec-sheet rates (989 TFLOP/s bf16, 67 f32, "
+        f"3.35 TB/s, NVLink 450 GB/s, network 50 GB/s; accounting, not "
+        f"measurement) beside the measured step; {card_line()}")
+    for arch, rec in preds.items():
+        r = roofline.cell_roofline(rec)
+        ms = measured[arch]
+        floor = r["floor_s"] * 1e3
+        lines.append(
+            f"[roofline] {arch} (1,1): compute {r['compute_s']*1e3:.2f} ms "
+            f"({rec['cost']['flops_per_device']/1e12:.1f} TFLOP), memory "
+            f"{r['memory_s']*1e3:.2f} ms, floor {floor:.2f} ms "
+            f"({r['dominant'].removesuffix('_s')}) vs measured "
+            f"{ms:.3f} ms/step: floor/measured {floor / ms:.3f}")
+        log(lines[-1])
+        if floor > ms:
+            raise AssertionError(f"[roofline] {arch}: the floor {floor:.2f} "
+                                 f"ms exceeds the measured step {ms:.3f} "
+                                 "ms: the accounting is wrong")
+    (shape, mesh), = {c[1:] for c in ROOFLINE_CELLS}
+    art = tempfile.mkdtemp(prefix="roofline-")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(Path(__file__).resolve().parent / "src"),
+         os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         *(c[0] for c in ROOFLINE_CELLS), "--shape", shape, "--mesh", mesh,
+         "--out", art], env=env, capture_output=True, text=True, timeout=600)
+    if done.returncode:
+        raise AssertionError(f"[roofline] the (16,16) dry run failed: "
+                             f"{(done.stdout + done.stderr)[-3000:]}")
+    log(f"[roofline] the (16,16) dry-run records in "
+        f"{time.perf_counter() - t0:.1f} s (host)")
+    rows = roofline.analyze(art=art, out=None, cells=set(ROOFLINE_CELLS))
+    shutil.rmtree(art)
+    if len(rows) != len(ROOFLINE_CELLS):
+        raise AssertionError(f"[roofline] {len(rows)} records of "
+                             f"{ROOFLINE_CELLS}")
+    for r in rows:
+        lines.append(
+            f"[roofline] {r['cell']} (16,16): "
+            f"{r['flops_per_device']/1e12:.1f} TFLOP/device, compute "
+            f"{r['compute_s']:.4f} s, memory {r['memory_s']:.4f} s, "
+            f"collectives {r['collective_s']:.4f} s "
+            f"({r['cross_host_bytes']/1e9:.1f} of "
+            f"{r['collective_bytes']/1e9:.1f} GB across hosts), floor "
+            f"{r['floor_s']:.4f} s ({r['dominant'].removesuffix('_s')}), "
+            f"peak {r['peak_gib']:.2f} GiB (accounting)")
+        log(lines[-1])
+    return lines
 
 
 def rmsnorm_phase(rms) -> dict:
@@ -1607,7 +2024,7 @@ def mamba_train_phase(gmm, fa, rms) -> dict:
                              "plain route")
     del opt_state
     return dict(counts=counts, cfg=cfg, params=params, batch=batches[0],
-                peak=peak, peaks=peaks, resident=resident)
+                peak=peak, peaks=peaks, resident=resident, ms=ms)
 
 
 def mamba_check_in_situ(cfg, params, batch) -> None:
@@ -2789,6 +3206,8 @@ def main() -> int:
     gmm_res = kernel_phase(gmm)
     gmm_bwd_res = gmm_backward_phase(gmm)
     flash_res = flash_phase(fa)
+    cp_phase(fa)
+    log(f"[time] cp phase done at {time.perf_counter()-t_all:.1f} s")
     rms_res = rmsnorm_phase(rms)
     ssd_res = ssd_phase(ssd)
     log(f"[time] kernel phase done at {time.perf_counter()-t_all:.1f} s")
@@ -2805,6 +3224,7 @@ def main() -> int:
 
     train = train_phase(gmm, fa, rms)
     counts = train["counts"]
+    measured = {ARCH: train["ms"]}              # arch -> ms/step
     dry = [dryrun_check(ARCH, preds[ARCH], train["peaks"],
                        train["resident"])]
     train_check_in_situ(train["cfg"], train["params"], train["batch"])
@@ -2822,6 +3242,7 @@ def main() -> int:
 
     mamba = mamba_train_phase(gmm, fa, rms)
     mamba_counts = mamba["counts"]
+    measured[MAMBA] = mamba["ms"]
     dry.append(dryrun_check(MAMBA, preds[MAMBA], mamba["peaks"],
                             mamba["resident"]))
     mamba_check_in_situ(mamba["cfg"], mamba["params"], mamba["batch"])
@@ -2836,6 +3257,7 @@ def main() -> int:
     for arch in DENSE_TRAIN:
         run = train_phase(gmm, fa, rms, arch, tag=arch)
         dense[arch] = run["counts"]
+        measured[arch] = run["ms"]
         dry.append(dryrun_check(arch, preds[arch], run["peaks"],
                                 run["resident"]))
         train_check_in_situ(run["cfg"], run["params"], run["batch"])
@@ -2857,6 +3279,7 @@ def main() -> int:
 
     run = train_phase(gmm, fa, rms, HUBERT, tag=HUBERT)
     dense[HUBERT] = run["counts"]
+    measured[HUBERT] = run["ms"]
     dry.append(dryrun_check(HUBERT, preds[HUBERT], run["peaks"],
                             run["resident"]))
     train_check_in_situ(run["cfg"], run["params"], run["batch"])
@@ -2881,6 +3304,8 @@ def main() -> int:
     examples_phase()
     torch.cuda.empty_cache()
     log(f"[time] examples phase done at {time.perf_counter()-t_all:.1f} s")
+    roof = roofline_phase(preds, measured)
+    log(f"[time] roofline phase done at {time.perf_counter()-t_all:.1f} s")
     el = elastic["counts"]
 
     def entry(name, source, replaces, launches, rep):
@@ -2940,6 +3365,8 @@ def main() -> int:
     log(f"[done] [mesh] launches (DTensor run): {mesh_counts}")
     log(f"[done] [elastic] launches (the supervised run, replays "
         f"included): {el}")
+    for line in roof:                       # the floors beside the steps
+        log(line)
     log(card_line())                        # again, beside the results
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

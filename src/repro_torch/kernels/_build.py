@@ -19,14 +19,17 @@ returns a non-zero ``cudaError_t``, raise.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build", "kernel_function", "build_logs"]
+__all__ = ["SOURCES", "build", "kernel_function", "on_device",
+           "build_logs"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -104,6 +107,28 @@ def _library(name: str) -> ctypes.CDLL:
         err.restype = ctypes.c_char_p
         _libs[name] = lib
     return lib
+
+
+# the devices whose context each thread has made current
+_current = threading.local()
+
+
+@contextlib.contextmanager
+def on_device(device):
+    """Launch kernels on ``device`` from this thread: ``torch.cuda.device``
+    with the device's context made current, once a thread. On a thread
+    where PyTorch has not yet touched the card (a new thread, or the
+    autograd engine's worker before its first CUDA op) no context is
+    current, entering ``torch.cuda.device`` of the device PyTorch takes as
+    current makes none, and the kernels' launches fail with ``invalid
+    argument``."""
+    import torch
+    with torch.cuda.device(device):
+        done = _current.__dict__.setdefault("devices", set())
+        if device.index not in done:
+            torch.cuda.set_device(device)
+            done.add(device.index)
+        yield
 
 
 def kernel_function(source: str, symbol: str, argtypes: list):

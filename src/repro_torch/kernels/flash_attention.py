@@ -23,6 +23,13 @@ dim: 4 per pair forward, 10 backward). A row that sees no key gives 0
 (and zero gradients) on the card, as the TPU kernel does, where the
 oracle gives NaN. ``fwd_launches`` and ``bwd_launches`` count kernel
 launches and nothing else.
+
+:func:`flash_attention_split` runs one key block of an attention split
+along its keys (a sequence-sharded K/V): the forward kernel on the block
+at its own ``kv_offset`` (negative for a block past the first), a
+caller's merge of the blocks' (out, lse), and a backward of three
+launches on the block with the merged out and lse, which gives that
+block's dK and dV exactly and its share of dQ.
 """
 
 from __future__ import annotations
@@ -35,11 +42,11 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
-from .ref import attention_ref
+from .ref import attention_lse_ref, attention_ref
 
-__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_fwd",
-           "flash_attention_bwd", "score_pairs", "fwd_launches",
-           "bwd_launches"]
+__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_split",
+           "flash_attention_fwd", "flash_attention_bwd", "score_pairs",
+           "fwd_launches", "bwd_launches"]
 
 fwd_launches = 0
 bwd_launches = 0
@@ -98,7 +105,7 @@ def flash_attention_fwd(q, k, v, causal, scale, window, kv_offset):
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     launch = _build.kernel_function("flash_attention", "flash_attention_fwd",
                                     _FWD_ARGTYPES)
-    with torch.cuda.device(q.device):
+    with _build.on_device(q.device):
         launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                lse.data_ptr(),
                *_shape_args(q, k, causal, scale, window, kv_offset))
@@ -125,7 +132,7 @@ def _bwd(q, k, v, out, lse, dout, causal, scale, window, kv_offset):
     dq, dk, dv, delta = _bwd_outputs(q, k, v, lse)
     launch = _build.kernel_function("flash_attention", "flash_attention_bwd",
                                     _BWD_ARGTYPES)
-    with torch.cuda.device(q.device):
+    with _build.on_device(q.device):
         launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -214,15 +221,9 @@ def _bwd_flops(q, k, v, out, lse, dout, causal, scale, window, kv_offset,
     return _flops(q, k, causal, window, kv_offset, 10)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, scale: float | None = None,
-                    window: int | None = None,
-                    kv_offset: int = 0) -> torch.Tensor:
-    """GQA attention, BSHD layout; differentiable on both devices."""
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                     window=window, kv_offset=kv_offset)
+def _kernel_scale(q, scale, window) -> float:
+    """The softmax scale for the kernels, after the checks of what they
+    refuse."""
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
@@ -232,6 +233,63 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "tiles hold at most 128")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    scale = D ** -0.5 if scale is None else scale
+    return float(D ** -0.5 if scale is None else scale)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: float | None = None,
+                    window: int | None = None,
+                    kv_offset: int = 0) -> torch.Tensor:
+    """GQA attention, BSHD layout; differentiable on both devices."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     window=window, kv_offset=kv_offset)
+    scale = _kernel_scale(q, scale, window)
     return _fwd_op(q.contiguous(), k.contiguous(), v.contiguous(), causal,
-                   float(scale), window, int(kv_offset))[0]
+                   scale, window, int(kv_offset))[0]
+
+
+class _Split(torch.autograd.Function):
+    """One key block: the forward kernel, the merge, and the backward
+    kernels on the block with the merged out and lse. Their delta
+    pre-pass then reads rowsum(dout · out) of the whole attention, and
+    P = exp(S - lse) is the whole softmax restricted to the block: dK and
+    dV are the block's own, dQ this block's share of the sum."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, merge, causal, scale, window, kv_offset):
+        args = (causal, scale, window, kv_offset)
+        out, lse = merge(*_fwd_op(q, k, v, *args))
+        out = out.contiguous()
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = args
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv, _ = _bwd_op(q, k, v, out, lse, dout.contiguous(),
+                                *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          merge, causal: bool = True,
+                          scale: float | None = None,
+                          window: int | None = None,
+                          kv_offset: int = 0) -> torch.Tensor:
+    """The attention of q over all key blocks, from this block's k/v:
+    ``merge(out, lse)`` merges the blocks' partial results (its
+    ``(out, lse)`` merged; ``merge_blocks`` of ``models/distributed.py``
+    with reductions across the blocks) and ``kv_offset`` is q[0]'s position less this block's
+    first key's. Differentiable on both devices: a CPU tensor takes
+    ``attention_lse_ref`` and the merge under autograd."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return merge(*attention_lse_ref(q, k, v, causal=causal, scale=scale,
+                                        window=window,
+                                        kv_offset=kv_offset))[0]
+    scale = _kernel_scale(q, scale, window)
+    return _Split.apply(q.contiguous(), k.contiguous(), v.contiguous(), merge,
+                        causal, scale, window, int(kv_offset))

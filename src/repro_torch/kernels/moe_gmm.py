@@ -102,7 +102,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, period: int) -> torch.Tensor:
     F = w.shape[2]
     out = torch.empty((Z, C, F), dtype=x.dtype, device=x.device)
     launch = _build.kernel_function("moe_gmm", "moe_gmm_launch", _ARGTYPES)
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), Z, C, D, F,
                period, _DTYPE_CODES[x.dtype], stream)
@@ -120,7 +120,7 @@ def _in_place(x, w, g) -> bool:
 def _launch_bwd(symbol, a, b, out, Z, C, D, F, period):
     """One launch of a backward kernel into ``out`` (uncounted)."""
     launch = _build.kernel_function("moe_gmm", symbol, _BWD_ARGTYPES)
-    with torch.cuda.device(out.device):
+    with _build.on_device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
         launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), Z, C, D, F,
                period, stream)

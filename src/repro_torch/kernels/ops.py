@@ -12,9 +12,10 @@ masked in the kernels.
 
 from __future__ import annotations
 
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_split
 from .moe_gmm import moe_gmm
 from .rmsnorm import rmsnorm
 from .ssd_scan import ssd_scan
 
-__all__ = ["flash_attention", "moe_gmm", "rmsnorm", "ssd_scan"]
+__all__ = ["flash_attention", "flash_attention_split", "moe_gmm", "rmsnorm",
+           "ssd_scan"]

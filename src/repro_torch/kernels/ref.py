@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["rmsnorm_ref", "attention_ref", "attention_chunked_ref",
+           "attention_lse_ref", "attention_chunked_lse_ref",
            "moe_gmm_ref", "ssd_ref", "ssd_chunked_ref"]
 
 
@@ -78,6 +79,66 @@ def attention_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         attention_ref(q[:, i:i + chunk], k, v, causal=causal, scale=scale,
                       window=window, kv_offset=kv_offset + i)
         for i in range(0, S, chunk)], dim=1)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True,
+                      scale: float | None = None,
+                      window: int | None = None,
+                      kv_offset: int = 0):
+    """:func:`attention_ref` that also returns each row's log-sum-exp,
+    (out, lse) with lse (B, Hq, Sq) f32: the partial result of one key
+    block of an attention split along its keys (``merge_blocks`` in
+    ``models/distributed.py`` merges the blocks). A row that sees no key gives the flash kernel's
+    convention, out 0 and lse -inf, and zero gradients (attention_ref
+    gives NaN there)."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
+    group = Hq // Hkv
+    scale = (D ** -0.5) if scale is None else scale
+    kr = k.repeat_interleave(group, dim=2)
+    vr = v.repeat_interleave(group, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
+    qpos = torch.arange(Sq, device=q.device)[:, None] + kv_offset
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask[None, None], float("-inf"))
+    # the row max is a shift the result does not depend on: held out of
+    # the graph, and 0 for a row with no key (no -inf - -inf)
+    m = s.detach().amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    seen = l > 0
+    l = torch.where(seen, l, torch.ones_like(l))
+    out = torch.einsum("bhqk,bkhd->bqhd", p / l, vr.float())
+    lse = torch.where(seen, m + torch.log(l), float("-inf"))[..., 0]
+    return out.to(q.dtype), lse
+
+
+def attention_chunked_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = True,
+                              scale: float | None = None,
+                              window: int | None = None,
+                              kv_offset: int = 0, chunk: int = 1024):
+    """:func:`attention_lse_ref` as a loop over query chunks, as
+    :func:`attention_chunked_ref` bounds the score slab."""
+    S = q.shape[1]
+    if S % chunk:
+        return attention_lse_ref(q, k, v, causal=causal, scale=scale,
+                                 window=window, kv_offset=kv_offset)
+    parts = [attention_lse_ref(q[:, i:i + chunk], k, v, causal=causal,
+                               scale=scale, window=window,
+                               kv_offset=kv_offset + i)
+             for i in range(0, S, chunk)]
+    return (torch.cat([o for o, _ in parts], dim=1),
+            torch.cat([l for _, l in parts], dim=-1))
 
 
 def moe_gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

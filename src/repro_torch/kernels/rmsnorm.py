@@ -60,7 +60,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     w = w.contiguous()
     out = torch.empty_like(x2)
     launch = _build.kernel_function("rmsnorm", "rmsnorm_launch", _ARGTYPES)
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         launch(x2.data_ptr(), w.data_ptr(), out.data_ptr(), x2.shape[0],
                x2.shape[1], float(eps), _DTYPE_CODES[x.dtype],
                torch.cuda.current_stream().cuda_stream)

@@ -176,7 +176,7 @@ def _fwd(x, a, b, c, chunk: int, keep: bool):
     L = kernel_rows(chunk, kind)
     y, hT, states, cb = _fwd_outputs(x, b, chunk, keep)
     sp = states.data_ptr() if keep else None
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         if kind == "tc":
             launch = _build.kernel_function("ssd_scan", "ssd_scan_tc_fwd",
                                             _TC_FWD_ARGTYPES)
@@ -213,7 +213,7 @@ def _bwd(x, a, b, c, states, cb, dy, dhT, chunk):
     L = kernel_rows(chunk, kind)
     dx, da, db, dc, dstates = _bwd_outputs(x, a, b, c, states)
     dhp = None if dhT is None else dhT.data_ptr()
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         if kind == "tc":
             launch = _build.kernel_function("ssd_scan", "ssd_scan_tc_bwd",
                                             _TC_BWD_ARGTYPES)

@@ -18,11 +18,13 @@ its ops first, as ``MemTracker`` does), gives
   bytes live during the step (each storage rounded up to the CUDA
   caching allocator's 512-byte blocks), freed when its storage dies;
 * cost: the local ops' FLOPs, by ``FlopCounterMode``'s formulas
-  (``torch.utils.flop_counter.flop_registry``, the kernels' included);
+  (``torch.utils.flop_counter.flop_registry``, the kernels' included),
+  in all and by the dtype of each op's first tensor argument;
 * collectives: each functional collective's count, result bytes and ring
-  wire bytes by kind, and the share whose group spans pods (counted
-  here: ``CommDebugMode``'s module tracker fails inside the recompute of
-  ``torch.utils.checkpoint``).
+  wire bytes by kind, the share whose group spans pods and the wire
+  bytes whose group spans a host of 8 cards (``cross_host_wire_bytes``;
+  counted here: ``CommDebugMode``'s module tracker fails inside the
+  recompute of ``torch.utils.checkpoint``).
 
 All of it is accounting from shapes, not a measurement of a device.
 Records go to ``artifacts/dryrun_torch/<cell>.json`` (gitignored) with
@@ -59,7 +61,8 @@ from repro_torch.models import stack as stack_lib
 from repro_torch.optim import (AdamWConfig, accumulate_gradients, adamw_init,
                                adamw_update)
 
-__all__ = ["ARTIFACTS", "FACTORED_OPT", "MICRO_WANTED", "Accounting",
+__all__ = ["ARTIFACTS", "FACTORED_OPT", "MICRO_WANTED", "HOST_SIZE",
+           "Accounting",
            "cell_id", "num_microbatches", "adapt_config", "batch_struct",
            "input_specs", "make_train_step", "make_prefill_step",
            "make_decode_step", "abstract_caches", "fake_world",
@@ -90,6 +93,10 @@ MICRO_WANTED = {
 
 # the CUDA caching allocator hands out blocks of multiples of 512 bytes
 _BLOCK = 512
+
+# cards a host holds (an 8-card H100 host, NVLink all to all inside it);
+# a collective whose group spans hosts goes over the network
+HOST_SIZE = 8
 
 
 def cell_id(arch: str, shape: str, mesh_kind: str) -> str:
@@ -321,13 +328,15 @@ class Accounting(TorchDispatchMode):
     desugars it into local ops (redistributions included), which come
     back here; the fake ops of DTensor's own sharding propagation are
     skipped. ``pod_size`` (ranks per pod) marks collectives whose group
-    spans pods.
+    spans pods; a group that spans hosts of ``HOST_SIZE`` consecutive
+    ranks is marked too.
     """
 
     def __init__(self, pod_size: int | None = None):
         super().__init__()
         self.pod_size = pod_size
         self.live = self.peak = self.flops = 0
+        self.flops_by_dtype: dict[str, int] = {}
         self.collectives: dict[str, dict] = {}
         from torch.utils.weak import WeakIdKeyDictionary
         self._storages = WeakIdKeyDictionary()
@@ -374,13 +383,15 @@ class Accounting(TorchDispatchMode):
             min(ranks) // self.pod_size != max(ranks) // self.pod_size
         rec = self.collectives.setdefault(kind, dict(
             count=0, bytes=0, wire_bytes=0, cross_pod_bytes=0,
-            cross_pod_wire_bytes=0))
+            cross_pod_wire_bytes=0, cross_host_wire_bytes=0))
         rec["count"] += 1
         rec["bytes"] += nbytes
         rec["wire_bytes"] += wire
         if cross:
             rec["cross_pod_bytes"] += nbytes
             rec["cross_pod_wire_bytes"] += wire
+        if min(ranks) // HOST_SIZE != max(ranks) // HOST_SIZE:
+            rec["cross_host_wire_bytes"] += wire
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._guards import active_fake_mode
@@ -397,8 +408,10 @@ class Accounting(TorchDispatchMode):
             return out
         packet = func._overloadpacket
         if packet in flop_registry:
-            self.flops += int(flop_registry[packet](*args, **kwargs,
-                                                    out_val=out))
+            n = int(flop_registry[packet](*args, **kwargs, out_val=out))
+            self.flops += n
+            dt = str(next(_tensors(args)).dtype).removeprefix("torch.")
+            self.flops_by_dtype[dt] = self.flops_by_dtype.get(dt, 0) + n
         if func.namespace == "_c10d_functional" \
                 and packet.__name__ in _COLLECTIVES:
             self._collective(packet.__name__, args, kwargs, out)
@@ -601,6 +614,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str,
         ),
         cost=dict(
             flops_per_device=acct.flops,
+            flops_by_dtype=acct.flops_by_dtype,
             transcendentals=None,
             bytes_accessed_per_device=None,
         ),
@@ -620,14 +634,16 @@ def run_cell(arch: str, shape: str, mesh_kind: str,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default=None)
+    ap.add_argument("--arch", nargs="+", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--mesh", default=None, choices=[None, "single", "multi"])
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
+    ap.add_argument("--out", default=None,
+                    help=f"directory of the records (default {ARTIFACTS})")
     args = ap.parse_args(argv)
 
-    archs = [args.arch] if args.arch else list(configs.ARCHS)
+    archs = args.arch or list(configs.ARCHS)
     shapes = [args.shape] if args.shape else list(configs.SHAPES)
     meshes = [args.mesh] if args.mesh else ["single", "multi"]
 
@@ -636,7 +652,8 @@ def main(argv=None):
         for s in shapes:
             for m in meshes:
                 try:
-                    run_cell(a, s, m, skip_existing=not args.force)
+                    run_cell(a, s, m, skip_existing=not args.force,
+                             out_dir=args.out)
                 except Exception as e:
                     failures.append((a, s, m, str(e)))
                     print(f"[dryrun] FAIL {a} {s} {m}: {e}")

@@ -11,7 +11,11 @@ plain tensor through unchanged (the one-device path's bits do not move).
     rank's local shards through ``local_map``;
   * :func:`split_last` / :func:`merge_last` view (..., n·d) as
     (..., n, d) and back where a dim's shards do not fall on whole rows;
-  * :func:`write_seq` writes a cache slice on each rank's local shard;
+  * :func:`write_seq` writes a cache slice on each rank's local shard,
+    and :func:`seq_start` gives where that shard starts;
+  * :func:`merge_blocks` merges the key blocks of an attention split
+    along its keys by their log-sum-exp, and :func:`merge_over` does so
+    over a mesh axis (flash-decoding, context parallel);
   * :func:`token_log_likelihood` is a vocabulary-parallel cross-entropy.
 """
 
@@ -27,7 +31,8 @@ from repro_torch.core.sharding import (MODEL_AXIS, axis_size, batch_axes,
 
 __all__ = ["constrain", "batch_split", "gathered", "entry", "entry_size",
            "local_call", "shard_index", "split_last", "merge_last",
-           "write_seq", "token_log_likelihood"]
+           "write_seq", "seq_start", "merge_blocks", "merge_over",
+           "token_log_likelihood"]
 
 
 def constrain(x, spec):
@@ -170,6 +175,14 @@ def merge_last(x):
     return x.reshape(*x.shape[:-2], -1)
 
 
+def seq_start(shape, mesh, pl) -> int:
+    """Where this rank's local shard of a (B, S, ...) tensor placed by
+    ``pl`` on ``mesh`` starts along S (0 unless S is split)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    return compute_local_shape_and_global_offset(shape, mesh, pl)[1][1]
+
+
 def write_seq(buf, new, start: int):
     """``buf[:, start:start + S] = new`` in place (S = new's length); a
     DTensor cache is written on each rank's local shard, which may hold a
@@ -178,21 +191,88 @@ def write_seq(buf, new, start: int):
         buf[:, start:start + new.shape[1]] = new
         return
     from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
 
     mesh = buf.device_mesh
     pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
           for p in buf.placements]
     local_new = new.redistribute(mesh, pl).to_local()
     local_buf = buf.to_local()
-    shape, offset = compute_local_shape_and_global_offset(
-        buf.shape, mesh, buf.placements)
-    lo = max(start, offset[1])
-    hi = min(start + new.shape[1], offset[1] + shape[1])
+    first = seq_start(buf.shape, mesh, buf.placements)
+    lo = max(start, first)
+    hi = min(start + new.shape[1], first + local_buf.shape[1])
     if lo < hi:
-        local_buf[:, lo - offset[1]:hi - offset[1]] = \
+        local_buf[:, lo - first:hi - first] = \
             local_new[:, lo - start:hi - start]
+
+
+class _MergeBlocks(torch.autograd.Function):
+    """The lse merge with its gradient written out: for block r's weight
+    w_r = exp(lse_r - lse), d out_r = w_r g and d lse_r = w_r (g · out_r
+    - g · out + g_lse). Both are local to the block, so the backward
+    needs no reduction across blocks: where the blocks lie on different
+    ranks and the merged result is replicated, each rank's gradient is
+    its own block's."""
+
+    @staticmethod
+    def forward(ctx, out, lse, max_over, sum_over):
+        m = max_over(lse)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        total = sum_over(torch.exp(lse - m))
+        seen = total > 0
+        merged = torch.where(
+            seen, m + torch.log(torch.where(seen, total,
+                                            torch.ones_like(total))),
+            float("-inf"))
+        # a block's weight; 0 where it sees no key (its lse is -inf), and
+        # where no block does (the shift is then 0 too)
+        w = torch.exp(lse - torch.where(seen, merged,
+                                        torch.zeros_like(merged)))
+        wo = w.transpose(-1, -2)[..., None]                # (.., S, H, 1)
+        res = sum_over(wo * out.float())
+        ctx.save_for_backward(out, wo, res)
+        return res.to(out.dtype), merged
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        out, wo, res = ctx.saved_tensors
+        g = g.float()
+        d_out = (wo * g).to(out.dtype)
+        dot = ((out.float() - res) * g).sum(-1, keepdim=True)  # (.., S, H, 1)
+        if g_lse is not None:
+            dot = dot + g_lse.transpose(-1, -2)[..., None]
+        d_lse = (wo * dot)[..., 0].transpose(-1, -2)
+        return d_out, d_lse, None, None
+
+
+def merge_blocks(out: torch.Tensor, lse: torch.Tensor, max_over=None,
+                 sum_over=None):
+    """Merge the partial results of an attention split along its keys:
+    lse = logsumexp over the blocks of lse_r, out = Σ_r exp(lse_r - lse)
+    · out_r (computed in f32, returned in out's dtype), differentiable.
+    ``out`` (..., B, S, H, D) and ``lse`` (..., B, H, S) hold the blocks
+    stacked along dim 0 by default; ``max_over`` and ``sum_over`` reduce
+    over the blocks (defaults: max and sum over dim 0; across ranks:
+    all-reduces, see :func:`merge_over`). A row that no block
+    sees gives out 0 and lse -inf, as the flash kernel does."""
+    if max_over is None:
+        def max_over(x):
+            return x.amax(dim=0)
+    if sum_over is None:
+        def sum_over(x):
+            return x.sum(dim=0)
+    return _MergeBlocks.apply(out, lse, max_over, sum_over)
+
+
+def merge_over(group):
+    """The merge of an attention's key blocks, one a rank of ``group``
+    (the ranks along the mesh axis that splits K/V along its sequence):
+    ``merge_blocks`` with its max and sums as all-reduces. Its gradient
+    is each rank's own block's, so the backward sends nothing."""
+    from torch.distributed import _functional_collectives as funcol
+
+    def over(op):
+        return lambda x: funcol.wait_tensor(funcol.all_reduce(x, op, group))
+    return lambda out, lse: merge_blocks(out, lse, over("max"), over("sum"))
 
 
 class _SumOver(torch.autograd.Function):

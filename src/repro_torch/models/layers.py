@@ -33,8 +33,11 @@ JAX package constrains its sharding (q, k/v, the MoE groups, dispatched
 tokens, hidden and expert outputs, the Mamba2 input). The kernels and the
 MoE router run on each rank's local shards through ``local_call``
 (``models/distributed.py``): local heads for flash and ``ssd_scan``,
-local experts and groups for ``moe_gmm``, local groups for the router. A
-plain tensor takes none of this.
+local experts and groups for ``moe_gmm``, local groups for the router.
+Where ``attn_kv_spec`` splits K/V (or a cache) along the sequence, as
+the launcher sets it when the stored KV heads do not divide the model
+axis, each rank attends over its own key block and the blocks are
+merged by their log-sum-exp. A plain tensor takes none of this.
 """
 
 from __future__ import annotations
@@ -50,12 +53,13 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.core.routing import (RoutingConfig, one_hot,
                                       ring_steal_table, route)
-from repro_torch.core.sharding import batch_axes, fit_spec
+from repro_torch.core.sharding import batch_axes, fit_spec, placements
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.distributed import (batch_split, constrain, entry,
                                             entry_size, gathered, local_call,
-                                            merge_last, shard_index,
+                                            merge_last, merge_over,
+                                            seq_start, shard_index,
                                             split_last, write_seq)
 
 
@@ -173,30 +177,44 @@ class Attention(nn.Module):
 
         causal = causal or cache is not None
         kernel = cfg.attn_impl == "kernel" and cache is None
+        kw = dict(causal=causal, window=cfg.attn_window)
 
-        def core(q, kk, vv):
+        def core(q, kk, vv, start=0, merge=None):
+            """Attention over kk/vv, whose first key sits at ``start``;
+            with ``merge``, kk/vv are one key block and the blocks'
+            (out, lse) are merged."""
+            off = kv_off - start
             if kernel:
-                return kops.flash_attention(q, kk, vv, causal=causal,
-                                            window=cfg.attn_window)
-            if S >= cfg.attn_chunk_threshold:
-                # long prefill/training: bound the score slab to
-                # (chunk × Skv)
-                return kref.attention_chunked_ref(
-                    q, kk, vv, causal=causal, window=cfg.attn_window,
-                    kv_offset=kv_off, chunk=cfg.attn_chunk)
-            return kref.attention_ref(q, kk, vv, causal=causal,
-                                      window=cfg.attn_window,
-                                      kv_offset=kv_off)
-        return _attend(core, q, kk, vv, cfg) @ gathered(self.wo), new_cache
+                if merge is None:
+                    return kops.flash_attention(q, kk, vv, kv_offset=off,
+                                                **kw)
+                return kops.flash_attention_split(q, kk, vv, merge,
+                                                  kv_offset=off, **kw)
+            # long prefill/training: bound the score slab to (chunk × Skv)
+            chunked = S >= cfg.attn_chunk_threshold
+            if merge is None:
+                if chunked:
+                    return kref.attention_chunked_ref(
+                        q, kk, vv, kv_offset=off, chunk=cfg.attn_chunk, **kw)
+                return kref.attention_ref(q, kk, vv, kv_offset=off, **kw)
+            if chunked:
+                part = kref.attention_chunked_lse_ref(
+                    q, kk, vv, kv_offset=off, chunk=cfg.attn_chunk, **kw)
+            else:
+                part = kref.attention_lse_ref(q, kk, vv, kv_offset=off, **kw)
+            return merge(*part)[0]
+        out = _attend(core, q, kk, vv, cfg, kv_spec=cfg.attn_kv_spec)
+        return out @ gathered(self.wo), new_cache
 
 
-def _attend(core, q, k, v, cfg):
+def _attend(core, q, k, v, cfg, kv_spec=None):
     """``core(q, k, v)`` (the flash kernel or the plain attention), its
     heads merged: (B, S, H·Dh). On DTensors it runs on local heads: batch
     split as ``attn_q_spec`` says, heads too where the q and kv heads both
-    divide the axis, every key position on each rank (a cache split along
-    its sequence is gathered); the merged output is split along H·Dh as
-    the heads were, so its gradient comes back in whole heads."""
+    divide the axis, every key position on each rank; the merged output
+    is split along H·Dh as the heads were, so its gradient comes back in
+    whole heads. Where ``kv_spec`` splits K/V (or the cache) along its
+    sequence, they stay split: :func:`_attend_split`."""
     def merged(q, k, v):
         out = core(q, k, v)
         return out.reshape(*out.shape[:2], -1)
@@ -206,10 +224,37 @@ def _attend(core, q, k, v, cfg):
     qs = fit_spec(mesh, tuple(q.shape),
                       cfg.attn_q_spec or (batch_axes(mesh),))
     b, h = entry(qs, 0), entry(qs, 2)
+    if kv_spec is not None:
+        seq = entry(fit_spec(mesh, tuple(k.shape), kv_spec), 1)
+        if seq is not None:
+            return _attend_split(core, q, k, v, b, seq)
     if h is not None and k.shape[2] % entry_size(mesh, h):
         h = None
     spec = (b, None, h, None)
     return local_call(merged, (q, k, v), (spec,) * 3, (b, None, h))
+
+
+def _attend_split(core, q, k, v, b, seq):
+    """Attention with K/V split along their sequence over the mesh axis
+    ``seq`` (the JAX package's flash-decoding / context-parallel layout
+    where the stored KV heads do not divide the axis): each rank keeps q
+    whole along its sequence and heads (its batch split as before), runs
+    ``core`` on its own key block from the block's first position, and
+    the blocks' (out, lse) are merged by all-reduces over the axis. No
+    key or cache position moves; q's gradient is a partial sum over the
+    axis, which ``local_call`` reduces."""
+    mesh = q.device_mesh
+    if not isinstance(seq, str):
+        raise NotImplementedError(f"K/V split along the sequence over "
+                                  f"{seq}: one mesh axis is supported")
+    merge = merge_over(mesh.get_group(list(mesh.mesh_dim_names).index(seq)))
+    kv = (b, seq, None, None)
+    start = seq_start(k.shape, mesh, placements(mesh, kv))
+
+    def local(q, k, v):
+        out = core(q, k, v, start, merge)
+        return out.reshape(*out.shape[:2], -1)
+    return local_call(local, (q, k, v), ((b,), kv, kv), (b,))
 
 
 class CrossAttention(nn.Module):

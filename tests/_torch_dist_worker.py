@@ -11,9 +11,14 @@ rules (profile "2d") and runs the dry run's step functions on them:
 granite-moe-1b-a400m (with the mesh's steal table), reduced qwen2.5-3b
 and reduced mamba2-1.3b (the scan on local heads), then prefill and 3
 greedy decode steps of reduced qwen3-14b with its caches placed by the
-cache specs. Rank 0 writes every loss, the first step's gradients, the
-parameters after the steps, every logit and token, gathered whole, to
-OUT.npz.
+cache specs. Then the same training and serving for reduced qwen3-14b
+with 3 q heads over 1 kv head (SPLIT): on the (2, 2) mesh neither head
+count divides the model axis, as 40 q and 8 kv heads do not divide 16 at
+full width, so K/V and the caches are split along their sequence and
+each rank attends over its own key block. Rank 0 writes every loss, the
+first step's gradients, the parameters after the steps, every logit and
+token, gathered whole, and every rank's attention FLOPs and key-block
+lengths (:func:`attention_probe`) to OUT.npz.
 
 Imported, :func:`scenarios` with ``mesh=None`` runs the same code on
 plain tensors in one process: the reference the test compares with.
@@ -21,6 +26,8 @@ plain tensors in one process: the reference the test compares with.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import sys
 import types
 from pathlib import Path
@@ -35,6 +42,7 @@ from repro_torch.configs import ShapeSpec  # noqa: E402
 from repro_torch.data import PipelineConfig, TokenPipeline  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import shardings as shd  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.launch.mesh import (make_production_mesh,  # noqa: E402
                                      mesh_steal_table)
 from repro_torch.models import model as model_lib  # noqa: E402
@@ -44,8 +52,21 @@ from repro_torch.optim import (AdamWConfig, accumulate_gradients,  # noqa: E402
 
 MESH = (2, 2)
 TRAIN = dict(batch=8, seq=128, micro=2, steps=2)
-TRAIN_ARCHS = ("granite-moe-1b-a400m", "qwen2.5-3b", "mamba2-1.3b")
+SPLIT = "qwen3-14b/kv-split"
+TRAIN_ARCHS = ("granite-moe-1b-a400m", "qwen2.5-3b", "mamba2-1.3b", SPLIT)
 SERVE = dict(batch=4, prompt=16, decode=3)
+SERVE_ARCHS = ("qwen3-14b", SPLIT)
+PROBE = dict(batch=1, seq=32)
+PROBE_KINDS = ("train", "serve")
+
+
+def reduced(arch: str):
+    """The reduced config of ``arch``; SPLIT is reduced qwen3-14b with 3
+    q heads over 1 kv head."""
+    if arch == SPLIT:
+        return dataclasses.replace(configs.get("qwen3-14b").reduced(),
+                                   num_heads=3, num_kv_heads=1)
+    return configs.get(arch).reduced()
 
 
 def _grid():
@@ -66,8 +87,8 @@ def _place(tree, mesh, specs):
 
 def train(arch: str, mesh) -> dict:
     spec = ShapeSpec("train", TRAIN["seq"], TRAIN["batch"], "train")
-    cfg = dryrun.adapt_config(configs.get(arch).reduced(), spec,
-                              mesh or _grid(), micro=TRAIN["micro"])
+    cfg = dryrun.adapt_config(reduced(arch), spec, mesh or _grid(),
+                              micro=TRAIN["micro"])
     steal = None
     if cfg.moe_num_experts:
         steal = torch.as_tensor(mesh_steal_table(
@@ -113,8 +134,10 @@ def train(arch: str, mesh) -> dict:
 
 def serve(arch: str, mesh) -> dict:
     B, P, n = SERVE["batch"], SERVE["prompt"], SERVE["decode"]
-    max_len = P + n
-    cfg = dryrun.adapt_config(configs.get(arch).reduced(),
+    # SPLIT's cache takes one spare position, so that its length splits
+    # over the model axis
+    max_len = P + n + (arch == SPLIT)
+    cfg = dryrun.adapt_config(reduced(arch),
                               ShapeSpec("decode", max_len, B, "decode"),
                               mesh or _grid())
     params = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
@@ -150,11 +173,82 @@ def serve(arch: str, mesh) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def attention_calls():
+    """(key length, FLOPs) of every plain attention call made while
+    entered (a list, filled in call order; FLOPs by ``FlopCounterMode``
+    around the call alone)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    seen = []
+    names = ("attention_ref", "attention_lse_ref")
+    saved = {n: getattr(kref, n) for n in names}
+
+    def spy(fn):
+        def run(q, k, v, *args, **kwargs):
+            with FlopCounterMode(display=False) as counter:
+                out = fn(q, k, v, *args, **kwargs)
+            seen.append((k.shape[1], counter.get_total_flops()))
+            return out
+        return run
+    for n in names:
+        setattr(kref, n, spy(saved[n]))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(kref, n, saved[n])
+
+
+def attention_probe(mesh) -> dict:
+    """SPLIT's first attention layer on one causal sequence (batch 1,
+    which the data axis does not split), in training and in serving (a
+    prefill of all but the last position into a cache, then one decode
+    step): on this rank, the FLOPs of its attention calls (the plain
+    attention's products, counted by ``FlopCounterMode``) and the key
+    length each call saw."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    B, S = PROBE["batch"], PROBE["seq"]
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (B, S, 64)).astype(np.float32))
+    pos = torch.arange(S)[None]
+    out = {}
+    for kind in PROBE_KINDS:
+        cfg = dryrun.adapt_config(reduced(SPLIT),
+                                  ShapeSpec(kind, S, B, kind),
+                                  mesh or _grid())
+        params = model_lib.init_params(cfg, torch.Generator().manual_seed(0),
+                                       "cpu")
+        xs = x
+        if kind == "serve":
+            caches = stack_lib.init_caches(cfg, B, S, cfg.param_dtype, "cpu")
+            if mesh is not None:
+                caches = _place(caches, mesh, shd.cache_specs(mesh, caches))
+        if mesh is not None:
+            shd.distribute_model(params, mesh, shd.param_specs(
+                mesh, params, cfg.sharding_profile))
+            xs = shd.distribute(x, mesh, ())
+        attn = params.blocks[0].mix
+        with attention_calls() as seen, implicit_replication(), \
+                torch.no_grad():
+            if kind == "train":
+                attn(xs, cfg, positions=pos)
+            else:
+                cache = dict(caches["layers"][0], length=0)
+                _, cache = attn(xs[:, :S - 1], cfg, positions=pos[:, :S - 1],
+                                cache=cache)
+                attn(xs[:, S - 1:], cfg, positions=pos[:, S - 1:],
+                     cache=cache)
+        out[f"{kind}/flops"] = sum(f for _, f in seen)
+        out[f"{kind}/kv_len"] = [n for n, _ in seen]
+    return out
+
+
 def scenarios(mesh) -> dict:
     out = {}
     for arch in TRAIN_ARCHS:
         out.update(train(arch, mesh))
-    out.update(serve("qwen3-14b", mesh))
+    for arch in SERVE_ARCHS:
+        out.update(serve(arch, mesh))
     return out
 
 
@@ -165,6 +259,10 @@ def main(rank: int, world: int, port: int, path: str) -> None:
     try:
         mesh = make_production_mesh(device_type="cpu", shape=MESH)
         out = scenarios(mesh)
+        probes = [None] * world
+        dist.all_gather_object(probes, attention_probe(mesh))
+        for k in probes[0]:
+            out[f"{SPLIT}/probe/{k}"] = np.array([p[k] for p in probes])
         if rank == 0:
             np.savez(path, **out)
     finally:

@@ -7,8 +7,17 @@ dry run's step functions with every tensor placed by the role rules
 reduced granite-moe-1b-a400m with the mesh's steal table, of reduced
 qwen2.5-3b and of reduced mamba2-1.3b (its scan on local heads), and
 prefill plus 3 greedy decode steps of reduced qwen3-14b
-with its caches placed by the cache specs. This process runs the same
-functions on plain tensors.
+with its caches placed by the cache specs, then the training and serving
+of reduced qwen3-14b with 3 q heads over 1 kv head (``worker.SPLIT``),
+whose K/V and caches stay split along their sequence over the model
+axis. This process runs the same functions on plain tensors.
+
+On SPLIT each rank's attention FLOPs (``FlopCounterMode`` around each
+plain attention call, on a batch of 1, which the data axis does not
+split) are half the one-process count, and every attention call sees
+half the keys, in training and in serving (prefill into a cache, then
+a decode step): no K/V or cache position is gathered along the
+sequence.
 
 Tolerances (f32 throughout; the sharded run sums partial products and
 gradients in another order): losses and gradient norms rtol 1e-5; the
@@ -67,6 +76,8 @@ def runs(tmp_path_factory):
     logs = []
     try:
         reference = worker.scenarios(None)
+        reference.update({f"{worker.SPLIT}/probe/{k}": np.array([v])
+                          for k, v in worker.attention_probe(None).items()})
         for p in procs:
             logs.append(p.communicate(timeout=TIMEOUT)[0])
     finally:
@@ -121,7 +132,30 @@ def test_train_steps_match_one_process(arch, sharded, reference):
 
 
 def test_serve_logits_and_tokens_match_one_process(sharded, reference):
-    arch = "qwen3-14b"
+    _same_serving("qwen3-14b", sharded, reference)
+
+
+def test_kv_split_serve_matches_one_process(sharded, reference):
+    _same_serving(worker.SPLIT, sharded, reference)
+
+
+@pytest.mark.parametrize("kind", worker.PROBE_KINDS)
+def test_kv_split_attends_over_half_the_keys_on_each_rank(kind, sharded,
+                                                          reference):
+    key = f"{worker.SPLIT}/probe/{kind}"
+    whole = int(reference[f"{key}/flops"][0])
+    assert whole > 0
+    assert sharded[f"{key}/flops"].tolist() == [whole // 2] * WORLD
+    assert whole % 2 == 0
+    S = worker.PROBE["seq"]
+    calls = 1 if kind == "train" else 2          # serve: prefill, decode
+    assert reference[f"{key}/kv_len"].tolist() == [[S] * calls]
+    lengths = sharded[f"{key}/kv_len"]
+    assert lengths.shape == (WORLD, calls)
+    assert lengths.size and (lengths == S // 2).all(), lengths
+
+
+def _same_serving(arch, sharded, reference):
     np.testing.assert_array_equal(sharded[f"{arch}/tokens"],
                                   reference[f"{arch}/tokens"])
     for i in range(worker.SERVE["decode"] + 1):
