@@ -14,14 +14,16 @@ imports nothing of JAX or of the JAX package. It
    TFLOP/s and the ratio to the library call: ``moe_gmm`` forward at
    the serving and training shapes and at the wgmma route's tile edges,
    its backward at the training shapes and a grouped ragged one (two
-   runs must give the same bits; a bf16 backward under torch.profiler
-   must launch its two kernels and no copy), ``flash_attention``
+   runs must give the same bits; a backward under torch.profiler must
+   launch its two kernels and no copy; f32 against the plain arithmetic
+   in float64), ``flash_attention``
    forward and backward at the training shape (and at D 128, at the
    dense paths' GQA 16/2 at head dim 128 and MHA 32/32 at 64, and at
    hubert's bidirectional MHA 16/16 at head dim 80) plus
    ragged, windowed, bidirectional, decode and odd-width cases, with a
    check that two backward runs give the same bits, ``rmsnorm``; in
-   bf16 and f32;
+   bf16 and f32 (each call's route asserted, the library calls with TF32
+   off, SDPA's backend named, f32 bounds at the FMA and 3xTF32 rates);
 3. serves full-width granite-moe-1b-a400m in bf16 (random weights from a
    seed) at batch 4, prompt 64, gen 32 with ``moe_impl="kernel"``, counts
    the kernel launches of that run, then checks the result: the same
@@ -154,6 +156,7 @@ Any failure raises and exits non-zero before the last line is printed.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -171,7 +174,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,      # dense bf16 tensor cores
-              torch.float32: 67e12}        # f32 outside the tensor cores
+              torch.float32: 67e12}        # f32 FMAs outside the tensor cores
+# the f32 routes' rate: 3xTF32 takes three TF32 tensor-core products
+# (494.7 TFLOP/s dense) for each f32 product
+TF32X3_FLOPS = 494.7e12 / 3
 # tests/test_kernels.py's tolerances (atol = rtol): moe_gmm, flash
 # attention forward, rmsnorm; attention gradients (f32 looser: the
 # backward sums over a whole sequence in another order)
@@ -483,6 +489,14 @@ def n_sets(set_bytes: float, cap: int = 16) -> int:
     return max(2, min(cap, math.ceil(2 * L2_BYTES / set_bytes)))
 
 
+def tf32_bound(nbytes: float, ops: float, dtype) -> str:
+    """For f32, the bound at the 3xTF32 rate beside the FMA rate's."""
+    if dtype != torch.float32:
+        return ""
+    ms, by = roof(nbytes, ops, TF32X3_FLOPS)
+    return f", at the 3xTF32 rate {ms:.4f} ({by}-bound)"
+
+
 def roof(nbytes: float, ops: float, peak: float):
     """(bound ms, what bounds it): the larger of bytes over the memory
     rate and operations over the peak rate."""
@@ -506,6 +520,13 @@ def close_or_raise(what: str, got, want, tol: float,
     return diff.max().item()
 
 
+def tol_share(got, want, tol: float) -> float:
+    """The largest |got - want| / (tol + tol |want|): the share of the
+    tolerance the worst element takes (at most 1 where it holds)."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (tol + tol * want.abs())).max().item()
+
+
 def scaled_close_or_raise(what: str, got, want, tol: float) -> float:
     """max |got - want| / max |want|, raising unless it is <= tol."""
     got, want = got.float(), want.float()
@@ -518,9 +539,60 @@ def scaled_close_or_raise(what: str, got, want, tol: float) -> float:
     return rel
 
 
+@contextlib.contextmanager
+def library_precision():
+    """Full f32 in the library calls the [kernels] phases time: TF32 off
+    for cuBLAS and for cuDNN (whose default is on), restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[kernels] library calls: torch.backends.cuda.matmul.allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}, "
+        f"torch.backends.cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}"
+        f" (set; were {saved[0]}, {saved[1]}), float32 matmul precision "
+        f"{torch.get_float32_matmul_precision()!r}")
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def route_of(counter: dict, before: dict) -> str:
+    """The one route a kernel call launched, from its module's
+    ``route_launches`` before and after the call."""
+    kinds = [k for k, v in counter.items() if v != before[k]]
+    if len(kinds) != 1:
+        raise AssertionError(f"a call launched on routes {kinds}")
+    return kinds[0]
+
+
+def expect_route(what: str, got: str, want: str) -> None:
+    """A call's route against the wrapper's ``route`` of its shape (f32:
+    the 3xTF32 kernels)."""
+    if got != want:
+        raise AssertionError(f"{what}: launched route {got}, expected "
+                             f"{want}")
+
+
+def gmm_exact(x, w, P):
+    """moe_gmm's plain arithmetic in float64 on the card: the reference of
+    the f32 checks. An f32 sum of the training dw's 2560 unit products
+    drifts from the exact one by more than 1e-4 wherever the result is
+    small, in the plain version's order too
+    (tests/test_torch_tf32_split.py), so f32 holds its 1e-4 against the
+    exact result."""
+    Z, C, D = x.shape
+    return torch.matmul(x.double().view(Z // P, P, C, D),
+                        w.double()).view(Z, C, -1)
+
+
 def kernel_phase(gmm) -> dict:
     log("[kernels] moe_gmm vs its plain version on the card "
-        "(tolerance: |k - p| <= tol + tol*|p|, tol f32 1e-4, bf16 3e-2)")
+        "(tolerance: |k - p| <= tol + tol*|p|, tol f32 1e-4, bf16 3e-2; f32 "
+        "against the plain arithmetic in float64, the f32 plain version's "
+        "own error beside it)")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -532,10 +604,20 @@ def kernel_phase(gmm) -> dict:
                       / math.sqrt(D)).to(dtype))
                     for _ in range(n_sets((Z * C * D + P * D * F) * size))]
             x, w = sets[0]
+            r0 = dict(gmm.route_launches)
             got = gmm.moe_gmm(x, w, P)
+            kind = route_of(gmm.route_launches, r0)
+            expect_route(f"moe_gmm {label} {dtype}", kind,
+                         gmm.route(dtype, C, D, F, True))
             want = gmm.moe_gmm_plain(x, w, P)
             torch.cuda.synchronize()
             tol = TOL[dtype]
+            plain_err = ""
+            if dtype == torch.float32:
+                exact = gmm_exact(x, w, P)
+                plain_err = (f" (plain f32 vs float64 "
+                             f"{(want - exact).abs().max().item():.3e})")
+                want = exact
             err = close_or_raise(f"moe_gmm {label} {dtype}", got, want, tol)
             kern_ms = graph_ms(lambda a, b: gmm.moe_gmm(a, b, P), sets)
             plain_ms = graph_ms(lambda a, b: gmm.moe_gmm_plain(a, b, P), sets)
@@ -546,14 +628,16 @@ def kernel_phase(gmm) -> dict:
                     return torch.matmul(a.view(G, P, C, D), b)
             lib_ms = graph_ms(lib, sets)
             ops = 2.0 * Z * C * D * F
-            bound_ms, bound_by = roof((Z * C * D + P * D * F + Z * C * F)
-                                      * size, ops, PEAK_FLOPS[dtype])
+            nbytes = (Z * C * D + P * D * F + Z * C * F) * size
+            bound_ms, bound_by = roof(nbytes, ops, PEAK_FLOPS[dtype])
             dt = str(dtype).removeprefix("torch.")
             log(f"[kernels] {label:17s} {dt:8s} x({Z},{C},{D}) "
-                f"w({P},{D},{F}): max|err| {err:.3e} (tol {tol}) "
-                f"kernel_ms {kern_ms:.4f} plain_ms {plain_ms:.4f} "
-                f"library_ms {lib_ms:.4f} bound_ms {bound_ms:.4f} "
-                f"({bound_by}-bound) {ops / kern_ms / 1e9:.1f} TFLOP/s, "
+                f"w({P},{D},{F}): route {kind} max|err| {err:.3e} (tol "
+                f"{tol}){plain_err} kernel_ms {kern_ms:.4f} plain_ms "
+                f"{plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms "
+                f"{bound_ms:.4f} ({bound_by}-bound)"
+                f"{tf32_bound(nbytes, ops, dtype)} "
+                f"{ops / kern_ms / 1e9:.1f} TFLOP/s, "
                 f"kernel/library {kern_ms / lib_ms:.2f}")
             results[(label, dtype)] = dict(
                 shape=f"x({Z},{C},{D}) w({P},{D},{F}) {dt}",
@@ -564,14 +648,15 @@ def kernel_phase(gmm) -> dict:
 
 
 def gmm_backward_phase(gmm) -> dict:
-    """moe_gmm's backward (dx, dw: two kernel launches; in bf16 they read
-    x, w and g as stored, in f32 the forward kernel runs on transposed
-    copies) against the plain version's autograd, at the training shapes
-    and a grouped ragged one; two runs must give the same bits, and a bf16
-    backward must launch the two kernels and nothing else."""
+    """moe_gmm's backward (dx, dw: two kernel launches that read x, w and
+    g as stored) against the plain version's autograd, at the training
+    shapes and a grouped ragged one; two runs must give the same bits, and
+    a backward in either dtype must launch the two kernels and nothing
+    else."""
     log("[kernels] moe_gmm backward (dx, dw) vs the plain version's "
-        "autograd (tolerance: tol f32 1e-4, bf16 3e-2, abs + rel); two "
-        "runs must give the same bits")
+        "autograd (tolerance: tol f32 1e-4, bf16 3e-2, abs + rel; f32 "
+        "against the plain arithmetic's autograd in float64, the f32 plain "
+        "version's own error beside it); two runs must give the same bits")
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -580,7 +665,11 @@ def gmm_backward_phase(gmm) -> dict:
             w = (torch.randn((P, D, F), generator=g, device="cuda")
                  / math.sqrt(D)).to(dtype)
             gy = torch.randn((Z, C, F), generator=g, device="cuda").to(dtype)
+            r0 = dict(gmm.route_launches)
             dx, dw = gmm.moe_gmm_bwd(x, w, gy, P)
+            kind = route_of(gmm.route_launches, r0)
+            expect_route(f"moe_gmm bwd {label} {dtype}", kind,
+                         gmm.route(dtype, C, D, F, True, backward=True))
             if not all(torch.equal(a, b) for a, b in
                        zip(gmm.moe_gmm_bwd(x, w, gy, P), (dx, dw))):
                 raise AssertionError(f"moe_gmm bwd {label} {dtype}: two "
@@ -589,6 +678,16 @@ def gmm_backward_phase(gmm) -> dict:
             yr = gmm.moe_gmm_plain(xr, wr, P)
             dxr, dwr = torch.autograd.grad(yr, (xr, wr), gy,
                                            retain_graph=True)
+            plain_err = ""
+            if dtype == torch.float32:
+                xe, we = (t.double().requires_grad_() for t in (x, w))
+                exact = torch.autograd.grad(gmm_exact(xe, we, P), (xe, we),
+                                            gy.double())
+                plain_err = (" (plain f32 vs float64 " + ", ".join(
+                    f"{n} {(a - b).abs().max().item():.3e}" for n, a, b in
+                    zip(("dx", "dw"), (dxr, dwr), exact)) + ")")
+                dxr, dwr = exact
+                del xe, we
             torch.cuda.synchronize()
             tol = TOL[dtype]
             err = max(close_or_raise(f"moe_gmm dx {label} {dtype}", dx, dxr,
@@ -609,9 +708,11 @@ def gmm_backward_phase(gmm) -> dict:
             bound_ms, bound_by = roof(nbytes, ops, PEAK_FLOPS[dtype])
             dt = str(dtype).removeprefix("torch.")
             log(f"[kernels] moe_gmm bwd {label:14s} {dt:8s} x({Z},{C},{D}) "
-                f"w({P},{D},{F}): max|err| {err:.3e} (tol {tol}) kernel_ms "
-                f"{kern_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                f"{lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}-bound) "
+                f"w({P},{D},{F}): route {kind} max|err| {err:.3e} (tol "
+                f"{tol}){plain_err} kernel_ms {kern_ms:.4f} plain_ms "
+                f"{plain_ms:.4f} "
+                f"library_ms {lib_ms:.4f} bound_ms {bound_ms:.4f} "
+                f"({bound_by}-bound){tf32_bound(nbytes, ops, dtype)} "
                 f"{ops / kern_ms / 1e9:.1f} TFLOP/s, kernel/library "
                 f"{kern_ms / lib_ms:.2f}")
             results[(label, dtype)] = dict(
@@ -619,31 +720,33 @@ def gmm_backward_phase(gmm) -> dict:
                 max_abs_err=err, ms=kern_ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
             del x, w, gy, dx, dw, xr, wr, yr, dxr, dwr
-    gmm_backward_copies(gmm)
+    for dtype in (torch.bfloat16, torch.float32):
+        gmm_backward_copies(gmm, dtype)
     return results
 
 
-def gmm_backward_copies(gmm) -> None:
-    """One bf16 backward at the train gate/up shape under torch.profiler:
-    the two moe_gmm kernels and no other kernel (no transposed copy)."""
+def gmm_backward_copies(gmm, dtype) -> None:
+    """One backward at the train gate/up shape under torch.profiler: the
+    two moe_gmm kernels and no other kernel (no transposed copy)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     _, Z, C, D, F, P = GMM_BWD_CASES[0]
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    x, gy = (torch.randn(s, generator=g, device="cuda").bfloat16()
+    x, gy = (torch.randn(s, generator=g, device="cuda").to(dtype)
              for s in ((Z, C, D), (Z, C, F)))
     w = (torch.randn((P, D, F), generator=g, device="cuda")
-         / math.sqrt(D)).bfloat16()
+         / math.sqrt(D)).to(dtype)
     gmm.moe_gmm_bwd(x, w, gy, P)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         gmm.moe_gmm_bwd(x, w, gy, P)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    log(f"[kernels] moe_gmm bwd bf16 x({Z},{C},{D}) under torch.profiler: "
+    dt = str(dtype).removeprefix("torch.")
+    log(f"[kernels] moe_gmm bwd {dt} x({Z},{C},{D}) under torch.profiler: "
         f"{len(names)} device operations: {[n[:60] for n in names]}")
     if len(names) != 2 or not all("moe_gmm" in n for n in names):
-        raise AssertionError("the bf16 moe_gmm backward launched other "
+        raise AssertionError(f"the {dt} moe_gmm backward launched other "
                              f"device work than its two kernels: {names}")
 
 
@@ -656,6 +759,23 @@ def _mask(Sq, Skv, causal, window, off):
     if window is not None:
         m &= kpos > qpos - window
     return m
+
+
+def sdpa_backend(sdpa, args) -> str:
+    """The backend F.scaled_dot_product_attention ran for these inputs,
+    from the names of the kernels one call launches under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sdpa(*args)
+        torch.cuda.synchronize()
+    names = " ".join(e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA).lower()
+    for key, backend in (("cudnn", "cuDNN"), ("fmha_cutlass", "efficient"),
+                         ("flash", "flash")):
+        if key in names:
+            return backend
+    return "math"
 
 
 def flash_phase(fa) -> dict:
@@ -683,8 +803,12 @@ def flash_phase(fa) -> dict:
             do = torch.randn((B, Sq, Hq, D), generator=g,
                              device="cuda").to(dtype)
             args = (causal, scale, window, off)
+            r0 = dict(fa.route_launches)
             out, lse = fa.flash_attention_fwd(q, k, v, *args)
             dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
+            kind = route_of(fa.route_launches, r0)
+            expect_route(f"flash {label} {dtype}", kind,
+                         fa.route(dtype))
             again = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
             if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
                 raise AssertionError(f"flash {label} {dtype}: two backward "
@@ -701,6 +825,9 @@ def flash_phase(fa) -> dict:
             b_err = max(close_or_raise(f"{name} d{n}", a, b,
                                        FLASH_GRAD_TOL[dtype])
                         for n, a, b in zip("qkv", (dq, dk, dv), grads))
+            shares = (tol_share(out, ref, FLASH_TOL[dtype]),
+                      max(tol_share(a, b, FLASH_GRAD_TOL[dtype])
+                          for a, b in zip((dq, dk, dv), grads)))
             # library: SDPA in (B, H, S, D), GQA without repeats
             mask = None if (causal and window is None and off == 0
                             and Sq == Skv) or not causal and window is None \
@@ -713,6 +840,7 @@ def flash_phase(fa) -> dict:
                     scale=scale, enable_gqa=True)
             lsets = [tuple(t.transpose(1, 2).contiguous() for t in st)
                      for st in sets]
+            backend = sdpa_backend(sdpa, lsets[0])
             fwd_ms = graph_ms(lambda a, b, c: fa.flash_attention_fwd(
                 a, b, c, *args), sets)
             fwd_plain = graph_ms(lambda a, b, c: fa.flash_attention_plain(
@@ -732,25 +860,30 @@ def flash_phase(fa) -> dict:
                 * B * Hq
             io = (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D) * size
             f_ops, b_ops = 4.0 * pairs * D, 10.0 * pairs * D
-            f_bound = roof(io + 4 * B * Hq * Sq, f_ops, PEAK_FLOPS[dtype])
-            b_bound = roof(2 * io + B * Sq * Hq * D * size + 4 * B * Hq * Sq,
-                           b_ops, PEAK_FLOPS[dtype])
+            f_bytes = io + 4 * B * Hq * Sq
+            b_bytes = 2 * io + B * Sq * Hq * D * size + 4 * B * Hq * Sq
+            f_bound = roof(f_bytes, f_ops, PEAK_FLOPS[dtype])
+            b_bound = roof(b_bytes, b_ops, PEAK_FLOPS[dtype])
             dt = str(dtype).removeprefix("torch.")
             shape = (f"q({B},{Sq},{Hq},{D}) kv({B},{Skv},{Hkv},{D}) {dt} "
                      f"causal={causal} window={window} kv_offset={off}")
             # achieved rate: the operations the bound counts (the visible
             # pairs' products) over the kernel's time
-            log(f"[kernels] flash fwd {label:17s} {shape}: max|err| "
-                f"{f_err:.3e} kernel_ms {fwd_ms:.4f} plain_ms "
-                f"{fwd_plain:.4f} library_ms {fwd_lib:.4f} bound_ms "
-                f"{f_bound[0]:.4f} ({f_bound[1]}-bound) "
+            log(f"[kernels] flash fwd {label:17s} {shape}: route {kind} "
+                f"max|err| {f_err:.3e} ({shares[0]:.3f} of the tolerance) "
+                f"kernel_ms {fwd_ms:.4f} plain_ms "
+                f"{fwd_plain:.4f} library_ms {fwd_lib:.4f} (SDPA "
+                f"{backend}) bound_ms {f_bound[0]:.4f} ({f_bound[1]}-bound)"
+                f"{tf32_bound(f_bytes, f_ops, dtype)} "
                 f"{f_ops / fwd_ms / 1e9:.1f} TFLOP/s, kernel/library "
                 f"{fwd_ms / fwd_lib:.2f}")
-            log(f"[kernels] flash bwd {label:17s} {shape}: max|err| "
-                f"{b_err:.3e} kernel_ms {bwd_ms:.4f} plain_ms "
+            log(f"[kernels] flash bwd {label:17s} {shape}: route {kind} "
+                f"max|err| {b_err:.3e} ({shares[1]:.3f} of the tolerance) "
+                f"kernel_ms {bwd_ms:.4f} plain_ms "
                 f"{bwd_plain:.4f} library_ms {bwd_lib:.4f} (library fwd+bwd "
                 f"{fwd_lib + bwd_lib:.4f}) bound_ms {b_bound[0]:.4f} "
-                f"({b_bound[1]}-bound) {b_ops / bwd_ms / 1e9:.1f} TFLOP/s, "
+                f"({b_bound[1]}-bound){tf32_bound(b_bytes, b_ops, dtype)} "
+                f"{b_ops / bwd_ms / 1e9:.1f} TFLOP/s, "
                 f"kernel/library {bwd_ms / bwd_lib:.2f}")
             results[("fwd", label, dtype)] = dict(
                 shape=shape, max_abs_err=f_err, ms=fwd_ms, plain_ms=fwd_plain,
@@ -1292,9 +1425,10 @@ def ssd_phase(ssd) -> dict:
                 line += "".join(
                     f"; {k} kernel_ms {r['ms']:.4f} plain_ms "
                     f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
-                    f"({r['bound_by']}-bound), "
+                    f"({r['bound_by']}-bound){tf32_bound(nb, ops, dtype)}, "
                     f"{ops / (r['ms'] * 1e-3) / 1e12:.1f} TFLOP/s"
-                    for (k, r), ops in zip(res.items(), (fo, bo)))
+                    for (k, r), nb, ops in zip(res.items(), (fb, bb),
+                                               (fo, bo)))
                 line += (f"; outside the bound: states {saved_mb:.1f} MB "
                          f"written by the forward, dstates {saved_mb:.1f} "
                          f"MB written and read by the backward "
@@ -1458,6 +1592,27 @@ def serve_phase(gmm) -> int:
     return launches
 
 
+@contextlib.contextmanager
+def f32_routes(tag: str):
+    """Around a float32 phase (``tag`` heads its log line): its flash and
+    moe_gmm launches, logged by route, must all have taken the 3xTF32
+    kernels."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+
+    def snap():
+        return {f"{name} {k}": v for name, mod in (("flash", fa),
+                                                   ("moe_gmm", gmm))
+                for k, v in mod.route_launches.items()}
+    before = snap()
+    yield
+    got = {k: v - before[k] for k, v in snap().items() if v != before[k]}
+    log(f"{tag}: flash and moe_gmm launches by route: {got}")
+    if not got or any(not k.endswith(" tf32x3") for k in got):
+        raise AssertionError(f"{tag}: f32 launches off the 3xTF32 route: "
+                             f"{got}")
+
+
 def reduced_phase() -> None:
     """Reduced float32 granite-moe: kernel route on the card against the
     plain route on the host, same weights, same prompts."""
@@ -1471,10 +1626,11 @@ def reduced_phase() -> None:
     card = copy.deepcopy(host).to("cuda")
     prompts = make_prompts(cfg, 2, 16, SEED)
     cfg_k = dataclasses.replace(cfg, moe_impl="kernel")
-    lk, _ = model_lib.prefill(card, cfg_k, prompts.cuda(), max_len=24)
+    with f32_routes("[reduced]"):
+        lk, _ = model_lib.prefill(card, cfg_k, prompts.cuda(), max_len=24)
+        tk, _ = generate(cfg_k, card, prompts, 8, "cuda")
     lh, _ = model_lib.prefill(host, cfg, prompts, max_len=24)
     err = (lk.cpu() - lh).abs().max().item()
-    tk, _ = generate(cfg_k, card, prompts, 8, "cuda")
     th, _ = generate(cfg, host, prompts, 8, "cpu")
     log(f"[reduced] {cfg.name} f32: card kernel route vs host einsum "
         f"route: prefill logits max|diff| {err:.3e} (tol 1e-3); greedy "
@@ -1839,11 +1995,13 @@ def train_check_reduced(arch: str = ARCH) -> None:
         state = adamw_init(dict(params.named_parameters()), opt_cfg,
                            period=len(cfg.pattern))
         out = []
-        for s in range(5):
-            params, state, _, loss, _ = step_fn(
-                params, state, None, train_mod.to_device(pipe.batch_at(s),
-                                                         dev))
-            out.append(float(loss))
+        with (f32_routes(f"[check] reduced {cfg.name}") if dev == "cuda"
+              else contextlib.nullcontext()):
+            for s in range(5):
+                params, state, _, loss, _ = step_fn(
+                    params, state, None,
+                    train_mod.to_device(pipe.batch_at(s), dev))
+                out.append(float(loss))
         losses[dev] = out
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
                                                   losses["cpu"]))
@@ -2330,6 +2488,13 @@ def kv_repeat_check(arch: str) -> None:
 
 
 def jamba_phase(gmm, fa, rms) -> dict:
+    """:func:`_jamba_phase`, whose flash and moe_gmm launches must all take
+    the 3xTF32 kernels."""
+    with f32_routes("[jamba]"):
+        return _jamba_phase(gmm, fa, rms)
+
+
+def _jamba_phase(gmm, fa, rms) -> dict:
     """Reduced jamba-1.5-large (f32; 2 periods of 8 slots: attention, then
     seven Mamba2 mixers, MoE on the odd slots) with attn_impl, ssm_impl
     and moe_impl "kernel" under nested remat: flash, ssd_scan and moe_gmm
@@ -3203,13 +3368,14 @@ def main() -> int:
     preds = dryrun_phase()
     log(f"[time] dry run (host) done at {time.perf_counter()-t_all:.1f} s")
 
-    gmm_res = kernel_phase(gmm)
-    gmm_bwd_res = gmm_backward_phase(gmm)
-    flash_res = flash_phase(fa)
-    cp_phase(fa)
-    log(f"[time] cp phase done at {time.perf_counter()-t_all:.1f} s")
-    rms_res = rmsnorm_phase(rms)
-    ssd_res = ssd_phase(ssd)
+    with library_precision():
+        gmm_res = kernel_phase(gmm)
+        gmm_bwd_res = gmm_backward_phase(gmm)
+        flash_res = flash_phase(fa)
+        cp_phase(fa)
+        log(f"[time] cp phase done at {time.perf_counter()-t_all:.1f} s")
+        rms_res = rmsnorm_phase(rms)
+        ssd_res = ssd_phase(ssd)
     log(f"[time] kernel phase done at {time.perf_counter()-t_all:.1f} s")
 
     _reset(gmm, fa, rms)

@@ -62,10 +62,38 @@
 //    them element by element into the same layout, through the same
 //    kernels.
 //
-// f32 (the reduced checks and f32 cases; on no full-width path; not
-// redesigned): one block of 4 warps per 64-row q tile with FMAs on register
-// tiles (no TF32), the f32 accumulators in shared memory; the backward is
-// the same delta pre-pass, a dK/dV kernel and a dQ kernel.
+// f32 (every reduced config, the [jamba] run, and any f32 model): 3xTF32
+// on wgmma (wgmma_tf32.cuh). Each f32 operand is split into big =
+// tf32(x) and small = tf32(x - big), and a product becomes small big +
+// big small + big big in one f32 accumulator in registers, which holds
+// f32's tolerances (a TF32 product alone does not). Its cap is a third of
+// the TF32 rate, 494.7 / 3 = 165 TFLOP/s, against 67 for CUDA-core FMAs.
+//  * tf32 operands in shared memory must be K-major (wgmma transposes
+//    16-bit types only, TMA no 4-byte ones), and each needs a big and a
+//    small tile, four times a bf16 tile. So a block is two warpgroups of
+//    other roles than the bf16 kernels': the producer loads each tile
+//    into registers (16-byte loads where rows are whole 16-byte chunks
+//    and the pointers aligned, else element by element; the next tile
+//    before it waits for a free stage), then
+//    splits it and stores both halves swizzled, transposing the operands
+//    a product reads MN-major (V in P V, K in dS K, Q and dO in the dK and
+//    dV products) and using the same registers for a tile read both ways
+//    (K in the dQ kernel; Q and dO in the dK/dV kernel). The consumer
+//    warpgroup owns 64 rows and runs the products. P and dS feed their
+//    products as register A fragments, split in registers; the B tile's
+//    depth is permuted (perm8) to match the accumulator's columns.
+//  * tiles (head dims padded to 32, 64, 96 or 128): forward 64 q rows x
+//    64 keys (32 above DP 64), two stages; dQ 64 q rows x 64 keys at DP
+//    32, 32 keys above, two stages up to DP 64 and one above; dK/dV 64
+//    keys x 64 q rows at DP 32, 32 at DP 64 and 96, 16 at 128 (a
+//    transposed tile's depth padded to one 32-float panel), two stages up
+//    to DP 64 and one above. Budget at DP 128, the largest: forward 64 KB
+//    of Q + 2 x 64 KB of K and V^T = 193 KB; dQ 128 KB of Q and dO + 96
+//    KB of K, V and K^T = 225 KB; dK/dV 128 KB of K and V + 97 KB of Q,
+//    dO, Q^T, dO^T, lse and delta = 226 KB (of 227).
+//  * masks, ragged S and D, rows that see no key, the GQA sum in
+//    registers and no atomics: as in the bf16 kernels; the backward is the
+//    same delta pre-pass, a dK/dV kernel and a dQ kernel.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -77,13 +105,14 @@
 
 #include "sm90_async.cuh"
 #include "wgmma_bf16.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
 using namespace sm90;
 
 using bf16 = __nv_bfloat16;
-constexpr int kThreads = 128;              // f32 kernels: 4 warps
+constexpr int kThreads = 128;              // the delta pre-pass: 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -91,14 +120,6 @@ constexpr float kLn2 = 0.6931471805599453f;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned dst =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 16 : 0;    // 0: fill the 16 bytes with 0
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes));
-}
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
                                           bool valid) {
   const unsigned dst =
@@ -107,15 +128,10 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(gmem), "r"(src_bytes));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
-
-constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
 
 struct Shape {
   int B, Sq, Skv, Hq, Hkv, D;
@@ -152,218 +168,6 @@ __device__ __forceinline__ void q_band(const Shape& p, int k0, int k1,
                     : p.Sq - 1;
 }
 
-// ---------------------------------------------------------------------
-// f32: FMA tiles, accumulators in shared memory
-// ---------------------------------------------------------------------
-
-// Tile shapes and shared-memory layout at padded head dim DP. Row strides
-// are padded so rows stay 16-byte aligned for cp.async.
-template <int DP>
-struct Tiles {
-  static constexpr int BQ = 64;              // q rows per tile
-  static constexpr int BKV = 32;             // kv rows per tile
-  static constexpr int LDT = DP + 4;         // Q, K, V, dO tiles
-  static constexpr int LDS = BKV + 4;        // score tiles
-  static constexpr int LDP = BKV + 4;        // P, dS
-  static constexpr int LDO = DP + 4;         // accumulators
-  static constexpr size_t kQ = align128(sizeof(float) * BQ * LDT);
-  static constexpr size_t kKV = align128(sizeof(float) * BKV * LDT);
-  static constexpr size_t kS = align128(sizeof(float) * BQ * LDS);
-  static constexpr size_t kP = align128(sizeof(float) * BQ * LDP);
-  static constexpr size_t kOq = align128(sizeof(float) * BQ * LDO);
-  static constexpr size_t kOkv = align128(sizeof(float) * BKV * LDO);
-  static constexpr size_t kRow = align128(sizeof(float) * BQ);
-  // forward: Q, K, V, S, P, O, m, l, alpha
-  static constexpr size_t fwd_bytes = kQ + 2 * kKV + kS + kP + kOq + 3 * kRow;
-  // kernel A (dK, dV): Q, dO, K, V, S, dP, P, dS, dK, dV, lse, delta
-  static constexpr size_t dkv_bytes =
-      2 * kQ + 2 * kKV + 2 * kS + 2 * kP + 2 * kOkv + 2 * kRow;
-  // kernel B (dQ): Q, dO, K, V, S, dP, dS, dQ, lse, delta
-  static constexpr size_t dq_bytes =
-      2 * kQ + 2 * kKV + 2 * kS + kP + kOq + 2 * kRow;
-};
-
-// C (M x N, shared) (+)= op(A) op(B) over depth K, where
-//   op(A)(r, k) = TA ? A[k * lda + r] : A[r * lda + k]
-//   op(B)(k, c) = TB ? B[c * ldb + k] : B[k * ldb + c]
-// each thread a register tile of (M/8) x (N/16) outputs.
-template <int M, int N, bool TA, bool TB>
-__device__ __forceinline__ void mm(float* C, int ldc, const float* A,
-                                   int lda, const float* B, int ldb, int K,
-                                   bool accumulate) {
-  constexpr int TX = 16, TY = kThreads / TX;
-  constexpr int RM = M / TY, CN = N / TX;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  float acc[RM][CN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j)
-      acc[i][j] = accumulate ? C[(ty + TY * i) * ldc + tx + TX * j] : 0.f;
-  for (int k = 0; k < K; ++k) {
-    float a[RM], b[CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = ty + TY * i;
-      a[i] = TA ? A[k * lda + r] : A[r * lda + k];
-    }
-#pragma unroll
-    for (int j = 0; j < CN; ++j) {
-      const int c = tx + TX * j;
-      b[j] = TB ? B[c * ldb + k] : B[k * ldb + c];
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j)
-      C[(ty + TY * i) * ldc + tx + TX * j] = acc[i][j];
-}
-
-// Stage rows [row0, row0 + ROWS) x columns [0, DP) of a (rows, stride)
-// matrix; rows >= nrows and columns >= D read 0. vec: 16-byte cp.async
-// copies (D a multiple of 4, pointers 16-byte aligned), else element
-// loads. The caller commits, waits and synchronises.
-template <int ROWS, int DP>
-__device__ __forceinline__ void load_tile(float* s, int lds, const float* g,
-                                          long stride, int row0, int nrows,
-                                          int D, bool vec) {
-  if (vec) {
-    for (int i = threadIdx.x; i < ROWS * (DP / 4); i += kThreads) {
-      const int r = i / (DP / 4), c = (i % (DP / 4)) * 4;
-      const bool ok = row0 + r < nrows && c < D;
-      cp_async16(s + r * lds + c, ok ? g + (row0 + r) * stride + c : g, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < ROWS * DP; i += kThreads) {
-      const int r = i / DP, c = i % DP;
-      const bool ok = row0 + r < nrows && c < D;
-      s[r * lds + c] = ok ? g[(row0 + r) * stride + c] : 0.f;
-    }
-  }
-}
-
-// Store rows [row0, row0 + ROWS) of an f32 tile times `mul`, masked.
-template <int ROWS>
-__device__ __forceinline__ void store_tile(float* g, long stride,
-                                           const float* s, int lds, int row0,
-                                           int nrows, int D, float mul) {
-  for (int i = threadIdx.x; i < ROWS * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    if (row0 + r < nrows) g[(row0 + r) * stride + c] = s[r * lds + c] * mul;
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ out,
-              float* __restrict__ lse, Shape p) {
-  using L = Tiles<DP>;
-  constexpr int BQ = L::BQ, BKV = L::BKV;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* ptr = smem;
-  float* Qs = reinterpret_cast<float*>(ptr);  ptr += L::kQ;
-  float* Ks = reinterpret_cast<float*>(ptr);  ptr += L::kKV;
-  float* Vs = reinterpret_cast<float*>(ptr);  ptr += L::kKV;
-  float* Ss = reinterpret_cast<float*>(ptr);  ptr += L::kS;
-  float* Ps = reinterpret_cast<float*>(ptr);  ptr += L::kP;
-  float* Os = reinterpret_cast<float*>(ptr);  ptr += L::kOq;
-  float* m_s = reinterpret_cast<float*>(ptr);  ptr += L::kRow;
-  float* l_s = reinterpret_cast<float*>(ptr);  ptr += L::kRow;
-  float* a_s = reinterpret_cast<float*>(ptr);
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.Hq / p.Hkv);
-  const long qs = static_cast<long>(p.Hq) * p.D;    // row strides
-  const long ks = static_cast<long>(p.Hkv) * p.D;
-  const float* qb = q + (static_cast<long>(b) * p.Sq * p.Hq + h) * p.D;
-  const float* kb = k + (static_cast<long>(b) * p.Skv * p.Hkv + hk) * p.D;
-  const float* vb = v + (static_cast<long>(b) * p.Skv * p.Hkv + hk) * p.D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  load_tile<BQ, DP>(Qs, L::LDT, qb, qs, q0, p.Sq, p.D, p.vec);
-  cp_async_commit();
-  for (int i = threadIdx.x; i < BQ * L::LDO; i += kThreads) Os[i] = 0.f;
-  for (int i = threadIdx.x; i < BQ; i += kThreads) {
-    m_s[i] = -INFINITY;
-    l_s[i] = 0.f;
-  }
-  int lo, hi;
-  kv_band(p, q0, min(q0 + BQ, p.Sq) - 1, lo, hi);
-  for (int t0 = (lo / BKV) * BKV; lo <= hi && t0 <= hi; t0 += BKV) {
-    load_tile<BKV, DP>(Ks, L::LDT, kb, ks, t0, p.Skv, p.D, p.vec);
-    cp_async_commit();
-    load_tile<BKV, DP>(Vs, L::LDT, vb, ks, t0, p.Skv, p.D, p.vec);
-    cp_async_commit();
-    cp_async_wait<1>();                    // Q and K have landed
-    __syncthreads();
-    mm<BQ, BKV, false, true>(Ss, L::LDS, Qs, L::LDT, Ks, L::LDT, DP, false);
-    __syncthreads();
-    // online softmax, one warp per row
-    for (int r = warp; r < BQ; r += kWarps) {
-      float s[BKV / 32];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < BKV / 32; ++j) {
-        const int c = lane + 32 * j;
-        s[j] = visible(p, q0 + r, t0 + c) ? Ss[r * L::LDS + c] * p.scale
-                                          : -INFINITY;
-        mx = fmaxf(mx, s[j]);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BKV / 32; ++j) {
-        const float e = expf(s[j] - m_use);          // exp(-inf) = 0
-        Ps[r * L::LDP + lane + 32 * j] = e;
-        sum += e;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_use);
-        a_s[r] = alpha;
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < BQ * DP; i += kThreads) {
-      const int r = i / DP, c = i % DP;
-      Os[r * L::LDO + c] *= a_s[r];
-    }
-    cp_async_wait<0>();                    // V has landed
-    __syncthreads();
-    mm<BQ, DP, false, false>(Os, L::LDO, Ps, L::LDP, Vs, L::LDT, BKV, true);
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  float* ob = out + (static_cast<long>(b) * p.Sq * p.Hq + h) * p.D;
-  for (int i = threadIdx.x; i < BQ * p.D; i += kThreads) {
-    const int r = i / p.D, c = i % p.D;
-    if (q0 + r < p.Sq) {
-      const float l = l_s[r];
-      ob[(q0 + r) * qs + c] = l > 0.f ? Os[r * L::LDO + c] / l : 0.f;
-    }
-  }
-  float* lb = lse + (static_cast<long>(b) * p.Hq + h) * p.Sq;
-  for (int r = threadIdx.x; r < BQ; r += kThreads)
-    if (q0 + r < p.Sq)
-      lb[q0 + r] = l_s[r] > 0.f ? m_s[r] + logf(l_s[r]) : -INFINITY;
-}
-
 // delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d], one warp per row
 // (both dtypes)
 template <typename T>
@@ -385,160 +189,6 @@ flash_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
     const long b = row / (static_cast<long>(p.Hq) * p.Sq);
     delta[(b * p.Hq + h) * p.Sq + i] = acc;
   }
-}
-
-// P = exp(S * scale - lse) on visible entries (f32 into S) and
-// dS = P * (dP - delta) into dS; P also into Pt when given.
-template <int BQ, int BKV, int LDS, int LDP>
-__device__ __forceinline__ void probs_and_dscores(
-    const Shape& p, int q0, int k0, float* Ss, const float* dPs,
-    const float* lse_s, const float* delta_s, float* Pt, float* dSt) {
-  for (int i = threadIdx.x; i < BQ * BKV; i += kThreads) {
-    const int r = i / BKV, c = i % BKV;
-    const float lr = lse_s[r];
-    const float pr = (lr != -INFINITY && q0 + r < p.Sq &&
-                      visible(p, q0 + r, k0 + c))
-                         ? expf(Ss[r * LDS + c] * p.scale - lr)
-                         : 0.f;
-    if (Pt != nullptr) Pt[r * LDP + c] = pr;
-    dSt[r * LDP + c] = pr * (dPs[r * LDS + c] - delta_s[r]);
-  }
-}
-
-template <int BQ>
-__device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
-                                          const float* lse,
-                                          const float* delta, int q0,
-                                          int Sq) {
-  for (int r = threadIdx.x; r < BQ; r += kThreads) {
-    const bool ok = q0 + r < Sq;
-    lse_s[r] = ok ? lse[q0 + r] : -INFINITY;
-    delta_s[r] = ok ? delta[q0 + r] : 0.f;
-  }
-}
-
-// Kernel A: dK, dV of one (kv tile, kv head, batch)
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dk, float* __restrict__ dv, Shape p) {
-  using L = Tiles<DP>;
-  constexpr int BQ = L::BQ, BKV = L::BKV;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* ptr = smem;
-  float* Qs = reinterpret_cast<float*>(ptr);  ptr += L::kQ;
-  float* dOs = reinterpret_cast<float*>(ptr);  ptr += L::kQ;
-  float* Ks = reinterpret_cast<float*>(ptr);  ptr += L::kKV;
-  float* Vs = reinterpret_cast<float*>(ptr);  ptr += L::kKV;
-  float* Ss = reinterpret_cast<float*>(ptr);  ptr += L::kS;
-  float* dPs = reinterpret_cast<float*>(ptr);  ptr += L::kS;
-  float* Ps = reinterpret_cast<float*>(ptr);  ptr += L::kP;
-  float* dSs = reinterpret_cast<float*>(ptr);  ptr += L::kP;
-  float* dKs = reinterpret_cast<float*>(ptr);  ptr += L::kOkv;
-  float* dVs = reinterpret_cast<float*>(ptr);  ptr += L::kOkv;
-  float* lse_s = reinterpret_cast<float*>(ptr);  ptr += L::kRow;
-  float* delta_s = reinterpret_cast<float*>(ptr);
-
-  const int k0 = blockIdx.x * BKV, hk = blockIdx.y, b = blockIdx.z;
-  const int group = p.Hq / p.Hkv;
-  const long qs = static_cast<long>(p.Hq) * p.D;
-  const long ks = static_cast<long>(p.Hkv) * p.D;
-  const long kvoff = (static_cast<long>(b) * p.Skv * p.Hkv + hk) * p.D;
-  load_tile<BKV, DP>(Ks, L::LDT, k + kvoff, ks, k0, p.Skv, p.D, p.vec);
-  load_tile<BKV, DP>(Vs, L::LDT, v + kvoff, ks, k0, p.Skv, p.D, p.vec);
-  cp_async_commit();
-  for (int i = threadIdx.x; i < BKV * L::LDO; i += kThreads) {
-    dKs[i] = 0.f;
-    dVs[i] = 0.f;
-  }
-  int lo, hi;
-  q_band(p, k0, min(k0 + BKV, p.Skv) - 1, lo, hi);
-  for (int h = hk * group; h < (hk + 1) * group; ++h) {
-    const long qoff = (static_cast<long>(b) * p.Sq * p.Hq + h) * p.D;
-    const long roff = (static_cast<long>(b) * p.Hq + h) * p.Sq;
-    for (int q0 = (lo / BQ) * BQ; lo <= hi && q0 <= hi; q0 += BQ) {
-      load_tile<BQ, DP>(Qs, L::LDT, q + qoff, qs, q0, p.Sq, p.D, p.vec);
-      load_tile<BQ, DP>(dOs, L::LDT, dout + qoff, qs, q0, p.Sq, p.D, p.vec);
-      cp_async_commit();
-      load_rows<BQ>(lse_s, delta_s, lse + roff, delta + roff, q0, p.Sq);
-      cp_async_wait<0>();
-      __syncthreads();
-      mm<BQ, BKV, false, true>(Ss, L::LDS, Qs, L::LDT, Ks, L::LDT, DP, false);
-      mm<BQ, BKV, false, true>(dPs, L::LDS, dOs, L::LDT, Vs, L::LDT, DP,
-                               false);
-      __syncthreads();
-      probs_and_dscores<BQ, BKV, L::LDS, L::LDP>(p, q0, k0, Ss, dPs, lse_s,
-                                                 delta_s, Ps, dSs);
-      __syncthreads();
-      mm<BKV, DP, true, false>(dVs, L::LDO, Ps, L::LDP, dOs, L::LDT, BQ,
-                               true);
-      mm<BKV, DP, true, false>(dKs, L::LDO, dSs, L::LDP, Qs, L::LDT, BQ,
-                               true);
-      __syncthreads();
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  store_tile<BKV>(dk + kvoff, ks, dKs, L::LDO, k0, p.Skv, p.D, p.scale);
-  store_tile<BKV>(dv + kvoff, ks, dVs, L::LDO, k0, p.Skv, p.D, 1.f);
-}
-
-// Kernel B: dQ of one (q tile, q head, batch)
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             float* __restrict__ dq, Shape p) {
-  using L = Tiles<DP>;
-  constexpr int BQ = L::BQ, BKV = L::BKV;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* ptr = smem;
-  float* Qs = reinterpret_cast<float*>(ptr);  ptr += L::kQ;
-  float* dOs = reinterpret_cast<float*>(ptr);  ptr += L::kQ;
-  float* Ks = reinterpret_cast<float*>(ptr);  ptr += L::kKV;
-  float* Vs = reinterpret_cast<float*>(ptr);  ptr += L::kKV;
-  float* Ss = reinterpret_cast<float*>(ptr);  ptr += L::kS;
-  float* dPs = reinterpret_cast<float*>(ptr);  ptr += L::kS;
-  float* dSs = reinterpret_cast<float*>(ptr);  ptr += L::kP;
-  float* dQs = reinterpret_cast<float*>(ptr);  ptr += L::kOq;
-  float* lse_s = reinterpret_cast<float*>(ptr);  ptr += L::kRow;
-  float* delta_s = reinterpret_cast<float*>(ptr);
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.Hq / p.Hkv);
-  const long qs = static_cast<long>(p.Hq) * p.D;
-  const long ks = static_cast<long>(p.Hkv) * p.D;
-  const long qoff = (static_cast<long>(b) * p.Sq * p.Hq + h) * p.D;
-  const long kvoff = (static_cast<long>(b) * p.Skv * p.Hkv + hk) * p.D;
-  const long roff = (static_cast<long>(b) * p.Hq + h) * p.Sq;
-  load_tile<BQ, DP>(Qs, L::LDT, q + qoff, qs, q0, p.Sq, p.D, p.vec);
-  load_tile<BQ, DP>(dOs, L::LDT, dout + qoff, qs, q0, p.Sq, p.D, p.vec);
-  cp_async_commit();
-  load_rows<BQ>(lse_s, delta_s, lse + roff, delta + roff, q0, p.Sq);
-  for (int i = threadIdx.x; i < BQ * L::LDO; i += kThreads) dQs[i] = 0.f;
-  int lo, hi;
-  kv_band(p, q0, min(q0 + BQ, p.Sq) - 1, lo, hi);
-  for (int t0 = (lo / BKV) * BKV; lo <= hi && t0 <= hi; t0 += BKV) {
-    load_tile<BKV, DP>(Ks, L::LDT, k + kvoff, ks, t0, p.Skv, p.D, p.vec);
-    load_tile<BKV, DP>(Vs, L::LDT, v + kvoff, ks, t0, p.Skv, p.D, p.vec);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    mm<BQ, BKV, false, true>(Ss, L::LDS, Qs, L::LDT, Ks, L::LDT, DP, false);
-    mm<BQ, BKV, false, true>(dPs, L::LDS, dOs, L::LDT, Vs, L::LDT, DP, false);
-    __syncthreads();
-    probs_and_dscores<BQ, BKV, L::LDS, L::LDP>(p, q0, t0, Ss, dPs, lse_s,
-                                               delta_s, nullptr, dSs);
-    __syncthreads();
-    mm<BQ, DP, false, false>(dQs, L::LDO, dSs, L::LDP, Ks, L::LDT, BKV, true);
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  store_tile<BQ>(dq + qoff, qs, dQs, L::LDO, q0, p.Sq, p.D, p.scale);
 }
 
 // ---------------------------------------------------------------------
@@ -1215,6 +865,591 @@ flash_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
+// f32: 3xTF32 on wgmma (wgmma_tf32.cuh). A block is two warpgroups: the
+// consumer (warpgroup 0) runs the products with its accumulators in
+// registers; the producer (warpgroup 1) loads tiles into registers,
+// splits them into big and small halves and stores them K-major (and
+// transposed where a product reads them MN-major) into a ring of stages,
+// signalled by mbarriers. It loads the next tile before it waits for a
+// free stage, so the loads overlap the consumer's products.
+// ---------------------------------------------------------------------
+namespace t3 = wgmma::tf32;
+constexpr int kT3Threads = 256;
+
+// depth K padded to whole 128-byte panels (32 floats)
+constexpr int panel_width(int k) { return (k + 31) / 32 * 32; }
+
+// head dims up to 128 in tiles of 32, 64, 96 or 128 columns
+constexpr int t3_dp(int D) { return D <= 32 ? 32 : D <= 64 ? 64 : D <= 96 ? 96 : 128; }
+
+// 4 floats of row `row` (< nrows), columns c .. c + 3 (< D) of a (rows,
+// stride) matrix, 0 out of range: one 16-byte load where rows are whole
+// 16-byte chunks and the pointers aligned (vec), else element by element
+__device__ __forceinline__ float4 ld4(const float* g, long stride, int row,
+                                      int nrows, int c, int D, bool vec) {
+  if (row >= nrows || c >= D) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* r = g + row * stride + c;
+  if (vec) return __ldg(reinterpret_cast<const float4*>(r));
+  return make_float4(r[0], c + 1 < D ? r[1] : 0.f, c + 2 < D ? r[2] : 0.f,
+                     c + 3 < D ? r[3] : 0.f);
+}
+
+// Store a thread's two rows of an m64nDP accumulator times mul[half]:
+// rows row0 + f.row (+ 8) of a (rows, stride) f32 matrix, columns < D,
+// rows < nrows; pairs as float2 where vec.
+template <int R>
+__device__ __forceinline__ void store_frag_f32(float* g, long stride,
+                                               const float (&d)[R],
+                                               const Frag& f, int row0,
+                                               int nrows, int D,
+                                               const float (&mul)[2],
+                                               bool vec) {
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = row0 + f.row + 8 * hf;
+    if (row >= nrows) continue;
+    float* gr = g + row * stride;
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j) {
+      const int c = f.col + 8 * j;
+      const float x = d[4 * j + 2 * hf] * mul[hf];
+      const float y = d[4 * j + 2 * hf + 1] * mul[hf];
+      if (vec) {
+        if (c < D) *reinterpret_cast<float2*>(gr + c) = make_float2(x, y);
+      } else {
+        if (c < D) gr[c] = x;
+        if (c + 1 < D) gr[c + 1] = y;
+      }
+    }
+  }
+}
+
+template <int DP>
+struct T3FwdCfg {
+  static constexpr int BQ = 64, BKV = DP <= 64 ? 64 : 32, kStages = 2;
+  static constexpr int kQ = BQ * DP * 4;                // a half of Q
+  static constexpr int kK = BKV * DP * 4;               // a half of K
+  static constexpr int kV = DP * panel_width(BKV) * 4;  // a half of V^T
+  static constexpr int kStage = 2 * kK + 2 * kV;
+  using Ring = t3::Ring<kStages, 4>;
+  // Q, the stages, the barriers, the slack for 1024-byte alignment
+  static constexpr size_t bytes =
+      1024 + 2 * kQ + kStages * kStage + sizeof(Ring);
+};
+
+// Forward of one (64-row q tile, q head, batch): S = Q K^T and O += P V,
+// P from registers; V^T is stored with its keys permuted by perm8.
+template <int DP>
+__global__ void __launch_bounds__(kT3Threads, 1)
+flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ out,
+               float* __restrict__ lse, Shape p) {
+  using C = T3FwdCfg<DP>;
+  constexpr int BQ = C::BQ, BKV = C::BKV, RS = BKV / 2, RO = DP / 2;
+  constexpr int kStages = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qt = align1024(smem_raw);      // big, then small
+  unsigned char* KV = Qt + 2 * C::kQ;           // stage: K big, small, V^T
+  typename C::Ring& ring =
+      *reinterpret_cast<typename C::Ring*>(KV + kStages * C::kStage);
+  ring.init();
+
+  int qt, h, b;
+  block_coords(p.Hq, p.B, (p.Sq + BQ - 1) / BQ, p.causal, qt, h, b);
+  const int q0 = qt * BQ, hk = h / (p.Hq / p.Hkv);
+  const long qs = static_cast<long>(p.Hq) * p.D;
+  const long ks = static_cast<long>(p.Hkv) * p.D;
+  int lo, hi;
+  kv_band(p, q0, min(q0 + BQ, p.Sq) - 1, lo, hi);
+  const int t_first = lo / BKV * BKV;
+  const int ntiles = lo <= hi ? (hi - t_first) / BKV + 1 : 0;
+
+  if (threadIdx.x >= 128) {                // the producer warpgroup
+    using WQ = t3::Walk<BQ, DP, 128>;
+    using WK = t3::Walk<BKV, DP, 128>;
+    const float* qb = q + (static_cast<long>(b) * p.Sq * p.Hq + h) * p.D;
+    const float* kb = k + (static_cast<long>(b) * p.Skv * p.Hkv + hk) * p.D;
+    const float* vb = v + (static_cast<long>(b) * p.Skv * p.Hkv + hk) * p.D;
+#pragma unroll
+    for (int j = 0; j < WQ::kIters; ++j) {
+      int r, c;
+      WQ::at(j, r, c);
+      t3::store_plain<BQ>(Qt, Qt + C::kQ, r, c,
+                          ld4(qb, qs, q0 + r, p.Sq, c, p.D, p.vec));
+    }
+    ring.filled(&ring.once);
+    float4 kr[WK::kIters], vr[WK::kIters];
+    for (int it = 0; it < ntiles; ++it) {
+      const int t0 = t_first + it * BKV;
+#pragma unroll
+      for (int j = 0; j < WK::kIters; ++j) {
+        int r, c;
+        WK::at(j, r, c);
+        kr[j] = ld4(kb, ks, t0 + r, p.Skv, c, p.D, p.vec);
+        vr[j] = ld4(vb, ks, t0 + r, p.Skv, c, p.D, p.vec);
+      }
+      ring.wait_empty(it);
+      unsigned char* st = KV + (it % kStages) * C::kStage;
+#pragma unroll
+      for (int j = 0; j < WK::kIters; ++j) {
+        int r, c;
+        WK::at(j, r, c);
+        t3::store_plain<BKV>(st, st + C::kK, r, c, kr[j]);
+        t3::store_trans<DP, true>(st + 2 * C::kK, st + 2 * C::kK + C::kV, c,
+                                  r, vr[j]);
+      }
+      ring.filled(&ring.full[it % kStages]);
+    }
+    return;
+  }
+
+  const Frag f;
+  float o[RO], s[RS];
+#pragma unroll
+  for (int i = 0; i < RO; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float sl2 = p.scale * kLog2e;
+  ring.wait_once();
+  for (int it = 0; it < ntiles; ++it) {
+    const int t0 = t_first + it * BKV;
+    const unsigned char* Kt = KV + (it % kStages) * C::kStage;
+    const unsigned char* Vt = Kt + 2 * C::kK;
+    ring.wait_full(it);
+
+    // S = Q K^T
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk)
+      t3::mma3_ss<BKV>(s, t3::kmajor<BQ>(Qt, 0, kk),
+                       t3::kmajor<BQ>(Qt + C::kQ, 0, kk),
+                       t3::kmajor<BKV>(Kt, 0, kk),
+                       t3::kmajor<BKV>(Kt + C::kK, 0, kk), kk > 0);
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operand(s);
+
+    // online softmax in the log2 domain; masks only on edge tiles
+    if (!all_visible(p, q0, q0 + BQ - 1, t0, t0 + BKV - 1)) {
+#pragma unroll
+      for (int i = 0; i < RS; ++i)
+        if (!visible(p, q0 + f.row + 8 * Frag::half(i),
+                     t0 + f.col + Frag::cofs(i)))
+          s[i] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < RS; ++i)
+      mx[Frag::half(i)] = fmaxf(mx[Frag::half(i)], s[i]);
+    float mu[2], alpha[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float m_new = fmaxf(m[hf], quad_max(mx[hf]) * sl2);
+      mu[hf] = m_new == -INFINITY ? 0.f : m_new;   // no (-inf) - (-inf)
+      alpha[hf] = wgmma::exp2_approx(m[hf] - mu[hf]);
+      m[hf] = m_new;
+      l[hf] *= alpha[hf];
+    }
+#pragma unroll
+    for (int i = 0; i < RS; ++i) {
+      s[i] = wgmma::exp2_approx(fmaf(s[i], sl2, -mu[Frag::half(i)]));
+      l[Frag::half(i)] += s[i];
+    }
+#pragma unroll
+    for (int i = 0; i < RO; ++i) o[i] *= alpha[Frag::half(i)];
+
+    // O += P V, P split in registers
+    uint32_t pb[BKV / 8][4], ps[BKV / 8][4];
+    t3::to_frags(s, pb, ps);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 8; ++kk)
+      t3::mma3_rs<DP>(o, pb[kk], ps[kk], t3::kmajor<DP>(Vt, 0, kk),
+                      t3::kmajor<DP>(Vt + C::kV, 0, kk));
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operand(o);
+    ring.release(it);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] = quad_sum(l[hf]);
+    inv[hf] = l[hf] > 0.f ? 1.f / l[hf] : 0.f;
+  }
+  store_frag_f32(out + (static_cast<long>(b) * p.Sq * p.Hq + h) * p.D, qs, o,
+                 f, q0, p.Sq, p.D, inv, p.vec);
+  if (threadIdx.x % 4 == 0) {
+    float* lb = lse + (static_cast<long>(b) * p.Hq + h) * p.Sq;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = q0 + f.row + 8 * hf;
+      if (row < p.Sq)
+        lb[row] = l[hf] > 0.f ? (m[hf] + log2f(l[hf])) * kLn2 : -INFINITY;
+    }
+  }
+}
+
+template <int DP>
+struct T3DqCfg {
+  static constexpr int BQ = 64, BKV = DP <= 32 ? 64 : 32;
+  static constexpr int kStages = DP <= 64 ? 2 : 1;
+  static constexpr int kQ = BQ * DP * 4;                 // a half of Q or dO
+  static constexpr int kK = BKV * DP * 4;                // a half of K or V
+  static constexpr int kKt = DP * panel_width(BKV) * 4;  // a half of K^T
+  static constexpr int kStage = 4 * kK + 2 * kKt;        // K, V, K^T
+  using Ring = t3::Ring<kStages, 4>;
+  static constexpr size_t bytes =
+      1024 + 4 * kQ + kStages * kStage + sizeof(Ring);
+};
+
+// dQ of one (64-row q tile, q head, batch): S = Q K^T, dP = dO V^T,
+// dQ += dS K with dS from registers (K^T stored with keys permuted).
+template <int DP>
+__global__ void __launch_bounds__(kT3Threads, 1)
+flash_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              float* __restrict__ dq, Shape p) {
+  using C = T3DqCfg<DP>;
+  constexpr int BQ = C::BQ, BKV = C::BKV, RS = BKV / 2, RO = DP / 2;
+  constexpr int kStages = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qt = align1024(smem_raw);      // Q big, small, dO big, small
+  unsigned char* dOt = Qt + 2 * C::kQ;
+  unsigned char* KV = Qt + 4 * C::kQ;           // stage: K, V, K^T
+  typename C::Ring& ring =
+      *reinterpret_cast<typename C::Ring*>(KV + kStages * C::kStage);
+  ring.init();
+
+  int qt, h, b;
+  block_coords(p.Hq, p.B, (p.Sq + BQ - 1) / BQ, p.causal, qt, h, b);
+  const int q0 = qt * BQ, hk = h / (p.Hq / p.Hkv);
+  const long qs = static_cast<long>(p.Hq) * p.D;
+  const long ks = static_cast<long>(p.Hkv) * p.D;
+  const long qoff = (static_cast<long>(b) * p.Sq * p.Hq + h) * p.D;
+  int lo, hi;
+  kv_band(p, q0, min(q0 + BQ, p.Sq) - 1, lo, hi);
+  const int t_first = lo / BKV * BKV;
+  const int ntiles = lo <= hi ? (hi - t_first) / BKV + 1 : 0;
+
+  if (threadIdx.x >= 128) {                // the producer warpgroup
+    using WQ = t3::Walk<BQ, DP, 128>;
+    using WK = t3::Walk<BKV, DP, 128>;
+    const float* kb = k + (static_cast<long>(b) * p.Skv * p.Hkv + hk) * p.D;
+    const float* vb = v + (static_cast<long>(b) * p.Skv * p.Hkv + hk) * p.D;
+#pragma unroll
+    for (int j = 0; j < WQ::kIters; ++j) {
+      int r, c;
+      WQ::at(j, r, c);
+      t3::store_plain<BQ>(Qt, Qt + C::kQ, r, c,
+                          ld4(q + qoff, qs, q0 + r, p.Sq, c, p.D, p.vec));
+      t3::store_plain<BQ>(dOt, dOt + C::kQ, r, c,
+                          ld4(dout + qoff, qs, q0 + r, p.Sq, c, p.D, p.vec));
+    }
+    ring.filled(&ring.once);
+    float4 kr[WK::kIters], vr[WK::kIters];
+    for (int it = 0; it < ntiles; ++it) {
+      const int t0 = t_first + it * BKV;
+#pragma unroll
+      for (int j = 0; j < WK::kIters; ++j) {
+        int r, c;
+        WK::at(j, r, c);
+        kr[j] = ld4(kb, ks, t0 + r, p.Skv, c, p.D, p.vec);
+        vr[j] = ld4(vb, ks, t0 + r, p.Skv, c, p.D, p.vec);
+      }
+      ring.wait_empty(it);
+      unsigned char* st = KV + (it % kStages) * C::kStage;
+#pragma unroll
+      for (int j = 0; j < WK::kIters; ++j) {
+        int r, c;
+        WK::at(j, r, c);
+        t3::store_plain<BKV>(st, st + C::kK, r, c, kr[j]);
+        t3::store_plain<BKV>(st + 2 * C::kK, st + 3 * C::kK, r, c, vr[j]);
+        t3::store_trans<DP, true>(st + 4 * C::kK, st + 4 * C::kK + C::kKt, c,
+                                  r, kr[j]);
+      }
+      ring.filled(&ring.full[it % kStages]);
+    }
+    return;
+  }
+
+  const Frag f;
+  const long roff = (static_cast<long>(b) * p.Hq + h) * p.Sq;
+  // the thread's rows: lse in the log2 domain, +inf where the row sees no
+  // key (or lies past Sq) so that its P is 2^-inf = 0; delta
+  float lr[2], dr[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = q0 + f.row + 8 * hf;
+    const float l = row < p.Sq ? lse[roff + row] : -INFINITY;
+    lr[hf] = l == -INFINITY ? INFINITY : l * kLog2e;
+    dr[hf] = row < p.Sq ? delta[roff + row] : 0.f;
+  }
+  float acc[RO], s[RS], dp[RS];
+#pragma unroll
+  for (int i = 0; i < RO; ++i) acc[i] = 0.f;
+  const float sl2 = p.scale * kLog2e;
+  ring.wait_once();
+  for (int it = 0; it < ntiles; ++it) {
+    const int t0 = t_first + it * BKV;
+    const unsigned char* Kt = KV + (it % kStages) * C::kStage;
+    const unsigned char* Vt = Kt + 2 * C::kK;
+    const unsigned char* KTt = Kt + 4 * C::kK;
+    ring.wait_full(it);
+
+    // S = Q K^T, then dP = dO V^T in flight while P is formed
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk)
+      t3::mma3_ss<BKV>(s, t3::kmajor<BQ>(Qt, 0, kk),
+                       t3::kmajor<BQ>(Qt + C::kQ, 0, kk),
+                       t3::kmajor<BKV>(Kt, 0, kk),
+                       t3::kmajor<BKV>(Kt + C::kK, 0, kk), kk > 0);
+    wgmma::commit();
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk)
+      t3::mma3_ss<BKV>(dp, t3::kmajor<BQ>(dOt, 0, kk),
+                       t3::kmajor<BQ>(dOt + C::kQ, 0, kk),
+                       t3::kmajor<BKV>(Vt, 0, kk),
+                       t3::kmajor<BKV>(Vt + C::kK, 0, kk), kk > 0);
+    wgmma::commit();
+    wgmma::wait<1>();
+    wgmma::fence_operand(s);
+
+    // P = exp2(S scale log2e - lse log2e); masks only on edge tiles
+    if (!all_visible(p, q0, q0 + BQ - 1, t0, t0 + BKV - 1)) {
+#pragma unroll
+      for (int i = 0; i < RS; ++i)
+        if (!visible(p, q0 + f.row + 8 * Frag::half(i),
+                     t0 + f.col + Frag::cofs(i)))
+          s[i] = -INFINITY;
+    }
+#pragma unroll
+    for (int i = 0; i < RS; ++i)
+      s[i] = wgmma::exp2_approx(fmaf(s[i], sl2, -lr[Frag::half(i)]));
+    wgmma::wait<0>();
+    wgmma::fence_operand(dp);
+    // dS = P (dP - delta)
+#pragma unroll
+    for (int i = 0; i < RS; ++i) s[i] *= dp[i] - dr[Frag::half(i)];
+
+    // dQ += dS K, dS split in registers
+    uint32_t db[BKV / 8][4], ds[BKV / 8][4];
+    t3::to_frags(s, db, ds);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 8; ++kk)
+      t3::mma3_rs<DP>(acc, db[kk], ds[kk], t3::kmajor<DP>(KTt, 0, kk),
+                      t3::kmajor<DP>(KTt + C::kKt, 0, kk));
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operand(acc);
+    ring.release(it);
+  }
+  const float mul[2] = {p.scale, p.scale};
+  store_frag_f32(dq + qoff, qs, acc, f, q0, p.Sq, p.D, mul, p.vec);
+}
+
+template <int DP>
+struct T3DkvCfg {
+  static constexpr int BKV = 64;
+  static constexpr int BQ = DP <= 32 ? 64 : DP <= 96 ? 32 : 16;
+  static constexpr int kStages = DP <= 64 ? 2 : 1;
+  static constexpr int kK = BKV * DP * 4;                // a half of K or V
+  static constexpr int kQ = BQ * DP * 4;                 // a half of Q or dO
+  static constexpr int kQt = DP * panel_width(BQ) * 4;   // a half of Q^T, dO^T
+  // a stage: Q, dO, Q^T, dO^T (big and small each), lse, delta; padded to
+  // whole 1024-byte swizzle atoms
+  static constexpr int kStage =
+      (4 * kQ + 4 * kQt + 2 * BQ * 4 + 1023) / 1024 * 1024;
+  using Ring = t3::Ring<kStages, 4>;
+  static constexpr size_t bytes =
+      1024 + 4 * kK + kStages * kStage + sizeof(Ring);
+};
+
+// dK, dV of one (64-row kv tile, kv head, batch), summed over the q heads
+// of its group: S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
+// dK += dS^T Q with P^T and dS^T from registers (dO^T and Q^T stored with
+// the q rows permuted).
+template <int DP>
+__global__ void __launch_bounds__(kT3Threads, 1)
+flash_dkv_tf32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ dk,
+               float* __restrict__ dv, Shape p) {
+  using C = T3DkvCfg<DP>;
+  constexpr int BKV = C::BKV, BQ = C::BQ, RS = BQ / 2, RO = DP / 2;
+  constexpr int kStages = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Kt = align1024(smem_raw);      // K big, small, V big, small
+  unsigned char* Vt = Kt + 2 * C::kK;
+  unsigned char* QD = Kt + 4 * C::kK;           // the stages
+  typename C::Ring& ring =
+      *reinterpret_cast<typename C::Ring*>(QD + kStages * C::kStage);
+  ring.init();
+
+  int kt, hk, b;
+  block_coords(p.Hkv, p.B, (p.Skv + BKV - 1) / BKV, false, kt, hk, b);
+  const int k0 = kt * BKV, group = p.Hq / p.Hkv;
+  const long qs = static_cast<long>(p.Hq) * p.D;
+  const long ks = static_cast<long>(p.Hkv) * p.D;
+  const long kvoff = (static_cast<long>(b) * p.Skv * p.Hkv + hk) * p.D;
+  int lo, hi;
+  q_band(p, k0, min(k0 + BKV, p.Skv) - 1, lo, hi);
+  const int qt_first = lo / BQ;
+  const int nq = lo <= hi ? hi / BQ - qt_first + 1 : 0;
+  const int niter = group * nq;            // (q head, q tile) pairs
+
+  if (threadIdx.x >= 128) {                // the producer warpgroup
+    using WK = t3::Walk<BKV, DP, 128>;
+    using WQ = t3::Walk<BQ, DP, 128>;
+#pragma unroll
+    for (int j = 0; j < WK::kIters; ++j) {
+      int r, c;
+      WK::at(j, r, c);
+      t3::store_plain<BKV>(Kt, Kt + C::kK, r, c,
+                           ld4(k + kvoff, ks, k0 + r, p.Skv, c, p.D, p.vec));
+      t3::store_plain<BKV>(Vt, Vt + C::kK, r, c,
+                           ld4(v + kvoff, ks, k0 + r, p.Skv, c, p.D, p.vec));
+    }
+    ring.filled(&ring.once);
+    const int pt = threadIdx.x - 128;
+    float4 qr[WQ::kIters], dr[WQ::kIters];
+    float lr = 0.f, dlt = 0.f;
+    for (int it = 0; it < niter; ++it) {
+      const int h = hk * group + it / nq, q0 = (qt_first + it % nq) * BQ;
+      const long qoff = (static_cast<long>(b) * p.Sq * p.Hq + h) * p.D;
+      const long roff = (static_cast<long>(b) * p.Hq + h) * p.Sq;
+#pragma unroll
+      for (int j = 0; j < WQ::kIters; ++j) {
+        int r, c;
+        WQ::at(j, r, c);
+        qr[j] = ld4(q + qoff, qs, q0 + r, p.Sq, c, p.D, p.vec);
+        dr[j] = ld4(dout + qoff, qs, q0 + r, p.Sq, c, p.D, p.vec);
+      }
+      if (pt < BQ) {
+        const bool ok = q0 + pt < p.Sq;
+        lr = ok ? lse[roff + q0 + pt] : -INFINITY;
+        dlt = ok ? delta[roff + q0 + pt] : 0.f;
+      }
+      ring.wait_empty(it);
+      unsigned char* st = QD + (it % kStages) * C::kStage;
+      unsigned char* Qts = st + 4 * C::kQ;      // Q^T, then dO^T
+#pragma unroll
+      for (int j = 0; j < WQ::kIters; ++j) {
+        int r, c;
+        WQ::at(j, r, c);
+        t3::store_plain<BQ>(st, st + C::kQ, r, c, qr[j]);
+        t3::store_plain<BQ>(st + 2 * C::kQ, st + 3 * C::kQ, r, c, dr[j]);
+        t3::store_trans<DP, true>(Qts, Qts + C::kQt, c, r, qr[j]);
+        t3::store_trans<DP, true>(Qts + 2 * C::kQt, Qts + 3 * C::kQt, c, r,
+                                  dr[j]);
+      }
+      if (pt < BQ) {
+        float* rows = reinterpret_cast<float*>(Qts + 4 * C::kQt);
+        rows[pt] = lr;
+        rows[BQ + pt] = dlt;
+      }
+      ring.filled(&ring.full[it % kStages]);
+    }
+    return;
+  }
+
+  const Frag f;
+  float gk[RO], gv[RO], st[RS], dpt[RS];
+#pragma unroll
+  for (int i = 0; i < RO; ++i) gk[i] = gv[i] = 0.f;
+  const float sl2 = p.scale * kLog2e;
+  ring.wait_once();
+  for (int it = 0; it < niter; ++it) {
+    const int q0 = (qt_first + it % nq) * BQ;
+    const unsigned char* Qt = QD + (it % kStages) * C::kStage;
+    const unsigned char* dOt = Qt + 2 * C::kQ;
+    const unsigned char* QTt = Qt + 4 * C::kQ;
+    const unsigned char* dOTt = QTt + 2 * C::kQt;
+    const float* lse_s = reinterpret_cast<const float*>(QTt + 4 * C::kQt);
+    const float* delta_s = lse_s + BQ;
+    ring.wait_full(it);
+
+    // S^T = K Q^T, then dP^T = V dO^T in flight while P^T is formed
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk)
+      t3::mma3_ss<BQ>(st, t3::kmajor<BKV>(Kt, 0, kk),
+                      t3::kmajor<BKV>(Kt + C::kK, 0, kk),
+                      t3::kmajor<BQ>(Qt, 0, kk),
+                      t3::kmajor<BQ>(Qt + C::kQ, 0, kk), kk > 0);
+    wgmma::commit();
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk)
+      t3::mma3_ss<BQ>(dpt, t3::kmajor<BKV>(Vt, 0, kk),
+                      t3::kmajor<BKV>(Vt + C::kK, 0, kk),
+                      t3::kmajor<BQ>(dOt, 0, kk),
+                      t3::kmajor<BQ>(dOt + C::kQ, 0, kk), kk > 0);
+    wgmma::commit();
+    wgmma::wait<1>();
+    wgmma::fence_operand(st);
+
+    // the thread's q columns (RS / 2 of them): lse in the log2 domain,
+    // +inf where the row sees no key (P = 2^-inf = 0), and delta
+    float lcol[RS / 2], dcol[RS / 2];
+#pragma unroll
+    for (int j = 0; j < RS / 2; ++j) {
+      const int c = f.col + 8 * (j / 2) + j % 2;
+      const float lc = lse_s[c];
+      lcol[j] = lc == -INFINITY ? INFINITY : lc * kLog2e;
+      dcol[j] = delta_s[c];
+    }
+    // P^T = exp2(S^T scale log2e - lse log2e); masks only on edge tiles
+    if (!all_visible(p, q0, q0 + BQ - 1, k0, k0 + BKV - 1)) {
+#pragma unroll
+      for (int i = 0; i < RS; ++i) {
+        const int qi = q0 + f.col + Frag::cofs(i);
+        if (qi >= p.Sq || !visible(p, qi, k0 + f.row + 8 * Frag::half(i)))
+          st[i] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RS; ++i)
+      st[i] = wgmma::exp2_approx(fmaf(st[i], sl2, -lcol[i / 4 * 2 + i % 2]));
+    // dV += P^T dO, in flight while dS^T is formed
+    uint32_t pb[BQ / 8][4], ps[BQ / 8][4];
+    t3::to_frags(st, pb, ps);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 8; ++kk)
+      t3::mma3_rs<DP>(gv, pb[kk], ps[kk], t3::kmajor<DP>(dOTt, 0, kk),
+                      t3::kmajor<DP>(dOTt + C::kQt, 0, kk));
+    wgmma::commit();
+    wgmma::wait<1>();
+    wgmma::fence_operand(dpt);
+    // dS^T = P^T (dP^T - delta)
+#pragma unroll
+    for (int i = 0; i < RS; ++i)
+      dpt[i] = st[i] * (dpt[i] - dcol[i / 4 * 2 + i % 2]);
+
+    // dK += dS^T Q
+    uint32_t db[BQ / 8][4], ds[BQ / 8][4];
+    t3::to_frags(dpt, db, ds);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 8; ++kk)
+      t3::mma3_rs<DP>(gk, db[kk], ds[kk], t3::kmajor<DP>(QTt, 0, kk),
+                      t3::kmajor<DP>(QTt + C::kQt, 0, kk));
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operand(gv);
+    wgmma::fence_operand(gk);
+    ring.release(it);
+  }
+  const float mk[2] = {p.scale, p.scale}, mv[2] = {1.f, 1.f};
+  store_frag_f32(dk + kvoff, ks, gk, f, k0, p.Skv, p.D, mk, p.vec);
+  store_frag_f32(dv + kvoff, ks, gv, f, k0, p.Skv, p.D, mv, p.vec);
+}
+
+// ---------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------
 // Lets `kernel` take `bytes` of dynamic shared memory. Set on a
@@ -1242,18 +1477,6 @@ cudaError_t launch(K kern, bool& smem_set, dim3 blocks, int threads,
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-template <int DP>
-cudaError_t fwd_f32(const void* q, const void* k, const void* v, void* out,
-                    float* lse, const Shape& p, cudaStream_t s) {
-  using L = Tiles<DP>;
-  static bool smem_set = false;
-  return launch(flash_fwd_f32<DP>, smem_set, dim3(cdiv(p.Sq, L::BQ), p.Hq,
-                                                  p.B),
-                kThreads, L::fwd_bytes, s, static_cast<const float*>(q),
-                static_cast<const float*>(k), static_cast<const float*>(v),
-                static_cast<float*>(out), lse, p);
-}
 
 // A TMA map of a contiguous (B, S, H, D) bf16 tensor as 4-D (D, H, S, B),
 // read in boxes of 64 columns x `rows` rows of one head, 128-byte
@@ -1325,29 +1548,6 @@ cudaError_t delta_pass(const void* out, const void* dout, float* delta,
 }
 
 template <int DP>
-cudaError_t bwd_f32(const void* q, const void* k, const void* v,
-                    const void* out, const void* dout, const float* lse,
-                    float* delta, void* dq, void* dk, void* dv,
-                    const Shape& p, cudaStream_t s) {
-  using L = Tiles<DP>;
-  const float* qt = static_cast<const float*>(q);
-  const float* kt = static_cast<const float*>(k);
-  const float* vt = static_cast<const float*>(v);
-  const float* dot = static_cast<const float*>(dout);
-  cudaError_t e = delta_pass<float>(out, dout, delta, p, s);
-  if (e != cudaSuccess) return e;
-  static bool smem_a = false, smem_b = false;
-  e = launch(flash_dkv_f32<DP>, smem_a, dim3(cdiv(p.Skv, L::BKV), p.Hkv, p.B),
-             kThreads, L::dkv_bytes, s, qt, kt, vt, dot, lse,
-             static_cast<const float*>(delta), static_cast<float*>(dk),
-             static_cast<float*>(dv), p);
-  if (e != cudaSuccess) return e;
-  return launch(flash_dq_f32<DP>, smem_b, dim3(cdiv(p.Sq, L::BQ), p.Hq, p.B),
-                kThreads, L::dq_bytes, s, qt, kt, vt, dot, lse,
-                static_cast<const float*>(delta), static_cast<float*>(dq), p);
-}
-
-template <int DP>
 cudaError_t bwd_bf16(const void* q, const void* k, const void* v,
                      const void* out, const void* dout, const float* lse,
                      float* delta, void* dq, void* dk, void* dv,
@@ -1374,6 +1574,70 @@ cudaError_t bwd_bf16(const void* q, const void* k, const void* v,
                 dim3(cdiv(p.Sq, Bq::BQ) * p.Hq * p.B), kWsThreads, Bq::bytes,
                 s, qt, kt, vt, dot, lse, static_cast<const float*>(delta),
                 static_cast<bf16*>(dq), p, mb.q, mb.dout, mb.k, mb.v);
+}
+
+template <int DP>
+cudaError_t fwd_tf32(const void* q, const void* k, const void* v, void* out,
+                     float* lse, const Shape& p, cudaStream_t s) {
+  using C = T3FwdCfg<DP>;
+  static bool smem_set = false;
+  return launch(flash_fwd_tf32<DP>, smem_set,
+                dim3(cdiv(p.Sq, C::BQ) * p.Hq * p.B), kT3Threads, C::bytes, s,
+                static_cast<const float*>(q), static_cast<const float*>(k),
+                static_cast<const float*>(v), static_cast<float*>(out), lse,
+                p);
+}
+
+template <int DP>
+cudaError_t bwd_tf32(const void* q, const void* k, const void* v,
+                     const void* out, const void* dout, const float* lse,
+                     float* delta, void* dq, void* dk, void* dv,
+                     const Shape& p, cudaStream_t s) {
+  using A = T3DkvCfg<DP>;
+  using Bq = T3DqCfg<DP>;
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* dot = static_cast<const float*>(dout);
+  cudaError_t e = delta_pass<float>(out, dout, delta, p, s);
+  if (e != cudaSuccess) return e;
+  static bool smem_a = false, smem_b = false;
+  e = launch(flash_dkv_tf32<DP>, smem_a,
+             dim3(cdiv(p.Skv, A::BKV) * p.Hkv * p.B), kT3Threads, A::bytes, s,
+             qt, kt, vt, dot, lse, static_cast<const float*>(delta),
+             static_cast<float*>(dk), static_cast<float*>(dv), p);
+  if (e != cudaSuccess) return e;
+  return launch(flash_dq_tf32<DP>, smem_b,
+                dim3(cdiv(p.Sq, Bq::BQ) * p.Hq * p.B), kT3Threads, Bq::bytes,
+                s, qt, kt, vt, dot, lse, static_cast<const float*>(delta),
+                static_cast<float*>(dq), p);
+}
+
+// The f32 route, 3xTF32, at the head dim padded to 32, 64, 96 or 128.
+cudaError_t fwd_f32(const void* q, const void* k, const void* v, void* out,
+                    float* lse, const Shape& p, cudaStream_t s) {
+  switch (t3_dp(p.D)) {
+    case 32: return fwd_tf32<32>(q, k, v, out, lse, p, s);
+    case 64: return fwd_tf32<64>(q, k, v, out, lse, p, s);
+    case 96: return fwd_tf32<96>(q, k, v, out, lse, p, s);
+    default: return fwd_tf32<128>(q, k, v, out, lse, p, s);
+  }
+}
+
+cudaError_t bwd_f32(const void* q, const void* k, const void* v,
+                    const void* out, const void* dout, const float* lse,
+                    float* delta, void* dq, void* dk, void* dv,
+                    const Shape& p, cudaStream_t s) {
+  switch (t3_dp(p.D)) {
+    case 32:
+      return bwd_tf32<32>(q, k, v, out, dout, lse, delta, dq, dk, dv, p, s);
+    case 64:
+      return bwd_tf32<64>(q, k, v, out, dout, lse, delta, dq, dk, dv, p, s);
+    case 96:
+      return bwd_tf32<96>(q, k, v, out, dout, lse, delta, dq, dk, dv, p, s);
+    default:
+      return bwd_tf32<128>(q, k, v, out, dout, lse, delta, dq, dk, dv, p, s);
+  }
 }
 
 bool aligned16(std::initializer_list<const void*> ptrs) {
@@ -1418,8 +1682,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == 1)
     return static_cast<int>(D <= 64 ? fwd_bf16<64>(q, k, v, out, l, p, s)
                                     : fwd_bf16<128>(q, k, v, out, l, p, s));
-  return static_cast<int>(D <= 64 ? fwd_f32<64>(q, k, v, out, l, p, s)
-                                  : fwd_f32<128>(q, k, v, out, l, p, s));
+  return static_cast<int>(fwd_f32(q, k, v, out, l, p, s));
 }
 
 // The forward's q, k, v, out, lse and the output gradient dout (like out);
@@ -1444,8 +1707,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
         D <= 64 ? bwd_bf16<64>(q, k, v, out, dout, l, d, dq, dk, dv, p, s)
                 : bwd_bf16<128>(q, k, v, out, dout, l, d, dq, dk, dv, p, s));
   return static_cast<int>(
-      D <= 64 ? bwd_f32<64>(q, k, v, out, dout, l, d, dq, dk, dv, p, s)
-              : bwd_f32<128>(q, k, v, out, dout, l, d, dq, dk, dv, p, s));
+      bwd_f32(q, k, v, out, dout, l, d, dq, dk, dv, p, s));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -24,12 +24,30 @@
 //    fed by a TMA ring (below);
 //  * bf16 at C <= 32 (decode), same widths: WMMA 16x16x16 tiles, 16 or
 //    32 rows, two cp.async stages (decode is host-bound);
-//  * f32 (the reduced checks) and bf16 of other widths: FMAs on tiles
-//    staged as float, no TF32, so f32 holds 1e-4 against the plain
-//    version. Their backward runs the forward kernel on transposed copies
-//    made by the wrapper.
+//  * f32 (the reduced configs, [jamba], any f32 model), forward and
+//    backward: 3xTF32 on wgmma (wgmma_tf32.cuh; the f32 route below),
+//    which holds f32's 1e-4, reading x, w and g as stored (16-byte loads
+//    where D and F are multiples of 4 and the pointers 16-byte aligned,
+//    else element by element);
+//  * bf16 of other widths: FMAs on tiles staged as float. Their backward
+//    runs the forward kernel on transposed copies made by the wrapper.
 // The WMMA and FMA kernels run one block per (F tile, C tile, z) with the
 // D loop inside the block and mask ragged C, D and F themselves.
+//
+// The f32 route: tf32 operands in shared memory must be K-major, so the
+// MN-major ones as stored (w in the forward, x and g in dw) are
+// transposed by the pass that splits them; x and g in the forward and dx,
+// and w in dx, are K-major as stored. A block owns a 64 x 128 tile: two
+// consumer warpgroups of 64 x 64 and a producer warpgroup that loads the
+// 32-float depth stages two ahead into registers, splits them and stores
+// them into a ring of three (A big and small 2 x 8 KB, B 2 x 16 KB a
+// stage: 145 KB a block). Each 8-deep slice's products start from zero in
+// registers; f32 adds sum a stage's slices and the stage sums go into a
+// double-precision total (the tensor cores' accumulation truncates, which
+// a long chain turns into a bias). The sum over groups in dw stays in
+// registers: no atomics, and the bits repeat.
+// 3xTF32 caps f32 at 494.7 / 3 = 165 TFLOP/s; the training forward (85.9
+// GFLOP) is 0.52 ms of it.
 //
 // The wgmma route (wgmma_bf16.cuh has the operand layouts, sm90_async.cuh
 // the TMA and mbarrier helpers). One kernel, three modes:
@@ -75,6 +93,7 @@
 
 #include "sm90_async.cuh"
 #include "wgmma_bf16.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -88,16 +107,12 @@ constexpr int kBN = kThreadsX * kTN;       // 64 columns per block
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
 template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
@@ -571,6 +586,254 @@ cudaError_t launch_ws(Gemm p, const void* a, const void* b, void* out,
                      : launch_ws_bn<kMode, 128>(p, a, b, out, D, F, sms, s);
 }
 
+// ---------------------------------------------------------------------
+// f32 route: 3xTF32 on wgmma (wgmma_tf32.cuh)
+// ---------------------------------------------------------------------
+// A block of three warpgroups per 64 x 128 output tile: two consumers,
+// each 64 x 64 of it with its sum in registers, and a producer. The depth
+// runs in 32-float stages (one 128-byte panel) through a ring of three:
+// the producer's threads load a stage's 16-byte chunks of A and B into
+// registers two stages ahead, then split them into big and small halves
+// and store them (transposed where the operand is MN-major as stored)
+// once the consumers have freed the slot. The producer, not the
+// products, bounds the kernel.
+// Summation: the tensor cores' own accumulation truncates toward zero, so
+// a chain of products into one accumulator drifts by about 2^-23 of the
+// running sum per instruction (dw at the training shape, 960 products
+// into one sum, missed 1e-4 by 50x; a fresh sum per 32-deep stage still
+// by 7x). Each 8-deep slice's three products therefore start from zero;
+// f32 adds sum a stage's four slices and the stage sums go into a
+// double-precision total: the result is closer to the exact one than a
+// sequential f32 sum is.
+constexpr int kT3BM = 64, kT3BN = 128, kT3BK = 32, kT3Stages = 3;
+constexpr int kT3Threads = 384;            // consumers 0-255, producer
+
+struct T3Cfg {
+  static constexpr int kA = kT3BM * kT3BK * 4;    // one half of A
+  static constexpr int kB = kT3BN * kT3BK * 4;    // one half of B
+  // a stage: A big, A small, B big, B small
+  static constexpr int kStage = 2 * kA + 2 * kB;
+  using Ring = wgmma::tf32::Ring<kT3Stages, 8>;
+  static constexpr size_t bytes = 1024 + kT3Stages * kStage + sizeof(Ring);
+};
+
+// Tile t -> expert e, the z it reads (forward, dx) and its first output
+// row and column, in tile_coords' order with 64-row tiles.
+template <int kMode, int BN>
+__device__ __forceinline__ void t3_coords(const Gemm& p, int t, int& e,
+                                          int& z, int& m0, int& n0) {
+  n0 = (t % p.tn) * BN;
+  t /= p.tn;
+  m0 = (t % p.tm) * kT3BM;
+  t /= p.tm;
+  if (kMode == kDw) {
+    e = t;
+    z = e;
+  } else {
+    const int groups = p.Z / p.P;
+    e = t / groups;
+    z = (t % groups) * p.P + e;
+  }
+}
+
+// A row-major f32 source matrix (rows x cols, row stride ld) and the
+// origin (r0, c0) of a stage's chunk walk in it; elements out of range
+// read 0. vec: rows of whole 16-byte chunks and a 16-byte aligned base,
+// so a chunk is one 16-byte load; else element by element.
+struct Src {
+  const float* p;
+  int ld, rows, cols, r0, c0;
+  bool vec;
+  __device__ __forceinline__ float4 at(int r, int c) const {
+    const int gr = r0 + r, gc = c0 + c;
+    if (gr >= rows || gc >= cols) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* e = p + static_cast<size_t>(gr) * ld + gc;
+    if (vec) return __ldg(reinterpret_cast<const float4*>(e));
+    return make_float4(e[0], gc + 1 < cols ? e[1] : 0.f,
+                       gc + 2 < cols ? e[2] : 0.f,
+                       gc + 3 < cols ? e[3] : 0.f);
+  }
+};
+
+// The sources of stage s. Forward: A = x[z] (C x D, K-major), B = w[e]
+// (D x F: depth rows, transposed). dx: A = g[z] (C x F), B = w[e] (D x
+// F: N rows, K-major). dw: A = x[zz] (C x D) and B = g[zz] (C x F), both
+// with depth rows (transposed); the depth walks the groups' C rows.
+template <int kMode>
+__device__ __forceinline__ void t3_srcs(const Gemm& p, const float* a,
+                                        const float* b, int D, int F, int e,
+                                        int z, int m0, int n0, int s,
+                                        bool vec, Src& sa, Src& sb) {
+  const int k0 = s * kT3BK;
+  if (kMode == kFwd) {
+    sa = Src{a + static_cast<size_t>(z) * p.C * D, D, p.C, D, m0, k0, vec};
+    sb = Src{b + static_cast<size_t>(e) * D * F, F, D, F, k0, n0, vec};
+  } else if (kMode == kDx) {
+    sa = Src{a + static_cast<size_t>(z) * p.C * F, F, p.C, F, m0, k0, vec};
+    sb = Src{b + static_cast<size_t>(e) * D * F, F, D, F, n0, k0, vec};
+  } else {
+    const int csteps = (p.C + kT3BK - 1) / kT3BK;
+    const int zz = (s / csteps) * p.P + e, c0 = (s % csteps) * kT3BK;
+    sa = Src{a + static_cast<size_t>(zz) * p.C * D, D, p.C, D, c0, m0, vec};
+    sb = Src{b + static_cast<size_t>(zz) * p.C * F, F, p.C, F, c0, n0, vec};
+  }
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kT3Threads, 1)
+moe_gmm_tf32_kernel(Gemm p, const float* __restrict__ a,
+                    const float* __restrict__ b, float* __restrict__ out,
+                    int D, int F, bool vec) {
+  using Cfg = T3Cfg;
+  namespace t3 = wgmma::tf32;
+  constexpr int BN = kT3BN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* stages = align1024(smem_raw);
+  typename Cfg::Ring& ring = *reinterpret_cast<typename Cfg::Ring*>(
+      stages + kT3Stages * Cfg::kStage);
+  ring.init();
+  int e, z, m0, n0;
+  t3_coords<kMode, BN>(p, blockIdx.x, e, z, m0, n0);
+
+  if (threadIdx.x >= 256) {                // the producer warpgroup
+    constexpr bool kTransA = kMode == kDw, kTransB = kMode != kDx;
+    // chunk walks over a stage's sources: depth rows where transposed
+    using WA = t3::Walk<kTransA ? kT3BK : kT3BM, kTransA ? kT3BM : kT3BK,
+                        128>;
+    using WB = t3::Walk<kTransB ? kT3BK : BN, kTransB ? BN : kT3BK, 128>;
+    auto fetch = [&](int s, float4 (&va)[WA::kIters],
+                     float4 (&vb)[WB::kIters]) {
+      Src sa, sb;
+      t3_srcs<kMode>(p, a, b, D, F, e, z, m0, n0, s, vec, sa, sb);
+#pragma unroll
+      for (int j = 0; j < WA::kIters; ++j) {
+        int r, c;
+        WA::at(j, r, c);
+        va[j] = sa.at(r, c);
+      }
+#pragma unroll
+      for (int j = 0; j < WB::kIters; ++j) {
+        int r, c;
+        WB::at(j, r, c);
+        vb[j] = sb.at(r, c);
+      }
+    };
+    auto put = [&](int s, const float4 (&va)[WA::kIters],
+                   const float4 (&vb)[WB::kIters]) {
+      ring.wait_empty(s);
+      unsigned char* ab = stages + (s % kT3Stages) * Cfg::kStage;
+      unsigned char* bb = ab + 2 * Cfg::kA;
+#pragma unroll
+      for (int j = 0; j < WA::kIters; ++j) {
+        int r, c;
+        WA::at(j, r, c);
+        if (kTransA)
+          t3::store_trans<kT3BM, false>(ab, ab + Cfg::kA, c, r, va[j]);
+        else
+          t3::store_plain<kT3BM>(ab, ab + Cfg::kA, r, c, va[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < WB::kIters; ++j) {
+        int r, c;
+        WB::at(j, r, c);
+        if (kTransB)
+          t3::store_trans<BN, false>(bb, bb + Cfg::kB, c, r, vb[j]);
+        else
+          t3::store_plain<BN>(bb, bb + Cfg::kB, r, c, vb[j]);
+      }
+      ring.filled(&ring.full[s % kT3Stages]);
+    };
+    // two stages' loads in flight: stage s + 1's while stage s is stored
+    float4 va0[WA::kIters], vb0[WB::kIters], va1[WA::kIters],
+        vb1[WB::kIters];
+    fetch(0, va0, vb0);
+    for (int s = 0; s < p.ksteps; s += 2) {
+      if (s + 1 < p.ksteps) fetch(s + 1, va1, vb1);
+      put(s, va0, vb0);
+      if (s + 1 >= p.ksteps) break;
+      if (s + 2 < p.ksteps) fetch(s + 2, va0, vb0);
+      put(s + 1, va1, vb1);
+    }
+    return;
+  }
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  double acc[32];
+  float part[32], sum[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0;
+  for (int s = 0; s < p.ksteps; ++s) {
+    const unsigned char* ab = stages + (s % kT3Stages) * Cfg::kStage;
+    const unsigned char* bb = ab + 2 * Cfg::kA;
+    ring.wait_full(s);
+#pragma unroll
+    for (int kk = 0; kk < kT3BK / 8; ++kk) {
+      // slice kk's three products into part, from zero; the warpgroup's
+      // 64 columns are B's rows 64 wg ..
+      wgmma::fence();
+      t3::mma3_ss<64>(part, t3::kmajor<kT3BM>(ab, 0, kk),
+                      t3::kmajor<kT3BM>(ab + Cfg::kA, 0, kk),
+                      t3::kmajor<BN>(bb, 64 * wg, kk),
+                      t3::kmajor<BN>(bb + Cfg::kB, 64 * wg, kk), 0);
+      wgmma::commit();
+      wgmma::wait<0>();
+      wgmma::fence_operand(part);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sum[i] = kk ? sum[i] + part[i] : part[i];
+    }
+    ring.release(s);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += static_cast<double>(sum[i]);
+  }
+
+  // epilogue: rows < M and columns < N, pairs as float2 where vec
+  const int lane = threadIdx.x % 32;
+  const int frow = m0 + 16 * ((threadIdx.x / 32) % 4) + lane / 4;
+  const int fcol = n0 + 64 * wg + 2 * (lane % 4);
+  float* o = out + static_cast<size_t>(kMode == kDw ? e : z) * p.M * p.N;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = frow + 8 * hf;
+    if (r >= p.M) continue;
+    float* orow = o + static_cast<size_t>(r) * p.N;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = fcol + 8 * j;
+      const float x = static_cast<float>(acc[4 * j + 2 * hf]);
+      const float y = static_cast<float>(acc[4 * j + 2 * hf + 1]);
+      if (vec) {
+        if (c < p.N) *reinterpret_cast<float2*>(orow + c) = make_float2(x, y);
+      } else {
+        if (c < p.N) orow[c] = x;
+        if (c + 1 < p.N) orow[c + 1] = y;
+      }
+    }
+  }
+}
+
+// One launch of the f32 route in mode kMode: one block per 64 x 128
+// tile.
+template <int kMode>
+cudaError_t launch_tf32(Gemm p, const void* a, const void* b, void* out,
+                        int D, int F, bool vec, cudaStream_t s) {
+  p.tm = cdiv(p.M, kT3BM);
+  p.tn = cdiv(p.N, kT3BN);
+  p.ntiles = (kMode == kDw ? p.P : p.Z) * p.tm * p.tn;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        moe_gmm_tf32_kernel<kMode>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(T3Cfg::bytes));
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  moe_gmm_tf32_kernel<kMode><<<p.ntiles, kT3Threads, T3Cfg::bytes, s>>>(
+      p, static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(out), D, F, vec);
+  return cudaGetLastError();
+}
+
 template <int MF>
 void launch_tc(const __nv_bfloat16* x, const __nv_bfloat16* w,
                __nv_bfloat16* out, int Z, int C, int D, int F, int period,
@@ -585,6 +848,16 @@ bool tc_ok(const void* a, const void* b, const void* c, int D, int F) {
     return reinterpret_cast<std::uintptr_t>(p);
   };
   return D % 8 == 0 && F % 8 == 0 &&
+         (addr(a) | addr(b) | addr(c)) % 16 == 0;
+}
+
+// The f32 route's 16-byte loads: rows of whole 16-byte chunks (D and F
+// multiples of 4) and 16-byte aligned pointers.
+bool f32_vec(const void* a, const void* b, const void* c, int D, int F) {
+  const auto addr = [](const void* p) {
+    return reinterpret_cast<std::uintptr_t>(p);
+  };
+  return D % 4 == 0 && F % 4 == 0 &&
          (addr(a) | addr(b) | addr(c)) % 16 == 0;
 }
 
@@ -625,7 +898,9 @@ extern "C" int moe_gmm_launch(const void* x, const void* w, void* out, int Z,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return static_cast<int>(launch<float>(x, w, out, Z, C, D, F, period, s));
+      return static_cast<int>(launch_tf32<kFwd>(
+          Gemm{Z, period, C, C, F, 0, 0, cdiv(D, kT3BK), 0}, x, w, out, D,
+          F, f32_vec(x, w, out, D, F), s));
     case 1:
       if (tc_ok(x, w, out, D, F)) {
         const auto* xb = static_cast<const __nv_bfloat16*>(x);
@@ -648,29 +923,44 @@ extern "C" int moe_gmm_launch(const void* x, const void* w, void* out, int Z,
   }
 }
 
-// The backward of moe_gmm_launch in bf16 with D and F multiples of 8 and
-// 16-byte aligned pointers, reading x, w and the output gradient g (Z, C,
-// F) as stored: dx (Z, C, D) = g[z] @ w[e]^T, and dw (period, D, F) =
-// sum over groups of x[z]^T @ g[z]. cudaErrorInvalidValue for another
-// shape (the wrapper takes its transposed-copy route there).
+// The backward of moe_gmm_launch, reading x, w and the output gradient g
+// (Z, C, F) as stored: dx (Z, C, D) = g[z] @ w[e]^T, and dw (period, D, F)
+// = sum over groups of x[z]^T @ g[z]. dtype 0 (f32, 3xTF32): any widths;
+// dtype 1 (bf16, the wgmma route): D and F multiples of 8 and 16-byte
+// aligned pointers. cudaErrorInvalidValue for another shape (the wrapper
+// takes its transposed-copy route there).
+bool bwd_ok(const void* a, const void* b, const void* c, int D, int F,
+            int dtype) {
+  return dtype == 0 || (dtype == 1 && tc_ok(a, b, c, D, F));
+}
+
 extern "C" int moe_gmm_dx_launch(const void* g, const void* w, void* dx,
                                  int Z, int C, int D, int F, int period,
-                                 void* stream) {
-  if (bad_shape(Z, C, D, F, period) || !tc_ok(g, w, dx, D, F))
+                                 int dtype, void* stream) {
+  if (bad_shape(Z, C, D, F, period) || !bwd_ok(g, w, dx, D, F, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return static_cast<int>(launch_tf32<kDx>(
+        Gemm{Z, period, C, C, D, 0, 0, cdiv(F, kT3BK), 0}, g, w, dx, D, F,
+        f32_vec(g, w, dx, D, F), s));
   return static_cast<int>(launch_ws<kDx>(
-      Gemm{Z, period, C, C, D, 0, 0, cdiv(F, kWsBK), 0}, g, w, dx,
-      D, F, static_cast<cudaStream_t>(stream)));
+      Gemm{Z, period, C, C, D, 0, 0, cdiv(F, kWsBK), 0}, g, w, dx, D, F, s));
 }
 
 extern "C" int moe_gmm_dw_launch(const void* x, const void* g, void* dw,
                                  int Z, int C, int D, int F, int period,
-                                 void* stream) {
-  if (bad_shape(Z, C, D, F, period) || !tc_ok(x, g, dw, D, F))
+                                 int dtype, void* stream) {
+  if (bad_shape(Z, C, D, F, period) || !bwd_ok(x, g, dw, D, F, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return static_cast<int>(launch_tf32<kDw>(
+        Gemm{Z, period, C, D, F, 0, 0, Z / period * cdiv(C, kT3BK), 0}, x,
+        g, dw, D, F, f32_vec(x, g, dw, D, F), s));
   return static_cast<int>(launch_ws<kDw>(
-      Gemm{Z, period, C, D, F, 0, 0, Z / period * cdiv(C, kWsBK), 0},
-      x, g, dw, D, F, static_cast<cudaStream_t>(stream)));
+      Gemm{Z, period, C, D, F, 0, 0, Z / period * cdiv(C, kWsBK), 0}, x, g,
+      dw, D, F, s));
 }
 
 extern "C" const char* moe_gmm_error_string(int code) {

@@ -22,7 +22,15 @@ FLOP formula for ``FlopCounterMode`` (the unmasked score pairs × head
 dim: 4 per pair forward, 10 backward). A row that sees no key gives 0
 (and zero gradients) on the card, as the TPU kernel does, where the
 oracle gives NaN. ``fwd_launches`` and ``bwd_launches`` count kernel
-launches and nothing else.
+launches, ``route_launches`` both by route (:func:`route`), and nothing
+else.
+
+Routes (:func:`route`), by dtype: ``"wgmma"``, bf16 (tiles by TMA where
+rows are whole 16-byte chunks and the pointers aligned, else element by
+element); ``"tf32x3"``, f32: wgmma on TF32 operands split into big and
+small halves (3xTF32), which holds f32's tolerances (16-byte loads where
+rows are whole 16-byte chunks and the pointers aligned, else element by
+element).
 
 :func:`flash_attention_split` runs one key block of an attention split
 along its keys (a sequence-sharded K/V): the forward kernel on the block
@@ -46,10 +54,11 @@ from .ref import attention_lse_ref, attention_ref
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_split",
            "flash_attention_fwd", "flash_attention_bwd", "score_pairs",
-           "fwd_launches", "bwd_launches"]
+           "route", "fwd_launches", "bwd_launches", "route_launches"]
 
 fwd_launches = 0
 bwd_launches = 0
+route_launches = {"wgmma": 0, "tf32x3": 0}
 MAX_HEAD_DIM = 128
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -87,6 +96,13 @@ def flash_attention_plain(q, k, v, causal: bool = True,
                          kv_offset=kv_offset)
 
 
+def route(dtype: torch.dtype) -> str:
+    """The kernels a CUDA call of this dtype takes, as
+    ``csrc/flash_attention.cu`` chooses them: ``"wgmma"`` (bf16) or
+    ``"tf32x3"`` (f32)."""
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+
+
 def _shape_args(q, k, causal, scale, window, kv_offset):
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -110,6 +126,7 @@ def flash_attention_fwd(q, k, v, causal, scale, window, kv_offset):
                lse.data_ptr(),
                *_shape_args(q, k, causal, scale, window, kv_offset))
     fwd_launches += 1
+    route_launches[route(q.dtype)] += 1
     return out, lse
 
 
@@ -138,6 +155,7 @@ def _bwd(q, k, v, out, lse, dout, causal, scale, window, kv_offset):
                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                *_shape_args(q, k, causal, scale, window, kv_offset))
     bwd_launches += 3              # delta pre-pass, dK/dV, dQ
+    route_launches[route(q.dtype)] += 3
     return dq, dk, dv, delta
 
 

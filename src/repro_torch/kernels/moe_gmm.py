@@ -11,10 +11,18 @@ What bounds it: at the training shapes (x (64, 1280, 1024) @ w (32, 1024,
 0.087 ms of tensor-core work against 0.085 ms of memory traffic: on the
 ridge, so it needs full wgmma issue and no redundant bytes. At prefill
 (C 80) it is memory-bound by the 33.5 MB of expert weights. The CUDA
-source has the design: for bf16 with D and F multiples of 8, 16-byte
-aligned pointers and C > 32, persistent warp-specialised blocks run wgmma
-products fed by a TMA ring; decode (C <= 32) takes WMMA tiles; f32 and
-other widths take FMA tiles.
+source has the design. The kernels a call takes (:func:`route`, chosen
+before launch from the dtype, the widths and the pointers' alignment):
+
+  * ``"wgmma"``: bf16 with D and F multiples of 8, 16-byte aligned
+    pointers and C > 32 (and every such backward): persistent
+    warp-specialised blocks run wgmma products fed by a TMA ring;
+  * ``"wmma"``: the same bf16 widths at C <= 32 (decode): WMMA tiles;
+  * ``"tf32x3"``: f32: wgmma on TF32 operands split into big and small
+    halves (3xTF32), which holds f32's 1e-4 (16-byte loads where D and F
+    are multiples of 4 and the pointers aligned, else element by element);
+  * ``"fma"``: bf16 of other widths or unaligned pointers: CUDA-core FMA
+    tiles.
 
 A CPU tensor takes the plain version (:func:`moe_gmm_plain`) under
 autograd. A CUDA tensor launches a kernel on the current stream or
@@ -26,18 +34,17 @@ tensor (the dry run's) takes the same ops, which there only allocate
 their outputs; each op has a FLOP formula (2·Z·C·D·F) for
 ``FlopCounterMode``. The backward kernels:
 
-  * bf16 with D and F multiples of 8 and 16-byte aligned tensors: two
-    kernels that read x, w and g as stored, with no copy:
-    dx[z] = g[z] @ w[e]^T, and dw[e] = the sum over groups of
-    x[z]^T @ g[z], summed in registers in a fixed order (the bits repeat
-    from run to run);
-  * f32 and other widths: the forward kernel on transposed copies,
+  * f32, and bf16 of the ``"wgmma"`` widths: two kernels that read x, w
+    and g as stored, with no copy: dx[z] = g[z] @ w[e]^T, and dw[e] = the
+    sum over groups of x[z]^T @ g[z], summed in registers in a fixed
+    order (the bits repeat from run to run);
+  * bf16 of other widths: the forward kernel on transposed copies,
     dx = moe_gmm(g, w^T) with w^T (P, F, D) contiguous, and dw in one
     call with Z = P on x^T laid out (P, D, groups*C) and g laid out
     (P, groups*C, F).
 
-``launches`` counts forward kernel launches and ``bwd_launches`` backward
-ones, and nothing else.
+``launches`` counts forward kernel launches, ``bwd_launches`` backward
+ones and ``route_launches`` both by route, and nothing else.
 """
 
 from __future__ import annotations
@@ -50,16 +57,17 @@ from torch.utils.flop_counter import register_flop_formula
 from . import _build
 from .ref import moe_gmm_ref
 
-__all__ = ["moe_gmm", "moe_gmm_plain", "moe_gmm_bwd", "launches",
-           "bwd_launches"]
+__all__ = ["moe_gmm", "moe_gmm_plain", "moe_gmm_bwd", "route", "launches",
+           "bwd_launches", "route_launches"]
 
 launches = 0
 bwd_launches = 0
+route_launches = {"wgmma": 0, "wmma": 0, "tf32x3": 0, "fma": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-_BWD_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+_BWD_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _MAX_Z = 65535            # gridDim.z of the WMMA and FMA kernels
 
 
@@ -96,11 +104,31 @@ def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor,
     return out.to(x.dtype).reshape(Z, C, -1)
 
 
+def route(dtype: torch.dtype, C: int, D: int, F: int, aligned: bool,
+          backward: bool = False) -> str:
+    """The kernels a CUDA call takes, from the dtype, the widths and
+    whether every pointer it reads or writes is 16-byte aligned (as
+    ``csrc/moe_gmm.cu`` chooses them): ``"tf32x3"`` (f32), ``"wgmma"``
+    (bf16, D and F multiples of 8, aligned, C > 32 or a backward),
+    ``"wmma"`` (the same at C <= 32) or ``"fma"`` (bf16 otherwise)."""
+    if dtype == torch.float32:
+        return "tf32x3"
+    if D % 8 == 0 and F % 8 == 0 and aligned:
+        return "wgmma" if backward or C > 32 else "wmma"
+    return "fma"
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor, period: int) -> torch.Tensor:
-    """One kernel launch on contiguous CUDA tensors (uncounted)."""
+    """One kernel launch on contiguous CUDA tensors (counted by route
+    only)."""
     Z, C, D = x.shape
     F = w.shape[2]
     out = torch.empty((Z, C, F), dtype=x.dtype, device=x.device)
+    route_launches[route(x.dtype, C, D, F, _aligned(x, w, out))] += 1
     launch = _build.kernel_function("moe_gmm", "moe_gmm_launch", _ARGTYPES)
     with _build.on_device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -109,12 +137,13 @@ def _launch(x: torch.Tensor, w: torch.Tensor, period: int) -> torch.Tensor:
     return out
 
 
-def _in_place(x, w, g) -> bool:
-    """Whether the backward kernels that read x, w and g as stored take
-    these tensors: bf16, D and F multiples of 8, 16-byte aligned."""
-    return (x.dtype == torch.bfloat16 and x.shape[2] % 8 == 0
-            and w.shape[2] % 8 == 0
-            and all(t.data_ptr() % 16 == 0 for t in (x, w, g)))
+def _in_place(x, w, g) -> str | None:
+    """The route of the backward kernels that read x, w and g as stored,
+    where they take these tensors (``"tf32x3"`` for f32, ``"wgmma"`` for
+    bf16 of those widths), else None."""
+    kind = route(x.dtype, x.shape[1], x.shape[2], w.shape[2],
+                 _aligned(x, w, g), backward=True)
+    return kind if kind in ("wgmma", "tf32x3") else None
 
 
 def _launch_bwd(symbol, a, b, out, Z, C, D, F, period):
@@ -123,7 +152,7 @@ def _launch_bwd(symbol, a, b, out, Z, C, D, F, period):
     with _build.on_device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
         launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), Z, C, D, F,
-               period, stream)
+               period, _DTYPE_CODES[a.dtype], stream)
     return out
 
 
@@ -135,15 +164,18 @@ def moe_gmm_bwd(x, w, g, period, need_dx=True, need_dw=True):
     Z, C, D = x.shape
     F = w.shape[2]
     dx = dw = None
-    if _in_place(x, w, g):
+    kind = _in_place(x, w, g)
+    if kind:
         if need_dx:
             dx = _launch_bwd("moe_gmm_dx_launch", g, w, torch.empty_like(x),
                              Z, C, D, F, period)
             bwd_launches += 1
+            route_launches[kind] += 1
         if need_dw:
             dw = _launch_bwd("moe_gmm_dw_launch", x, g, torch.empty_like(w),
                              Z, C, D, F, period)
             bwd_launches += 1
+            route_launches[kind] += 1
         return dx, dw
     if need_dx:
         dx = _launch(g, w.transpose(1, 2).contiguous(), period)

@@ -9,6 +9,9 @@ JAX package's:
   rmsnorm    — x (..., D), w (D,).
   ssd        — x (B, S, H, P), a (B, S, H), b/c (B, S, G, N), state
                (B, H, N, P) f32.
+
+Beside them, the arithmetic of the f32 kernels' tensor-core products,
+3xTF32 (:func:`matmul_3xtf32`), emulated on any device.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 
 __all__ = ["rmsnorm_ref", "attention_ref", "attention_chunked_ref",
            "attention_lse_ref", "attention_chunked_lse_ref",
-           "moe_gmm_ref", "ssd_ref", "ssd_chunked_ref"]
+           "moe_gmm_ref", "ssd_ref", "ssd_chunked_ref", "tf32_round",
+           "tf32_split", "matmul_3xtf32"]
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
@@ -222,3 +226,31 @@ def ssd_chunked_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if return_state:
         return y, h
     return y
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x as float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: 10
+    mantissa bits, to nearest with ties away from zero, by integer
+    operations on the bits (adding half of the 13 dropped bits' unit to
+    the magnitude carries into the kept ones); inf and NaN pass as they
+    are."""
+    x = x.float().contiguous()
+    bits = (x.view(torch.int32) + 0x1000) & ~0x1FFF
+    return torch.where(torch.isfinite(x), bits.view(torch.float32), x)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(big, small): big = tf32(x), small = tf32(x - big), the halves the
+    f32 kernels feed their tensor cores."""
+    big = tf32_round(x)
+    return big, tf32_round(x.float() - big)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in float32 as the f32 kernels' tensor cores compute it:
+    a_small b_big + a_big b_small + a_big b_big, each a product of TF32
+    values (exact in float32), summed in float32; a_small b_small, about
+    2^-22 of the product, is left out."""
+    a_big, a_small = tf32_split(a)
+    b_big, b_small = tf32_split(b)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big

@@ -49,6 +49,19 @@ def _card():
     # tiles with 48 padded columns), and a ragged edge
     (512, 512, 16, 16, 80, False, None, 0),
     (300, 300, 4, 4, 80, False, None, 0),
+    # the f32 kernels' tiles (64 q rows; 64 or 32 keys in the forward and
+    # dQ passes, 64 keys and 64, 32 or 16 q rows in dK/dV): S at a tile's
+    # edge -1, +0, +1 at the reduced head dim 16, at 64 and at 96 and 128,
+    # and head dim 30 (rows not whole 16-byte chunks: element loads)
+    (63, 63, 4, 2, 16, True, None, 0),
+    (64, 64, 4, 2, 16, True, None, 0),
+    (65, 65, 4, 2, 16, False, None, 0),
+    (127, 127, 4, 2, 64, True, None, 0),
+    (128, 128, 4, 1, 64, True, None, 0),
+    (129, 129, 4, 2, 64, False, None, 0),
+    (95, 95, 4, 4, 96, True, None, 0),
+    (97, 97, 4, 2, 128, True, 40, 0),
+    (50, 50, 2, 1, 30, True, None, 0),
 ])
 def test_flash_attention_kernel_on_card(dtype, Sq, Skv, Hq, Hkv, D, causal,
                                         window, off):
@@ -62,11 +75,14 @@ def test_flash_attention_kernel_on_card(dtype, Sq, Skv, Hq, Hkv, D, causal,
     do = torch.randn((2, Sq, Hq, D), generator=g, device="cuda").to(dtype)
     ts = [t.clone().requires_grad_() for t in (q, k, v)]
     before = (fa.fwd_launches, fa.bwd_launches)
+    kind = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    routed = fa.route_launches[kind]
     out = ops.flash_attention(*ts, causal=causal, window=window,
                               kv_offset=off)
     got = torch.autograd.grad(out, ts, do)
     assert (fa.fwd_launches, fa.bwd_launches) == (before[0] + 1,
                                                   before[1] + 3)
+    assert fa.route_launches[kind] == routed + 4
     rs = [t.float().requires_grad_() for t in (q, k, v)]
     ref_out = fa.flash_attention_plain(*rs, causal=causal, window=window,
                                        kv_offset=off)
@@ -79,15 +95,16 @@ def test_flash_attention_kernel_on_card(dtype, Sq, Skv, Hq, Hkv, D, causal,
 
 
 @pytest.mark.cuda
-def test_flash_attention_backward_repeats_bits():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_repeats_bits(dtype):
     """The backward has no atomics: two runs give the same bits."""
     from repro_torch.kernels import flash_attention as fa
     _card()
     g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn((2, 1000, 16, 64), generator=g, device="cuda").bfloat16()
-    k = torch.randn((2, 1000, 8, 64), generator=g, device="cuda").bfloat16()
-    v = torch.randn((2, 1000, 8, 64), generator=g, device="cuda").bfloat16()
-    do = torch.randn((2, 1000, 16, 64), generator=g, device="cuda").bfloat16()
+    q = torch.randn((2, 1000, 16, 64), generator=g, device="cuda").to(dtype)
+    k = torch.randn((2, 1000, 8, 64), generator=g, device="cuda").to(dtype)
+    v = torch.randn((2, 1000, 8, 64), generator=g, device="cuda").to(dtype)
+    do = torch.randn((2, 1000, 16, 64), generator=g, device="cuda").to(dtype)
     args = (True, 0.125, None, 0)
     out, lse = fa.flash_attention_fwd(q, k, v, *args)
     first = fa.flash_attention_bwd(q, k, v, out, lse, do, *args)
@@ -132,9 +149,12 @@ def test_moe_gmm_backward_kernel_on_card(dtype):
     gy = torch.randn((6, 40, 24), generator=g, device="cuda").to(dtype)
     xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
     before = (gmm_mod.launches, gmm_mod.bwd_launches)
+    kind = "tf32x3" if dtype == torch.float32 else "wgmma"
+    routed = gmm_mod.route_launches[kind]
     got = torch.autograd.grad(ops.moe_gmm(xs, ws, 3), (xs, ws), gy)
     assert (gmm_mod.launches, gmm_mod.bwd_launches) == (before[0] + 1,
                                                         before[1] + 2)
+    assert gmm_mod.route_launches[kind] == routed + 3
     xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
     want = torch.autograd.grad(gmm_mod.moe_gmm_plain(xr, wr, 3), (xr, wr), gy)
     tol = 1e-4 if dtype == torch.float32 else 3e-2
@@ -170,10 +190,10 @@ def _gmm_inputs(Z, C, D, F, P, dtype, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C", [64, 65, 127, 129])
+@pytest.mark.parametrize("C", [64, 65, 127, 128, 129])
 def test_moe_gmm_forward_tile_edges_on_card(dtype, C):
-    """The wgmma route's 128 x 128 tiles: C at and around a tile's rows
-    (one consumer's 64, 128), F 136 a ragged column tile."""
+    """The wgmma and 3xTF32 routes' 128 x 128 tiles: C at and around a
+    tile's rows (one consumer's 64, 128), F 136 a ragged column tile."""
     _card()
     x, w, _ = _gmm_inputs(4, C, 256, 136, 2, dtype)
     got = ops.moe_gmm(x, w, expert_period=2)
@@ -191,6 +211,15 @@ def test_moe_gmm_forward_tile_edges_on_card(dtype, C):
     (6, 100, 264, 200, 3),
     (64, 72, 1024, 512, 32),       # the train shapes' widths, small C
     (64, 72, 512, 1024, 32),
+    # the 3xTF32 route: the reduced widths (64-wide tiles), dw's 32-row
+    # depth stages at C 31, 32, 33 and a 128-row tile's edge
+    (4, 40, 64, 32, 2),
+    (4, 40, 32, 64, 2),
+    (4, 31, 64, 36, 2),
+    (4, 32, 64, 36, 2),
+    (4, 33, 64, 36, 2),
+    (2, 129, 128, 132, 1),
+    (3, 33, 50, 70, 3),            # rows not whole 16-byte chunks
 ])
 def test_moe_gmm_backward_shapes_on_card(dtype, Z, C, D, F, P):
     """dx and dw against the plain version's autograd; two launches."""
@@ -208,11 +237,12 @@ def test_moe_gmm_backward_shapes_on_card(dtype, Z, C, D, F, P):
 
 
 @pytest.mark.cuda
-def test_moe_gmm_backward_repeats_bits():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_backward_repeats_bits(dtype):
     """dw sums over the groups in registers in a fixed order: two runs
     give the same bits."""
     _card()
-    x, w, gy = _gmm_inputs(6, 100, 264, 200, 3, torch.bfloat16)
+    x, w, gy = _gmm_inputs(6, 100, 264, 200, 3, dtype)
     first = gmm_mod.moe_gmm_bwd(x, w, gy, 3)
     again = gmm_mod.moe_gmm_bwd(x, w, gy, 3)
     for a, b in zip(first, again):
@@ -220,12 +250,13 @@ def test_moe_gmm_backward_repeats_bits():
 
 
 @pytest.mark.cuda
-def test_moe_gmm_backward_makes_no_copy():
-    """A bf16 backward of aligned widths reads x, w and g as stored: the
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_backward_makes_no_copy(dtype):
+    """A backward of aligned widths reads x, w and g as stored: the
     profiler sees the two moe_gmm kernels and no other kernel."""
     from torch.profiler import ProfilerActivity, profile
     _card()
-    x, w, gy = _gmm_inputs(4, 100, 264, 200, 2, torch.bfloat16)
+    x, w, gy = _gmm_inputs(4, 100, 264, 200, 2, dtype)
     gmm_mod.moe_gmm_bwd(x, w, gy, 2)        # build and load outside
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
