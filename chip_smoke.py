@@ -1335,13 +1335,6 @@ def ssd_work(B, S, H, P, G, N, L, size):
     return fwd_bytes, fwd_ops, bwd_bytes, bwd_ops
 
 
-def ssd_saved_bytes(B, S, H, N, P, L):
-    """Bytes of the f32 state at every chunk's start (``states``, written
-    by the forward); ``dstates`` in the backward is as large. Neither is
-    in the bound, which counts the function's own inputs and outputs."""
-    return 4 * B * H * (-(-S // L)) * N * P
-
-
 def ssd_phase(ssd) -> dict:
     """ssd_scan's forward and backward kernels against the plain version
     (ssd_chunked_ref and its autograd, in f32) on the same inputs, and two
@@ -1378,8 +1371,11 @@ def ssd_phase(ssd) -> dict:
             gy = torch.randn((B, S, H, P), generator=g,
                              device="cuda").to(dtype)
             gh = torch.randn((B, H, N, P), generator=g, device="cuda")
+            r0 = dict(ssd.route_launches)
             y, hT, saved = ssd.ssd_scan_fwd(x, a, b, c, chunk, True)
             grads = ssd.ssd_scan_bwd(x, a, b, c, saved, gy, gh, chunk)
+            expect_route(f"ssd_scan {label} {dtype}",
+                         route_of(ssd.route_launches, r0), kind)
             again = ssd.ssd_scan_bwd(x, a, b, c, saved, gy, gh, chunk)
             rs = [t.float().requires_grad_() for t in (x, a, b, c)]
             ry, rh = ssd.ssd_scan_plain(*rs, chunk=chunk)
@@ -1421,7 +1417,10 @@ def ssd_phase(ssd) -> dict:
                 res["bwd"]["plain_ms"] = event_ms(
                     lambda: torch.autograd.grad(
                         (ry, rh), rs, (gy.float(), gh), retain_graph=True))
-                saved_mb = ssd_saved_bytes(B, S, H, N, P, L) / 1e6
+                # the f32 states the forward saves (at every chunk's
+                # start: outside the bound, which counts the function's own
+                # inputs and outputs); dstates in the backward is as large
+                saved_mb = saved[0].numel() * 4 / 1e6
                 line += "".join(
                     f"; {k} kernel_ms {r['ms']:.4f} plain_ms "
                     f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
@@ -1509,14 +1508,21 @@ def serve_phase(gmm) -> int:
     generate(cfg, params, prompts[:, :8], 2, dev)      # warm-up (cuBLAS)
 
     gmm.launches = 0
+    routed = dict(gmm.route_launches)
     torch.cuda.reset_peak_memory_stats()
     tokens, st = generate(cfg, params, prompts, GEN, dev)
     launches = gmm.launches
+    by_route = {k: v - routed[k] for k, v in gmm.route_launches.items()
+                if v != routed[k]}
     expected = cfg.num_layers * 3 * GEN
     per_tok = st["decode_s"] / (GEN - 1)
     log(f"[serve] batch={BATCH} prompt={PROMPT} gen={GEN} "
         f"moe_impl=kernel: moe_gmm launches {launches} (expected "
-        f"{cfg.num_layers} layers x 3 x {GEN} forwards = {expected})")
+        f"{cfg.num_layers} layers x 3 x {GEN} forwards = {expected}), by "
+        f"route {by_route}")
+    if not by_route.get("wgmma_decode"):
+        raise AssertionError(f"serving's decode steps did not take the "
+                             f"wgmma_decode route: {by_route}")
     log(f"[serve] prefill {st['prefill_s']*1e3:.3f} ms "
         f"({BATCH*PROMPT/st['prefill_s']:.1f} tok/s)")
     log(f"[serve] decode {per_tok*1e3:.3f} ms/token "
@@ -1594,20 +1600,22 @@ def serve_phase(gmm) -> int:
 
 @contextlib.contextmanager
 def f32_routes(tag: str):
-    """Around a float32 phase (``tag`` heads its log line): its flash and
-    moe_gmm launches, logged by route, must all have taken the 3xTF32
-    kernels."""
+    """Around a float32 phase (``tag`` heads its log line): its flash,
+    moe_gmm and ssd_scan launches, logged by route, must all have taken
+    the 3xTF32 kernels."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import ssd_scan as ssd
 
     def snap():
         return {f"{name} {k}": v for name, mod in (("flash", fa),
-                                                   ("moe_gmm", gmm))
+                                                   ("moe_gmm", gmm),
+                                                   ("ssd_scan", ssd))
                 for k, v in mod.route_launches.items()}
     before = snap()
     yield
     got = {k: v - before[k] for k, v in snap().items() if v != before[k]}
-    log(f"{tag}: flash and moe_gmm launches by route: {got}")
+    log(f"{tag}: flash, moe_gmm and ssd_scan launches by route: {got}")
     if not got or any(not k.endswith(" tf32x3") for k in got):
         raise AssertionError(f"{tag}: f32 launches off the 3xTF32 route: "
                              f"{got}")
@@ -2238,11 +2246,13 @@ def mamba_check_reduced() -> None:
         state = adamw_init(dict(params.named_parameters()), opt_cfg,
                            period=len(cfg.pattern))
         out = []
-        for s in range(5):
-            params, state, _, loss, _ = step_fn(
-                params, state, None, train_mod.to_device(pipe.batch_at(s),
-                                                         dev))
-            out.append(float(loss))
+        with (f32_routes(f"[check] reduced {cfg.name}") if dev == "cuda"
+              else contextlib.nullcontext()):
+            for s in range(5):
+                params, state, _, loss, _ = step_fn(
+                    params, state, None,
+                    train_mod.to_device(pipe.batch_at(s), dev))
+                out.append(float(loss))
         losses[dev] = out
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
                                                   losses["cpu"]))
@@ -2530,7 +2540,7 @@ def _jamba_phase(gmm, fa, rms) -> dict:
 
     def layers_of(pred):
         return R * sum(1 for slot in cfg.pattern if pred(slot))
-    nf, nb = ssd.LAUNCHES["fma"]            # f32 takes the FMA kernels
+    nf, nb = ssd.LAUNCHES["tf32x3"]         # f32 takes the 3xTF32 kernels
     per_step = dict(
         moe_gmm=3 * calls(lambda s: s[1] == "moe"),
         moe_gmm_bwd=6 * layers_of(lambda s: s[1] == "moe"),

@@ -6,11 +6,16 @@ one card, in turns.
 ``OTHER/src`` is the ``src`` directory of another checkout of this repo
 (for example a parent commit unpacked with ``git archive``). Each tree's
 ``moe_gmm`` is built from its own ``csrc/`` into its own build directory.
-At the serving and training shapes in bf16, both kernels are held against
-this checkout's plain version, then timed in the order other, this, this,
-other: the forward from a CUDA graph over argument sets that exceed the
-L2, the backward (dx and dw) by CUDA events around 5 calls after a
-warm-up. Prints the card's name and power limit first, one line per shape
+At the serving (prefill and decode) and training shapes in bf16, and the
+training gate/up in f32, both kernels are held against this checkout's
+plain version (f32: against the plain arithmetic in float64), then timed
+in the order other, this, this, other: the forward from a CUDA graph of
+at least 16 calls cycling over argument sets that exceed the L2 (so the
+graph's own launch, some microseconds, is spread over 16 calls and not
+over the two or three sets a decode shape needs), the backward (dx and
+dw) by CUDA events around 5 calls after a warm-up; then the library call
+(``torch.bmm``, or ``torch.matmul`` over the groups) the same way as the
+forward, with TF32 off. Prints the card's name and power limit first, one line per shape
 and tree, and a JSON line of the best time of each. Needs a CUDA card.
 """
 
@@ -29,16 +34,20 @@ import torch
 
 from . import moe_gmm as this_gmm
 
-# (label, Z = groups x experts, C, D, F, expert period): chip_smoke.py's
-# serving and training shapes
+# (label, Z = groups x experts, C, D, F, expert period, dtype):
+# chip_smoke.py's serving and training shapes
 SHAPES = [
-    ("prefill gate/up", 32, 80, 1024, 512, 32),
-    ("prefill down", 32, 80, 512, 1024, 32),
-    ("train gate/up", 64, 1280, 1024, 512, 32),
-    ("train down", 64, 1280, 512, 1024, 32),
+    ("prefill gate/up", 32, 80, 1024, 512, 32, torch.bfloat16),
+    ("prefill down", 32, 80, 512, 1024, 32, torch.bfloat16),
+    ("decode gate/up", 32, 8, 1024, 512, 32, torch.bfloat16),
+    ("decode down", 32, 8, 512, 1024, 32, torch.bfloat16),
+    ("train gate/up", 64, 1280, 1024, 512, 32, torch.bfloat16),
+    ("train down", 64, 1280, 512, 1024, 32, torch.bfloat16),
+    ("train gate/up", 64, 1280, 1024, 512, 32, torch.float32),
 ]
 BWD = {"train gate/up", "train down"}
-TOL = 3e-2                                 # bf16, tests/test_kernels.py
+# tests/test_kernels.py's tolerances (atol = rtol)
+TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
 L2_BYTES = 50e6
 
 
@@ -54,7 +63,8 @@ def _load_other(src: Path):
     return importlib.import_module("other_kernels.moe_gmm")
 
 
-def _graph_ms(fn, sets, reps: int = 3) -> float:
+def _graph_ms(fn, sets, reps: int = 3, calls: int = 16) -> float:
+    sets = [sets[i % len(sets)] for i in range(max(calls, len(sets)))]
     for a in sets:                          # warm-up outside the capture
         fn(*a)
     torch.cuda.synchronize()
@@ -87,13 +97,30 @@ def _event_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _check(what, got, want) -> float:
-    diff = (got.float() - want.float()).abs()
+def _check(what, got, want, tol: float) -> float:
+    diff = (got.double() - want.double()).abs()
     if not torch.isfinite(got.float()).all() or \
-            (diff - TOL - TOL * want.float().abs()).max().item() > 0:
+            (diff - tol - tol * want.double().abs()).max().item() > 0:
         raise AssertionError(f"{what}: max |err| {diff.max().item():.3e} "
-                             f"beyond {TOL} abs + rel")
+                             f"beyond {tol} abs + rel")
     return diff.max().item()
+
+
+def _reference(x, w, P, gy):
+    """The output and (dx, dw): the plain version and its autograd for
+    bf16 inputs; for f32 inputs its arithmetic in float64 (an f32 sum at
+    the training dw's depth is itself off the exact one by more than
+    1e-4)."""
+    if x.dtype == torch.float32:
+        x, w, gy = x.double(), w.double(), gy.double()
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    if x.dtype == torch.float64:
+        Z, C, D = x.shape
+        out = torch.matmul(xr.view(Z // P, P, C, D), wr).view(Z, C, -1)
+    else:
+        out = this_gmm.moe_gmm_plain(xr, wr, P)
+    grads = torch.autograd.grad(out, (xr, wr), gy)
+    return out.detach(), grads
 
 
 def main() -> int:
@@ -112,42 +139,53 @@ def main() -> int:
     trees = {"other": _load_other(args.other.resolve()), "this": this_gmm}
     gen = torch.Generator(device="cuda").manual_seed(0)
     best: dict = {}
-    for label, Z, C, D, F, P in SHAPES:
-        nbytes = (Z * C * D + P * D * F) * 2
+    for label, Z, C, D, F, P, dtype in SHAPES:
+        size = torch.tensor([], dtype=dtype).element_size()
+        nbytes = (Z * C * D + P * D * F) * size
         sets = [(torch.randn((Z, C, D), generator=gen, device="cuda")
-                 .bfloat16(),
+                 .to(dtype),
                  (torch.randn((P, D, F), generator=gen, device="cuda")
-                  / math.sqrt(D)).bfloat16())
+                  / math.sqrt(D)).to(dtype))
                 for _ in range(max(2, min(16, math.ceil(2 * L2_BYTES
                                                          / nbytes))))]
         x, w = sets[0]
-        gy = torch.randn((Z, C, F), generator=gen, device="cuda").bfloat16()
-        want = this_gmm.moe_gmm_plain(x, w, P)
-        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
-        dwant = torch.autograd.grad(this_gmm.moe_gmm_plain(xr, wr, P),
-                                    (xr, wr), gy)
+        gy = torch.randn((Z, C, F), generator=gen, device="cuda").to(dtype)
+        want, dwant = _reference(x, w, P, gy)
+        tol, dt = TOL[dtype], str(dtype).removeprefix("torch.")
         flops = 2.0 * Z * C * D * F
         for turn, name in enumerate(("other", "this", "this", "other")):
             gmm = trees[name]
-            err = _check(f"{name} {label} forward", gmm.moe_gmm(x, w, P),
-                         want)
+            err = _check(f"{name} {label} {dt} forward",
+                         gmm.moe_gmm(x, w, P), want, tol)
             ms = _graph_ms(lambda a, b: gmm.moe_gmm(a, b, P), sets)
-            line = (f"{label:16s} {name:5s} turn {turn}: forward {ms:.4f} "
-                    f"ms {flops / ms / 1e9:.1f} TFLOP/s (max|err| "
+            line = (f"{label:16s} {dt:8s} {name:5s} turn {turn}: forward "
+                    f"{ms:.4f} ms {flops / ms / 1e9:.1f} TFLOP/s (max|err| "
                     f"{err:.3e})")
-            best[(label, name, "fwd")] = min(
-                best.get((label, name, "fwd"), math.inf), ms)
+            key = (label, dt, name)
+            best[key + ("fwd",)] = min(best.get(key + ("fwd",), math.inf), ms)
             if label in BWD:
                 dx, dw = gmm.moe_gmm_bwd(x, w, gy, P)
-                err = max(_check(f"{name} {label} dx", dx, dwant[0]),
-                          _check(f"{name} {label} dw", dw, dwant[1]))
+                err = max(_check(f"{name} {label} {dt} dx", dx, dwant[0],
+                                 tol),
+                          _check(f"{name} {label} {dt} dw", dw, dwant[1],
+                                 tol))
+                del dx, dw
                 bms = _event_ms(lambda: gmm.moe_gmm_bwd(x, w, gy, P))
                 line += (f"; backward {bms:.4f} ms {2 * flops / bms / 1e9:.1f}"
                          f" TFLOP/s (max|err| {err:.3e})")
-                best[(label, name, "bwd")] = min(
-                    best.get((label, name, "bwd"), math.inf), bms)
+                best[key + ("bwd",)] = min(best.get(key + ("bwd",), math.inf),
+                                           bms)
             print(line, flush=True)
-        del sets, x, w, gy, want, xr, wr, dwant
+        if P == Z:
+            lib = torch.bmm
+        else:
+            def lib(a, b, G=Z // P):
+                return torch.matmul(a.view(G, P, C, D), b)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        ms = _graph_ms(lib, sets)
+        print(f"{label:16s} {dt:8s} library forward {ms:.4f} ms", flush=True)
+        best[(label, dt, "library", "fwd")] = ms
+        del sets, x, w, gy, want, dwant
         torch.cuda.empty_cache()
     print(json.dumps({"card": card, "best_ms": {
         " | ".join(k): v for k, v in best.items()}}), flush=True)

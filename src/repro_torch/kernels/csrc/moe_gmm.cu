@@ -16,14 +16,17 @@
 // 285 MB at 3.35 TB/s; the call sits on the ridge, so it needs both full
 // tensor-core issue and no redundant traffic; the backward is twice the
 // work. Prefill (C = 80): memory-bound, the 33.5 MB of expert weights
-// (12 us) against 3 us of products. Decode (C = 8): the weights alone.
+// (12 us) against 3 us of products. Decode (C = 8): the weights alone,
+// 33.5 MB (0.0100 ms at 3.35 TB/s) against 0.27 GFLOP; keeping the memory
+// busy takes about 3 MB of loads in flight across the card (~25 KB an
+// SM) at all times.
 //
 // Routes, chosen before launch:
 //  * bf16, D and F multiples of 8, 16-byte aligned pointers, C > 32 (every
 //    train and prefill shape), and the backward at every such C: wgmma
 //    fed by a TMA ring (below);
-//  * bf16 at C <= 32 (decode), same widths: WMMA 16x16x16 tiles, 16 or
-//    32 rows, two cp.async stages (decode is host-bound);
+//  * bf16 at C <= 32 (decode), same widths: the weights stream through
+//    wgmma as its 64-row A with the tokens as N (the decode route below);
 //  * f32 (the reduced configs, [jamba], any f32 model), forward and
 //    backward: 3xTF32 on wgmma (wgmma_tf32.cuh; the f32 route below),
 //    which holds f32's 1e-4, reading x, w and g as stored (16-byte loads
@@ -31,8 +34,8 @@
 //    else element by element);
 //  * bf16 of other widths: FMAs on tiles staged as float. Their backward
 //    runs the forward kernel on transposed copies made by the wrapper.
-// The WMMA and FMA kernels run one block per (F tile, C tile, z) with the
-// D loop inside the block and mask ragged C, D and F themselves.
+// The FMA kernel runs one block per (F tile, C tile, z) with the D loop
+// inside the block and masks ragged C, D and F itself.
 //
 // The f32 route: tf32 operands in shared memory must be K-major, so the
 // MN-major ones as stored (w in the forward, x and g in dw) are
@@ -87,7 +90,6 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
@@ -190,134 +192,6 @@ moe_gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int c = col0 + tx + n * kThreadsX;
       if (c < F) oz[static_cast<size_t>(r) * F + c] = from_f32<T>(acc[m][n]);
     }
-  }
-}
-
-// ---------------------------------------------------------------------
-// bf16 tensor-core path
-// ---------------------------------------------------------------------
-
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = kTcWarps * 32;
-constexpr int kTcBN = kTcWarps * 16;       // 64 columns per block
-constexpr int kTcBK = 64;                  // depth of one stage
-constexpr int kTcPad = 8;                  // bf16 elements of row padding
-constexpr int kTcLdA = kTcBK + kTcPad;     // 72: rows stay 16-byte aligned
-constexpr int kTcLdB = kTcBN + kTcPad;
-constexpr int kTcLdC = kTcBN + 4;          // f32 epilogue tile
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned dst =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 16 : 0;    // 0: fill the 16 bytes with 0
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// MF 16-row fragments per warp along C: the block covers 16 * MF rows.
-template <int MF>
-__global__ void __launch_bounds__(kTcThreads)
-moe_gmm_tc_kernel(const __nv_bfloat16* __restrict__ x,
-                  const __nv_bfloat16* __restrict__ w,
-                  __nv_bfloat16* __restrict__ out, int C, int D, int F,
-                  int period) {
-  using namespace nvcuda;
-  constexpr int kBM = 16 * MF;
-  constexpr int kStageA = kBM * kTcLdA;    // elements
-  constexpr int kStageB = kTcBK * kTcLdB;
-  constexpr int kPipeBytes = 2 * (kStageA + kStageB) * 2;
-  constexpr int kEpiBytes = kBM * kTcLdC * 4;
-  constexpr int kSmemBytes = kPipeBytes > kEpiBytes ? kPipeBytes : kEpiBytes;
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + 2 * kStageA;
-
-  const int z = blockIdx.z;
-  const int e = z % period;
-  const int row0 = blockIdx.y * kBM;
-  const int col0 = blockIdx.x * kTcBN;
-  const __nv_bfloat16* xz = x + static_cast<size_t>(z) * C * D;
-  const __nv_bfloat16* we = w + static_cast<size_t>(e) * D * F;
-  __nv_bfloat16* oz = out + static_cast<size_t>(z) * C * F;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-
-  // one stage: x rows [row0, row0+kBM) x depth [k0, k0+kTcBK) and w depth
-  // [k0, k0+kTcBK) x columns [col0, col0+kTcBN), 8 bf16 per copy
-  auto load_stage = [&](int stage, int k0) {
-    __nv_bfloat16* a = As + stage * kStageA;
-    __nv_bfloat16* b = Bs + stage * kStageB;
-    for (int v = tid; v < kBM * (kTcBK / 8); v += kTcThreads) {
-      const int r = v / (kTcBK / 8), c = (v % (kTcBK / 8)) * 8;
-      const bool ok = row0 + r < C && k0 + c < D;
-      cp_async16(a + r * kTcLdA + c,
-                 ok ? xz + static_cast<size_t>(row0 + r) * D + k0 + c : xz,
-                 ok);
-    }
-    for (int v = tid; v < kTcBK * (kTcBN / 8); v += kTcThreads) {
-      const int r = v / (kTcBN / 8), c = (v % (kTcBN / 8)) * 8;
-      const bool ok = k0 + r < D && col0 + c < F;
-      cp_async16(b + r * kTcLdB + c,
-                 ok ? we + static_cast<size_t>(k0 + r) * F + col0 + c : we,
-                 ok);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MF];
-#pragma unroll
-  for (int m = 0; m < MF; ++m) wmma::fill_fragment(acc[m], 0.f);
-
-  const int nk = (D + kTcBK - 1) / kTcBK;
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load_stage((kt + 1) & 1, (kt + 1) * kTcBK);
-      cp_async_commit();
-      cp_async_wait<1>();                  // stage kt has landed
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* a = As + (kt & 1) * kStageA;
-    const __nv_bfloat16* b = Bs + (kt & 1) * kStageB;
-#pragma unroll
-    for (int ks = 0; ks < kTcBK; ks += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> bf;
-      wmma::load_matrix_sync(bf, b + ks * kTcLdB + warp * 16, kTcLdB);
-#pragma unroll
-      for (int m = 0; m < MF; ++m) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> af;
-        wmma::load_matrix_sync(af, a + m * 16 * kTcLdA + ks, kTcLdA);
-        wmma::mma_sync(acc[m], af, bf, acc[m]);
-      }
-    }
-    __syncthreads();                       // the stage may be refilled
-  }
-
-  // epilogue through shared memory (the pipeline buffers are done):
-  // masked stores of the valid rows and columns, rounded to bf16
-  float* Cs = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int m = 0; m < MF; ++m)
-    wmma::store_matrix_sync(Cs + m * 16 * kTcLdC + warp * 16, acc[m], kTcLdC,
-                            wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < kBM * kTcBN; i += kTcThreads) {
-    const int r = i / kTcBN, c = i % kTcBN;
-    if (row0 + r < C && col0 + c < F)
-      oz[static_cast<size_t>(row0 + r) * F + col0 + c] =
-          __float2bfloat16_rn(Cs[r * kTcLdC + c]);
   }
 }
 
@@ -587,6 +461,144 @@ cudaError_t launch_ws(Gemm p, const void* a, const void* b, void* out,
 }
 
 // ---------------------------------------------------------------------
+// bf16 decode route (C <= 32): the expert weights streamed through wgmma
+// ---------------------------------------------------------------------
+// out[z]^T (F x C) = w[e]^T (F x D) x[z]^T (D x C): the weights fill
+// wgmma's 64 rows (w as stored, D x F, is an MN-major A, read through the
+// transpose bit) and the tokens are its N: the C rows of every group that
+// reads this expert, each group's padded to Cp = C rounded up to 8 and
+// stacked, N the stack rounded up to a power of two (8 .. 128; groups
+// past 128 / Cp go to further blocks), so each expert's weights are read
+// once a call. A block is one warpgroup owning 64 columns of F of one
+// expert; its thread 0 keeps kStages TMA stages of 64 rows of D in flight
+// (w 8 KB, each group's x Cp x 128 bytes), each released by the four
+// warps once their product has read it. At the decode shapes that is 256
+// or 512 blocks, three resident an SM, with 64 KB each in flight:
+// several times what the memory rate needs.
+constexpr int kDecBK = 64;                 // rows of D a stage
+constexpr int kDecThreads = 128;
+
+template <int NB>
+struct DecCfg {
+  static constexpr int kStages = NB <= 32 ? 8 : 4;
+  static constexpr int kW = kPanel;        // 64 x 64 bf16 of w
+  static constexpr int kStage = kW + NB * 128;
+  static constexpr size_t bytes =
+      1024 + kStages * kStage + 2 * kStages * sizeof(uint64_t);
+};
+
+struct Dec {
+  int Z, P, C, D, F, Cp, gb;               // gb: groups a block stacks
+};
+
+template <int NB>
+__global__ void __launch_bounds__(kDecThreads)
+moe_gmm_decode_kernel(Dec p, const __grid_constant__ CUtensorMap tw,
+                      const __grid_constant__ CUtensorMap tx,
+                      __nv_bfloat16* __restrict__ out) {
+  using Cfg = DecCfg<NB>;
+  constexpr int kStages = Cfg::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * Cfg::kStage);
+  uint64_t* empty = full + kStages;        // the four warps are done
+  const int f0 = blockIdx.x * 64, e = blockIdx.y, g0 = blockIdx.z * p.gb;
+  const int groups = min(p.gb, p.Z / p.P - g0);
+  const int nk = (p.D + kDecBK - 1) / kDecBK;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kDecThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // stage k: w[e] rows k * 64 .., columns f0 ..; each group's x rows
+  // (the map's bounds zero rows past C, columns past D and F)
+  auto load_stage = [&](int k) {
+    unsigned char* st = ring + (k % kStages) * Cfg::kStage;
+    uint64_t* bar = &full[k % kStages];
+    mbar_expect(bar, Cfg::kW + groups * p.Cp * 128);
+    tma_load_3d(st, tw, bar, f0, k * kDecBK, e);
+    for (int gi = 0; gi < groups; ++gi)
+      tma_load_3d(st + Cfg::kW + gi * p.Cp * 128, tx, bar, k * kDecBK, 0,
+                  (g0 + gi) * p.P + e);
+  };
+  if (threadIdx.x == 0)
+    for (int k = 0; k < kStages && k < nk; ++k) load_stage(k);
+  float acc[NB / 2];
+#pragma unroll
+  for (int i = 0; i < NB / 2; ++i) acc[i] = 0.f;
+  for (int k = 0; k < nk; ++k) {
+    const int s = k % kStages;
+    const unsigned char* st = ring + s * Cfg::kStage;
+    mbar_wait(&full[s], (k / kStages) & 1);
+    wgmma::fence_operand(acc);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < kDecBK / 16; ++kk)
+      wgmma::wgmma_ss_acc<1, 0>(acc, wgmma::mnmajor<64>(st, kk),
+                                wgmma::kmajor<NB>(st + Cfg::kW, 0, kk));
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operand(acc);
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (threadIdx.x == 0 && k + kStages < nk) {
+      mbar_wait(&empty[s], (k / kStages) & 1);
+      load_stage(k + kStages);
+    }
+  }
+  // element (row f, column n = gi Cp + c) to out[z][c][f]
+  const int frow = f0 + 16 * (threadIdx.x / 32) + lane / 4;
+#pragma unroll
+  for (int i = 0; i < NB / 2; ++i) {
+    const int f = frow + 8 * ((i / 2) % 2);
+    const int n = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+    const int gi = n / p.Cp, c = n % p.Cp;
+    if (f < p.F && gi < groups && c < p.C)
+      out[(static_cast<size_t>((g0 + gi) * p.P + e) * p.C + c) * p.F + f] =
+          __float2bfloat16_rn(acc[i]);
+  }
+}
+
+template <int NB>
+cudaError_t launch_decode_nb(const Dec& p, const void* x, const void* w,
+                             void* out, cudaStream_t s) {
+  CUtensorMap tw, tx;
+  cudaError_t e = map3(&tw, w, p.F, p.D, p.P, 64);
+  if (e == cudaSuccess) e = map3(&tx, x, p.D, p.C, p.Z, p.Cp);
+  if (e != cudaSuccess) return e;
+  static bool smem_set = false;
+  if (!smem_set) {
+    e = cudaFuncSetAttribute(moe_gmm_decode_kernel<NB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(DecCfg<NB>::bytes));
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  const dim3 grid(cdiv(p.F, 64), p.P, cdiv(p.Z / p.P, p.gb));
+  moe_gmm_decode_kernel<NB><<<grid, kDecThreads, DecCfg<NB>::bytes, s>>>(
+      p, tw, tx, static_cast<__nv_bfloat16*>(out));
+  return cudaGetLastError();
+}
+
+// One launch of the decode route: N the stacked groups' padded rows
+// rounded up to a power of two.
+cudaError_t launch_decode(const void* x, const void* w, void* out, int Z,
+                          int C, int D, int F, int period, cudaStream_t s) {
+  const int Cp = cdiv(C, 8) * 8, groups = Z / period;
+  const int gb = groups < 128 / Cp ? groups : 128 / Cp;
+  const Dec p{Z, period, C, D, F, Cp, gb};
+  const int n = gb * Cp;
+  if (n <= 8) return launch_decode_nb<8>(p, x, w, out, s);
+  if (n <= 16) return launch_decode_nb<16>(p, x, w, out, s);
+  if (n <= 32) return launch_decode_nb<32>(p, x, w, out, s);
+  if (n <= 64) return launch_decode_nb<64>(p, x, w, out, s);
+  return launch_decode_nb<128>(p, x, w, out, s);
+}
+
+// ---------------------------------------------------------------------
 // f32 route: 3xTF32 on wgmma (wgmma_tf32.cuh)
 // ---------------------------------------------------------------------
 // A block of three warpgroups per 64 x 128 output tile: two consumers,
@@ -834,15 +846,6 @@ cudaError_t launch_tf32(Gemm p, const void* a, const void* b, void* out,
   return cudaGetLastError();
 }
 
-template <int MF>
-void launch_tc(const __nv_bfloat16* x, const __nv_bfloat16* w,
-               __nv_bfloat16* out, int Z, int C, int D, int F, int period,
-               cudaStream_t stream) {
-  const dim3 grid((F + kTcBN - 1) / kTcBN, (C + 16 * MF - 1) / (16 * MF), Z);
-  moe_gmm_tc_kernel<MF><<<grid, kTcThreads, 0, stream>>>(x, w, out, C, D, F,
-                                                         period);
-}
-
 bool tc_ok(const void* a, const void* b, const void* c, int D, int F) {
   const auto addr = [](const void* p) {
     return reinterpret_cast<std::uintptr_t>(p);
@@ -903,18 +906,12 @@ extern "C" int moe_gmm_launch(const void* x, const void* w, void* out, int Z,
           F, f32_vec(x, w, out, D, F), s));
     case 1:
       if (tc_ok(x, w, out, D, F)) {
-        const auto* xb = static_cast<const __nv_bfloat16*>(x);
-        const auto* wb = static_cast<const __nv_bfloat16*>(w);
-        auto* ob = static_cast<__nv_bfloat16*>(out);
-        if (C <= 16)
-          launch_tc<1>(xb, wb, ob, Z, C, D, F, period, s);
-        else if (C <= 32)
-          launch_tc<2>(xb, wb, ob, Z, C, D, F, period, s);
-        else
-          return static_cast<int>(launch_ws<kFwd>(
-              Gemm{Z, period, C, C, F, 0, 0, cdiv(D, kWsBK), 0}, x,
-              w, out, D, F, s));
-        return static_cast<int>(cudaGetLastError());
+        if (C <= 32)
+          return static_cast<int>(
+              launch_decode(x, w, out, Z, C, D, F, period, s));
+        return static_cast<int>(launch_ws<kFwd>(
+            Gemm{Z, period, C, C, F, 0, 0, cdiv(D, kWsBK), 0}, x, w, out, D,
+            F, s));
       }
       return static_cast<int>(
           launch<__nv_bfloat16>(x, w, out, Z, C, D, F, period, s));

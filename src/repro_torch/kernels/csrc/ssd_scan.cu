@@ -29,8 +29,10 @@
 // reads as much again as `dstates`. What holds the kernels back on the
 // card is the traffic from L2 into the SMs: B, C and C B^T are read again
 // by every head, and each kernel streams about 2.6 TB/s of it (PERF.md).
+// In f32 (64-row chunks) the products bound it: 23.7 GFLOP a forward and
+// 47.4 a backward, 0.144 and 0.288 ms at 3xTF32's 165 TFLOP/s.
 //
-// Two routes, chosen by the wrapper:
+// Three routes, chosen by the wrapper:
 //
 //  * The tensor-core route (namespace tc): bf16 with N and P multiples of
 //    16 (N <= 128, P <= 64), chunks of up to 128 rows. Operands live in
@@ -83,11 +85,64 @@
 //         dh'^T accumulate over the heads in one accumulator, a product of
 //         depth H x P. No atomics anywhere: two runs give the same bits.
 //
-//  * The FMA route (the first design, kept for f32 and other widths; f32
-//    serves only the reduced checks): CUDA-core f32 FMAs on tiles staged
-//    as float (bf16 widened on load, outputs rounded once), in chunks of
-//    min(L, 64) rows (the f32 working set of a 128-row chunk would exceed
-//    the 227 KB a block may have). Forward: one block of 8 warps per
+//  * The 3xTF32 route (namespace t3): every f32 call, any N <= 128 and P <=
+//    64, chunks of min(L, 64) rows. Each f32 operand is split into big =
+//    tf32(x) and small = tf32(x - big), and each product runs as three
+//    TF32 wgmma products into f32 accumulators in registers
+//    (wgmma_tf32.cuh); one TF32 product alone misses the SSD tolerance by
+//    3-13x (tests/test_torch_ssd_tf32.py). tf32 operands in shared memory
+//    must be K-major (wgmma transposes only 16-bit types and TMA no 4-byte
+//    element), so the products are laid out for it: the state is held as
+//    h^T (P x N, rows q) and y = exp(A) (C h) + S x takes C (t, n) and
+//    h^T (q, n) as stored, while x and B, read with the chunk's rows as
+//    depth, are transposed by the warpgroup that splits them; the decayed
+//    scores S go into their product as register A fragments, x^T's depth
+//    permuted by perm8 to match (the state update reads the same x^T
+//    tile as its A, so both of its operands carry the permutation).
+//    - Shared memory: f32 halves take 4x a bf16 tile, so 128-row chunks do
+//      not fit. At 64 rows the forward holds C (64 x 128), h^T (64 x 128),
+//      x^T (64 x 64) and (w B)^T (128 x 64), both halves: 224 KB of the
+//      227, one buffer each. 64-row chunks double the saved states against
+//      128 (273 MB at the mamba2 shape with the final one; the FMA route
+//      kept 268) and the steps of the serial walk. C B^T therefore comes from a first launch
+//      (with B C^T for the backward: `cb`, 4.2 MB at that shape), and the
+//      walk's producer warpgroup refills C while the consumer runs the
+//      state update, and x and B while it runs C h.
+//    - Summation: the tensor cores' accumulation truncates, so no sum runs
+//      across chunks or heads in one: each product's full depth (at most
+//      128) runs from zero, and the carried state, the carried gradient
+//      and the head sums of dB and dC add each chunk's or head's product
+//      in f32 registers in a fixed order. No atomics: the bits repeat.
+//    - Forward: the cb launch, then one block per (head, batch) walking the
+//      chunks: warpgroup 0 runs the products with h^T in registers
+//      (y = exp(A) (C h^T-tile) + (cb * D) x^T-tile, h^T <- exp(A_L) h^T +
+//      x^T (w B)), writing h^T's split tile for the next chunk and the
+//      state at each chunk's start (and, last, the final one) to
+//      `states`; warpgroup 1 loads the next chunk into registers while
+//      the current one is in use and splits and stores it as its buffers
+//      free.
+//    - Backward, three launches: (1) the carried gradient walk in reverse,
+//      dh^T <- exp(A_L) dh^T + (exp(A) dy)^T C through a two-stage ring,
+//      writing `dstates` and each chunk's <dh', h'> (h' the state after
+//      the chunk, the next saved one) into da's last row of the chunk;
+//      (2) dx and da of every (chunk, head): dx = w (B dh') + (B C^T *
+//      D^T) dy, and, since dy . y = rowM + t1 and x . dx = colM + q, dA_t
+//      = dy_t . y_t - x_t . dx_t plus <dh', h'> on the last row,
+//      reverse-cumsummed: no C h, no dy x^T (y is saved by the wrapper
+//      for this route); (3) dC and dB as the tc route's third launch,
+//      per head dy x^T (or x dy^T) into the head sum of G and (exp(A) dy)
+//      h (or (w x) dh') into the f32 sum, then (sum of G) B (or its
+//      transpose with C) from registers. Its tiles (192 KB) leave room for
+//      one buffer, so the producer's stores of a head and the products
+//      of the last take turns (a block per half of N with a two-stage
+//      ring, which does overlap them, took 1.06 ms against 0.67 at the
+//      mamba2 shape: it splits dy and x and computes dy x^T twice).
+//
+//  * The FMA route (the first design, kept only for bf16 widths that the
+//    tensor-core route does not take: N or P not multiples of 16, or
+//    unaligned tensors; no path has such a shape): CUDA-core f32 FMAs on
+//    tiles staged as float (bf16 widened on load, outputs rounded once), in
+//    chunks of min(L, 64) rows. Forward: one block of 8 warps per
 //    (head, batch) walks the chunks with the state in registers. Backward:
 //    the same reverse walk for dstates, then one block per (chunk, group,
 //    batch) that computes C B^T once and loops over the group's heads,
@@ -103,6 +158,7 @@
 
 #include "sm90_async.cuh"
 #include "wgmma_bf16.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -119,12 +175,9 @@ constexpr int PJ = PP / 32;                // 2 columns of 64 per thread
 constexpr int NJ = NP / 32;                // 4 columns of 128 per thread
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16_rn(v);
@@ -1852,28 +1905,1117 @@ cudaError_t bwd(const void* x, const void* a, const void* b, const void* c,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------
+// The f32 route: 3xTF32 on wgmma (wgmma_tf32.cuh)
+// ---------------------------------------------------------------------
+namespace t3 {
+
+using namespace sm90;
+namespace tf = wgmma::tf32;
+using tc::Frag;
+using tc::load_frag;
+using tc::store_frag;
+
+constexpr int kT = 256;                    // two warpgroups
+constexpr int R = 64;                      // chunk rows (tile)
+constexpr int NT = 128;                    // state width N, padded
+constexpr int PT = 64;                     // head dim P, padded
+constexpr int kRN = R * NT * 4;            // one half of a 64 x 128 tile
+constexpr int kRP = R * PT * 4;            // one half of a 64 x 64 tile
+constexpr int kStateFloats = PT * NT;      // h^T (P x N), fragment order
+constexpr int kCbFloats = 2 * R * R;       // C B^T, then B C^T
+constexpr unsigned kAll = 0xffffffffu;
+
+struct Shape {
+  int B, S, H, G, N, P, L, nc;
+  bool vec;                                // 16-byte rows and pointers
+};
+
+// A row-major f32 source (row r at p + r * ld): 4 consecutive columns
+// c .. c + 3 of row r, 0 past `rows` rows and `cols` columns; one 16-byte
+// load where vec (rows of whole 16-byte chunks, aligned), else element
+// by element.
+struct Src {
+  const float* p;
+  long ld;
+  int rows, cols;
+  bool vec;
+  __device__ __forceinline__ float4 at(int r, int c) const {
+    if (r >= rows || c >= cols) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* e = p + r * ld + c;
+    if (vec) return __ldg(reinterpret_cast<const float4*>(e));
+    return make_float4(e[0], c + 1 < cols ? e[1] : 0.f,
+                       c + 2 < cols ? e[2] : 0.f, c + 3 < cols ? e[3] : 0.f);
+  }
+};
+
+// Lane l of a warp: a of rows 2l and 2l + 1 of a chunk (a of row t at
+// a[t * H]; rows >= nrows read 0).
+__device__ __forceinline__ float2 a_pair(const float* a, int H, int nrows) {
+  const int l = threadIdx.x % 32;
+  return make_float2(
+      2 * l < nrows ? __ldg(a + static_cast<long>(2 * l) * H) : 0.f,
+      2 * l + 1 < nrows ? __ldg(a + static_cast<long>(2 * l + 1) * H) : 0.f);
+}
+
+// One warp: the inclusive cumsum of a over a chunk's rows, from a_pair's
+// values, for rows 2l and 2l + 1 of lane l, and the chunk's total (the
+// last valid row's A).
+__device__ __forceinline__ void scan64(float2 v, float& c0, float& c1,
+                                       float& total) {
+  const int l = threadIdx.x % 32;
+  const float v0 = v.x, v1 = v.y;
+  float s = v0 + v1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(kAll, s, o);
+    if (l >= o) s += u;
+  }
+  total = __shfl_sync(kAll, s, 31);
+  c0 = s - v1;
+  c1 = s;
+}
+
+// exp(A_t - A_u) for u <= t < nrows, else 0 (masked before the exp)
+__device__ __forceinline__ float decay(const float* A, int t, int u,
+                                       int nrows) {
+  return (u <= t && t < nrows) ? expf(A[t] - A[u]) : 0.f;
+}
+
+// Element (r, k) and (r, k + 1) of a K-major f32 tile of ROWS rows (k
+// even), split into the big and small tiles: one 8-byte store each.
+template <int ROWS>
+__device__ __forceinline__ void store_pair(unsigned char* big,
+                                           unsigned char* small, int r, int k,
+                                           float v0, float v1) {
+  uint32_t b0, s0, b1, s1;
+  tf::split(v0, b0, s0);
+  tf::split(v1, b1, s1);
+  const uint32_t o = tf::offset<ROWS>(r, k);
+  *reinterpret_cast<uint2*>(big + o) = make_uint2(b0, b1);
+  *reinterpret_cast<uint2*>(small + o) = make_uint2(s0, s1);
+}
+
+// Element (r, k) of a K-major f32 tile of ROWS rows, split.
+template <int ROWS>
+__device__ __forceinline__ void store_one(unsigned char* big,
+                                          unsigned char* small, int r, int k,
+                                          float v) {
+  uint32_t bv, sv;
+  tf::split(v, bv, sv);
+  const uint32_t o = tf::offset<ROWS>(r, k);
+  *reinterpret_cast<uint32_t*>(big + o) = bv;
+  *reinterpret_cast<uint32_t*>(small + o) = sv;
+}
+
+// A state (h^T or dh'^T, P x N) in fragment order -- float4 k of thread t
+// at k * 128 + t holds accumulator elements 4k .. 4k + 3 of an m64n128
+// fragment: (q0, n0), (q0, n0 + 1), (q0 + 8, n0), (q0 + 8, n0 + 1) with
+// q0 = 16 (t / 32) + (t % 32) / 4 and n0 = 8 k + 2 (t % 4) -- into a
+// K-major tile: kTrans 0, rows q and depth n; kTrans 1, rows n and depth
+// q; j is the float4's index.
+template <int kTrans>
+__device__ __forceinline__ void state_to_tile(unsigned char* big,
+                                              unsigned char* small,
+                                              const float4& v, int j) {
+  const int k = j / 128, t = j % 128;
+  const int q0 = 16 * (t / 32) + (t % 32) / 4, n0 = 8 * k + 2 * (t % 4);
+  if (kTrans) {
+    store_one<NT>(big, small, n0, q0, v.x);
+    store_one<NT>(big, small, n0 + 1, q0, v.y);
+    store_one<NT>(big, small, n0, q0 + 8, v.z);
+    store_one<NT>(big, small, n0 + 1, q0 + 8, v.w);
+  } else {
+    store_pair<PT>(big, small, q0, n0, v.x, v.y);
+    store_pair<PT>(big, small, q0 + 8, n0, v.z, v.w);
+  }
+}
+
+__device__ __forceinline__ void producer_sync() {
+  asm volatile("bar.sync 2, 128;\n" ::: "memory");
+}
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+__device__ __forceinline__ long row_of(const Shape& p, int bb, int t) {
+  return static_cast<long>(bb) * p.S + t;
+}
+
+// ---------------------------------------------------------------------
+// C B^T and B C^T of every chunk and group, once: cb (B, nc, G, 2, 64 x
+// 64) f32 in fragment order (the forward reads the first, the dx kernel
+// the second)
+// ---------------------------------------------------------------------
+constexpr size_t kCbSmem = 1024 + 4 * kRN;
+
+__global__ void __launch_bounds__(kT, 1)
+ssd_t3_cb_kernel(Shape p, const float* __restrict__ b,
+                 const float* __restrict__ c, float* __restrict__ cb) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* Cb = align1024(raw);
+  unsigned char* Cs = Cb + kRN;
+  unsigned char* Bb = Cs + kRN;
+  unsigned char* Bs = Bb + kRN;
+  const int ci = blockIdx.x, g = blockIdx.y, bb = blockIdx.z;
+  const int r0 = ci * p.L, nrows = min(p.L, p.S - r0);
+  const long ld = static_cast<long>(p.G) * p.N;
+  const long off = row_of(p, bb, r0) * ld + static_cast<long>(g) * p.N;
+  const Src sc{c + off, ld, nrows, p.N, p.vec};
+  const Src sb{b + off, ld, nrows, p.N, p.vec};
+  using W = tf::Walk<R, NT, kT>;
+#pragma unroll
+  for (int j = 0; j < W::kIters; ++j) {
+    int r, k;
+    W::at(j, r, k);
+    tf::store_plain<R>(Cb, Cs, r, k, sc.at(r, k));
+    tf::store_plain<R>(Bb, Bs, r, k, sb.at(r, k));
+  }
+  wgmma::fence_proxy();
+  __syncthreads();
+  const int wg = tc::warpgroup();
+  const unsigned char* Ab = wg ? Bb : Cb;  // wg 0: C B^T, wg 1: B C^T
+  const unsigned char* As = wg ? Bs : Cs;
+  const unsigned char* Ob = wg ? Cb : Bb;
+  const unsigned char* Os = wg ? Cs : Bs;
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  wgmma::fence_operand(acc);
+  wgmma::fence();
+  for (int kk = 0; kk < (p.N + 7) / 8; ++kk)
+    tf::mma3_ss<64>(acc, tf::kmajor<R>(Ab, 0, kk), tf::kmajor<R>(As, 0, kk),
+                    tf::kmajor<R>(Ob, 0, kk), tf::kmajor<R>(Os, 0, kk), 1);
+  wgmma::commit();
+  wgmma::wait<0>();
+  wgmma::fence_operand(acc);
+  store_frag<8>(cb + ((static_cast<long>(bb) * p.nc + ci) * p.G + g) *
+                         kCbFloats,
+                acc, wg);
+}
+
+// ---------------------------------------------------------------------
+// forward: one block per (head, batch) walks the chunks; warpgroup 0
+// runs the products with the state in registers, warpgroup 1 loads,
+// splits and stores the tiles
+// ---------------------------------------------------------------------
+struct FwdSmem {
+  // C (t, n), h^T (q, n), x^T (q, s'), (w B)^T (n, s'): a big and a small
+  // half each; s' the chunk's rows permuted by perm8
+  static constexpr int kC = 0, kH = 2 * kRN, kX = 4 * kRN;
+  static constexpr int kB = 4 * kRN + 2 * kRP;
+  static constexpr int kTiles = 6 * kRN + 2 * kRP;     // 224 KB
+  // two chunks' A, exp(A) and w (the producer's scan), four barriers
+  static constexpr size_t bytes = 1024 + kTiles + sizeof(float) * 6 * R +
+                                  4 * sizeof(uint64_t);
+};
+
+__global__ void __launch_bounds__(kT, 1)
+ssd_t3_fwd_kernel(Shape p, const float* __restrict__ x,
+                  const float* __restrict__ a, const float* __restrict__ b,
+                  const float* __restrict__ c, const float* __restrict__ cb,
+                  float* __restrict__ y, float* __restrict__ hT,
+                  float* __restrict__ states) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* base = align1024(raw);
+  unsigned char* Cb = base + FwdSmem::kC;
+  unsigned char* Cs = Cb + kRN;
+  unsigned char* Hb = base + FwdSmem::kH;
+  unsigned char* Hs = Hb + kRN;
+  unsigned char* Xb = base + FwdSmem::kX;
+  unsigned char* Xs = Xb + kRP;
+  unsigned char* Bb = base + FwdSmem::kB;
+  unsigned char* Bs = Bb + kRN;
+  // chunk ci's A, exp(A), w at scans + (ci % 2) * 3 R
+  float* scans = reinterpret_cast<float*>(base + FwdSmem::kTiles);
+  // full C, full x and B (producer threads), C read, x and B read
+  // (consumer warps)
+  uint64_t* bar = reinterpret_cast<uint64_t*>(scans + 6 * R);
+
+  const int h = blockIdx.x, bb = blockIdx.y, g = h / (p.H / p.G);
+  const int wg = tc::warpgroup();
+  const long head = static_cast<long>(bb) * p.H + h;
+  const long xs = static_cast<long>(p.H) * p.P;
+  const long bs = static_cast<long>(p.G) * p.N;
+  const float* xh = x + row_of(p, bb, 0) * xs + static_cast<long>(h) * p.P;
+  const float* bg = b + row_of(p, bb, 0) * bs + static_cast<long>(g) * p.N;
+  const float* cg = c + row_of(p, bb, 0) * bs + static_cast<long>(g) * p.N;
+  const float* ah = a + row_of(p, bb, 0) * p.H + h;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bar[0], 128);
+    mbar_init(&bar[1], 128);
+    mbar_init(&bar[2], 4);
+    mbar_init(&bar[3], 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 1) {                           // the producer
+    using WC = tf::Walk<R, NT, 128>;
+    using WX = tf::Walk<R, PT, 128>;
+    float4 vc[WC::kIters], vb[WC::kIters], vx[WX::kIters];
+    auto rows = [&](int ci) { return min(p.L, p.S - ci * p.L); };
+    auto fetch_c = [&](int ci) {
+      const long r0 = static_cast<long>(ci) * p.L;
+      const Src s{cg + r0 * bs, bs, rows(ci), p.N, p.vec};
+#pragma unroll
+      for (int j = 0; j < WC::kIters; ++j) {
+        int r, k;
+        WC::at(j, r, k);
+        vc[j] = s.at(r, k);
+      }
+    };
+    auto fetch_xb = [&](int ci) {
+      const long r0 = static_cast<long>(ci) * p.L;
+      const Src sb{bg + r0 * bs, bs, rows(ci), p.N, p.vec};
+      const Src sx{xh + r0 * xs, xs, rows(ci), p.P, p.vec};
+#pragma unroll
+      for (int j = 0; j < WC::kIters; ++j) {
+        int r, k;
+        WC::at(j, r, k);
+        vb[j] = sb.at(r, k);
+      }
+#pragma unroll
+      for (int j = 0; j < WX::kIters; ++j) {
+        int r, k;
+        WX::at(j, r, k);
+        vx[j] = sx.at(r, k);
+      }
+    };
+    const bool scanner = threadIdx.x < 128 + 32;
+    float2 av = make_float2(0.f, 0.f);    // a of the next chunk to scan
+    auto fetch_a = [&](int ci) {
+      if (scanner)
+        av = a_pair(ah + static_cast<long>(ci) * p.L * p.H, p.H, rows(ci));
+    };
+    fetch_c(0);
+    fetch_xb(0);
+    fetch_a(0);
+    for (int ci = 0; ci < p.nc; ++ci) {
+      const int nrows = rows(ci);
+      // the chunk's scan, for both warpgroups (the consumer reads it once
+      // C is full; it was done with this buffer before releasing x and B
+      // two chunks ago)
+      float* As = scans + (ci % 2) * 3 * R;
+      float* eA = As + R;
+      float* w = eA + R;
+      if (scanner) {
+        const int l = threadIdx.x % 32;
+        float c[2], tot;
+        scan64(av, c[0], c[1], tot);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int t = 2 * l + u;
+          As[t] = c[u];
+          eA[t] = t < nrows ? expf(c[u]) : 0.f;
+          w[t] = t < nrows ? expf(tot - c[u]) : 0.f;
+        }
+      }
+      if (ci > 0) mbar_wait(&bar[2], (ci - 1) & 1);
+#pragma unroll
+      for (int j = 0; j < WC::kIters; ++j) {
+        int r, k;
+        WC::at(j, r, k);
+        tf::store_plain<R>(Cb, Cs, r, k, vc[j]);
+      }
+      wgmma::fence_proxy();
+      mbar_arrive(&bar[0]);
+      if (ci + 1 < p.nc) fetch_c(ci + 1);
+      producer_sync();                     // w
+      if (ci > 0) mbar_wait(&bar[3], (ci - 1) & 1);
+#pragma unroll
+      for (int j = 0; j < WX::kIters; ++j) {
+        int r, k;
+        WX::at(j, r, k);
+        tf::store_trans<PT, true>(Xb, Xs, k, r, vx[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < WC::kIters; ++j) {
+        int r, k;
+        WC::at(j, r, k);
+        const float f = w[r];
+        const float4 v = make_float4(vb[j].x * f, vb[j].y * f, vb[j].z * f,
+                                     vb[j].w * f);
+        tf::store_trans<NT, true>(Bb, Bs, k, r, v);
+      }
+      wgmma::fence_proxy();
+      mbar_arrive(&bar[1]);
+      if (ci + 1 < p.nc) {
+        fetch_xb(ci + 1);
+        fetch_a(ci + 1);
+      }
+    }
+    return;
+  }
+
+  const Frag f;
+  const int lane = threadIdx.x % 32;
+  const int nkN = (p.N + 7) / 8;
+  float hacc[64];                          // h^T: rows q, columns n
+#pragma unroll
+  for (int i = 0; i < 64; ++i) hacc[i] = 0.f;
+  for (int i = threadIdx.x; i < 2 * kRN / 16; i += 128)
+    reinterpret_cast<uint4*>(Hb)[i] = make_uint4(0, 0, 0, 0);
+  wgmma::fence_proxy();
+  consumer_sync();
+
+  for (int ci = 0; ci < p.nc; ++ci) {
+    const int r0 = ci * p.L, nrows = min(p.L, p.S - r0);
+    if (states != nullptr)
+      store_frag<16>(states + (head * (p.nc + 1) + ci) * kStateFloats, hacc,
+                     0);
+    float cbr[32];
+    load_frag<8>(cbr, cb + ((static_cast<long>(bb) * p.nc + ci) * p.G + g) *
+                               kCbFloats, 0);
+    mbar_wait(&bar[0], ci & 1);            // C, and the chunk's scan
+    const float* As = scans + (ci % 2) * 3 * R;
+    const float* eAs = As + R;
+    const float eL = eAs[nrows - 1];
+
+    // y = exp(A) (C h) + (C B^T * D) x
+    float yacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) yacc[i] = 0.f;
+    wgmma::fence_operand(yacc);
+    wgmma::fence();
+    for (int kk = 0; kk < nkN; ++kk)
+      tf::mma3_ss<64>(yacc, tf::kmajor<R>(Cb, 0, kk),
+                      tf::kmajor<R>(Cs, 0, kk), tf::kmajor<PT>(Hb, 0, kk),
+                      tf::kmajor<PT>(Hs, 0, kk), 1);
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operand(yacc);
+    if (lane == 0) mbar_arrive(&bar[2]);   // C is read
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int t = f.r(i);
+      yacc[i] *= eAs[t];
+      cbr[i] *= decay(As, t, f.c(i), nrows);
+    }
+    uint32_t fb[8][4], fs[8][4];
+    tf::to_frags(cbr, fb, fs);
+    mbar_wait(&bar[1], ci & 1);
+    wgmma::fence_operand(yacc);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      tf::mma3_rs<64>(yacc, fb[kk], fs[kk], tf::kmajor<PT>(Xb, 0, kk),
+                      tf::kmajor<PT>(Xs, 0, kk));
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operand(yacc);
+
+    // h^T <- exp(A_L) h^T + x^T (w B), the update a product of its own
+    float upd[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) upd[i] = 0.f;
+    wgmma::fence_operand(upd);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      tf::mma3_ss<128>(upd, tf::kmajor<PT>(Xb, 0, kk),
+                       tf::kmajor<PT>(Xs, 0, kk), tf::kmajor<NT>(Bb, 0, kk),
+                       tf::kmajor<NT>(Bs, 0, kk), 1);
+    wgmma::commit();
+    // y leaves while the update runs
+    float* yr = y + row_of(p, bb, r0) * xs + static_cast<long>(h) * p.P;
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int t = f.r(i), q = f.c(i);
+      if (t >= nrows || q >= p.P) continue;
+      float* o = yr + t * xs + q;
+      if (p.vec) {
+        *reinterpret_cast<float2*>(o) = make_float2(yacc[i], yacc[i + 1]);
+      } else {
+        o[0] = yacc[i];
+        if (q + 1 < p.P) o[1] = yacc[i + 1];
+      }
+    }
+    wgmma::wait<0>();
+    wgmma::fence_operand(upd);
+    if (lane == 0) mbar_arrive(&bar[3]);   // x, B and the scan are read
+#pragma unroll
+    for (int i = 0; i < 64; ++i) hacc[i] = fmaf(eL, hacc[i], upd[i]);
+#pragma unroll
+    for (int i = 0; i < 64; i += 2)
+      store_pair<PT>(Hb, Hs, f.r(i), f.c(i), hacc[i], hacc[i + 1]);
+    wgmma::fence_proxy();
+    consumer_sync();                       // h^T's tile, for the next C h
+  }
+  if (states != nullptr)
+    store_frag<16>(states + (head * (p.nc + 1) + p.nc) * kStateFloats, hacc,
+                   0);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int q = f.r(i), n = f.c(i);
+    if (q < p.P && n < p.N) hT[(head * p.N + n) * p.P + q] = hacc[i];
+  }
+}
+
+// ---------------------------------------------------------------------
+// backward 1: the carried state gradient, chunks in reverse, through a
+// two-stage ring; each chunk's <dh', h'> into da's last row of the chunk
+// ---------------------------------------------------------------------
+struct StateSmem {
+  // a stage: (exp(A) dy)^T (q, t) and C^T (n, t), big and small halves
+  static constexpr int kStage = 2 * kRP + 2 * kRN;    // 96 KB
+  using Ring = tf::Ring<2, 4>;
+  // exp(A) of two stages (the producer's), the warps' partial dots
+  static constexpr size_t bytes = 1024 + 2 * kStage + sizeof(Ring) +
+                                  sizeof(float) * (2 * R + 8);
+};
+
+__global__ void __launch_bounds__(kT, 1)
+ssd_t3_bwd_state_kernel(Shape p, const float* __restrict__ a,
+                        const float* __restrict__ c,
+                        const float* __restrict__ dy,
+                        const float* __restrict__ dhT,
+                        const float* __restrict__ states,
+                        float* __restrict__ dstates, float* __restrict__ da) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* ring_smem = align1024(raw);
+  auto& ring = *reinterpret_cast<StateSmem::Ring*>(
+      ring_smem + 2 * StateSmem::kStage);
+  float* peA = reinterpret_cast<float*>(&ring + 1);   // [2][R]
+  float* red = peA + 2 * R;                             // [2][4]
+  auto DYb = [&](int st) { return ring_smem + st * StateSmem::kStage; };
+  auto DYs = [&](int st) { return DYb(st) + kRP; };
+  auto CTb = [&](int st) { return DYb(st) + 2 * kRP; };
+  auto CTs = [&](int st) { return CTb(st) + kRN; };
+
+  const int h = blockIdx.x, bb = blockIdx.y, g = h / (p.H / p.G);
+  const int wg = tc::warpgroup();
+  const long head = static_cast<long>(bb) * p.H + h;
+  const long xs = static_cast<long>(p.H) * p.P;
+  const long bs = static_cast<long>(p.G) * p.N;
+  const float* ah = a + row_of(p, bb, 0) * p.H + h;
+  ring.init();
+
+  if (wg == 1) {                           // the producer
+    using WC = tf::Walk<R, NT, 128>;
+    using WY = tf::Walk<R, PT, 128>;
+    const bool scanner = threadIdx.x < 128 + 32;
+    float4 vc[WC::kIters], vy[WY::kIters];
+    float2 av = make_float2(0.f, 0.f);
+    auto fetch = [&](int it) {
+      const int ci = p.nc - 1 - it, r0 = ci * p.L;
+      const int nrows = min(p.L, p.S - r0);
+      const Src sc{c + row_of(p, bb, r0) * bs + static_cast<long>(g) * p.N,
+                   bs, nrows, p.N, p.vec};
+      const Src sy{dy + row_of(p, bb, r0) * xs + static_cast<long>(h) * p.P,
+                   xs, nrows, p.P, p.vec};
+#pragma unroll
+      for (int j = 0; j < WC::kIters; ++j) {
+        int r, k;
+        WC::at(j, r, k);
+        vc[j] = sc.at(r, k);
+      }
+#pragma unroll
+      for (int j = 0; j < WY::kIters; ++j) {
+        int r, k;
+        WY::at(j, r, k);
+        vy[j] = sy.at(r, k);
+      }
+      if (scanner) av = a_pair(ah + static_cast<long>(r0) * p.H, p.H, nrows);
+    };
+    fetch(0);
+    for (int it = 0; it < p.nc; ++it) {
+      const int ci = p.nc - 1 - it, st = it % 2;
+      const int nrows = min(p.L, p.S - ci * p.L);
+      float* eA = peA + st * R;
+      ring.wait_empty(it);
+      if (scanner) {
+        const int l = threadIdx.x % 32;
+        float c0, c1, tot;
+        scan64(av, c0, c1, tot);
+        eA[2 * l] = 2 * l < nrows ? expf(c0) : 0.f;
+        eA[2 * l + 1] = 2 * l + 1 < nrows ? expf(c1) : 0.f;
+      }
+      producer_sync();
+#pragma unroll
+      for (int j = 0; j < WY::kIters; ++j) {
+        int r, k;
+        WY::at(j, r, k);
+        const float e = eA[r];
+        const float4 v = make_float4(vy[j].x * e, vy[j].y * e, vy[j].z * e,
+                                     vy[j].w * e);
+        tf::store_trans<PT, false>(DYb(st), DYs(st), k, r, v);
+      }
+#pragma unroll
+      for (int j = 0; j < WC::kIters; ++j) {
+        int r, k;
+        WC::at(j, r, k);
+        tf::store_trans<NT, false>(CTb(st), CTs(st), k, r, vc[j]);
+      }
+      ring.filled(&ring.full[st]);
+      if (it + 1 < p.nc) fetch(it + 1);
+    }
+    return;
+  }
+
+  const Frag f;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  float dh[64];                            // dh^T: rows q, columns n
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int q = f.r(i), n = f.c(i);
+    dh[i] = (dhT != nullptr && q < p.P && n < p.N)
+                ? dhT[(head * p.N + n) * p.P + q] : 0.f;
+  }
+  for (int it = 0; it < p.nc; ++it) {
+    const int ci = p.nc - 1 - it, st = it % 2;
+    const int nrows = min(p.L, p.S - ci * p.L);
+    const long sidx = (head * (p.nc + 1) + ci) * kStateFloats;
+    store_frag<16>(dstates + sidx, dh, 0);
+    // <dh', h'>, h' the state after the chunk (the next chunk's start)
+    {
+      const float4* hv = reinterpret_cast<const float4*>(
+                             states + sidx + kStateFloats) + threadIdx.x;
+      float d = 0.f;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        const float4 v = __ldg(hv + k * 128);
+        d += dh[4 * k] * v.x + dh[4 * k + 1] * v.y + dh[4 * k + 2] * v.z +
+             dh[4 * k + 3] * v.w;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(kAll, d, o);
+      if (lane == 0) red[st * 4 + warp] = d;
+    }
+    ring.wait_full(it);
+    consumer_sync();                       // the partial dots
+    if (threadIdx.x == 0)
+      da[row_of(p, bb, ci * p.L + nrows - 1) * p.H + h] =
+          ((red[st * 4] + red[st * 4 + 1]) + red[st * 4 + 2]) +
+          red[st * 4 + 3];
+    const float eL = peA[st * R + nrows - 1];
+    float upd[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) upd[i] = 0.f;
+    wgmma::fence_operand(upd);
+    wgmma::fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      tf::mma3_ss<128>(upd, tf::kmajor<PT>(DYb(st), 0, kk),
+                       tf::kmajor<PT>(DYs(st), 0, kk),
+                       tf::kmajor<NT>(CTb(st), 0, kk),
+                       tf::kmajor<NT>(CTs(st), 0, kk), 1);
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operand(upd);
+    ring.release(it);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dh[i] = fmaf(eL, dh[i], upd[i]);
+  }
+}
+
+// ---------------------------------------------------------------------
+// backward 2: dx and da of every (chunk, head), in parallel
+// ---------------------------------------------------------------------
+struct DxSmem {
+  // B (s, n), dh'^T (q, n), dy^T (q, t'): big and small halves; t' the
+  // chunk's rows permuted by perm8
+  static constexpr int kB = 0, kDH = 2 * kRN, kDY = 4 * kRN;
+  static constexpr int kTiles = 4 * kRN + 2 * kRP;    // 160 KB
+  // A, w, dy . y, the two warpgroups' x . dx
+  static constexpr size_t bytes = 1024 + kTiles + sizeof(float) * 5 * R;
+};
+
+__global__ void __launch_bounds__(kT, 1)
+ssd_t3_bwd_dx_kernel(Shape p, const float* __restrict__ x,
+                     const float* __restrict__ a, const float* __restrict__ b,
+                     const float* __restrict__ y, const float* __restrict__ cb,
+                     const float* __restrict__ dstates,
+                     const float* __restrict__ dy, float* __restrict__ dx,
+                     float* __restrict__ da) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* base = align1024(raw);
+  unsigned char* Bb = base + DxSmem::kB;
+  unsigned char* Bs = Bb + kRN;
+  unsigned char* DHb = base + DxSmem::kDH;
+  unsigned char* DHs = DHb + kRN;
+  unsigned char* DYb = base + DxSmem::kDY;
+  unsigned char* DYs = DYb + kRP;
+  float* As = reinterpret_cast<float*>(base + DxSmem::kTiles);
+  float* ws = As + R;
+  float* dyy = ws + R;
+  float* xdx = dyy + R;                    // [2][R]
+
+  const int ci = blockIdx.x, h = blockIdx.y, bb = blockIdx.z;
+  const int g = h / (p.H / p.G), wg = tc::warpgroup();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int r0 = ci * p.L, nrows = min(p.L, p.S - r0);
+  const long head = static_cast<long>(bb) * p.H + h;
+  const long xs = static_cast<long>(p.H) * p.P;
+  const long bs = static_cast<long>(p.G) * p.N;
+  const long xoff = row_of(p, bb, r0) * xs + static_cast<long>(h) * p.P;
+  const float* ah = a + row_of(p, bb, r0) * p.H + h;
+
+  // every load of the block in flight at once, then the tiles' stores
+  using WB = tf::Walk<R, NT, kT>;
+  using WY = tf::Walk<R, PT, kT>;
+  constexpr int kDH = kStateFloats / 4 / kT;
+  const Src sb{b + row_of(p, bb, r0) * bs + static_cast<long>(g) * p.N, bs,
+               nrows, p.N, p.vec};
+  const Src sy{dy + xoff, xs, nrows, p.P, p.vec};
+  const float4* dst = reinterpret_cast<const float4*>(
+      dstates + (head * (p.nc + 1) + ci) * kStateFloats);
+  float4 vb[WB::kIters], vy[WY::kIters], vd[kDH];
+#pragma unroll
+  for (int j = 0; j < WB::kIters; ++j) {
+    int r, k;
+    WB::at(j, r, k);
+    vb[j] = sb.at(r, k);
+  }
+#pragma unroll
+  for (int j = 0; j < WY::kIters; ++j) {
+    int r, k;
+    WY::at(j, r, k);
+    vy[j] = sy.at(r, k);
+  }
+#pragma unroll
+  for (int m = 0; m < kDH; ++m) vd[m] = __ldg(dst + threadIdx.x + kT * m);
+  // dy_t . y_t: warp w the rows w, w + 8, ..., lane l columns l, l + 32
+  float gv[R / 8][2], yv[R / 8][2];
+#pragma unroll
+  for (int m = 0; m < R / 8; ++m) {
+    const int t = warp + 8 * m;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int q = lane + 32 * u;
+      const bool ok = t < nrows && q < p.P;
+      gv[m][u] = ok ? __ldg(dy + xoff + t * xs + q) : 0.f;
+      yv[m][u] = ok ? __ldg(y + xoff + t * xs + q) : 0.f;
+    }
+  }
+  if (warp == 0) {
+    float c0, c1, tot;
+    scan64(a_pair(ah, p.H, nrows), c0, c1, tot);
+    As[2 * lane] = c0;
+    As[2 * lane + 1] = c1;
+    ws[2 * lane] = 2 * lane < nrows ? expf(tot - c0) : 0.f;
+    ws[2 * lane + 1] = 2 * lane + 1 < nrows ? expf(tot - c1) : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < WB::kIters; ++j) {
+    int r, k;
+    WB::at(j, r, k);
+    tf::store_plain<R>(Bb, Bs, r, k, vb[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < WY::kIters; ++j) {
+    int r, k;
+    WY::at(j, r, k);
+    tf::store_trans<PT, true>(DYb, DYs, k, r, vy[j]);
+  }
+#pragma unroll
+  for (int m = 0; m < kDH; ++m)
+    state_to_tile<0>(DHb, DHs, vd[m], threadIdx.x + kT * m);
+#pragma unroll
+  for (int m = 0; m < R / 8; ++m) {
+    float v = gv[m][0] * yv[m][0] + gv[m][1] * yv[m][1];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kAll, v, o);
+    if (lane == 0) dyy[warp + 8 * m] = v;
+  }
+  wgmma::fence_proxy();
+  __syncthreads();
+
+  // dx = w (B dh') + (B C^T * D^T) dy, warpgroup wg the columns q of
+  // 32 wg ..
+  const Frag f;
+  float xv[16];                            // x at the fragment's places
+#pragma unroll
+  for (int i = 0; i < 16; i += 2) {
+    const int s = f.r(i), q = 32 * wg + f.c(i);
+    const long o = xoff + s * xs + q;
+    const bool ok = s < nrows && q < p.P;
+    if (ok && p.vec) {
+      const float2 v = __ldg(reinterpret_cast<const float2*>(x + o));
+      xv[i] = v.x;
+      xv[i + 1] = v.y;
+    } else {
+      xv[i] = ok ? __ldg(x + o) : 0.f;
+      xv[i + 1] = ok && q + 1 < p.P ? __ldg(x + o + 1) : 0.f;
+    }
+  }
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  wgmma::fence_operand(acc);
+  wgmma::fence();
+  for (int kk = 0; kk < (p.N + 7) / 8; ++kk)
+    tf::mma3_ss<32>(acc, tf::kmajor<R>(Bb, 0, kk), tf::kmajor<R>(Bs, 0, kk),
+                    tf::kmajor<PT>(DHb, 32 * wg, kk),
+                    tf::kmajor<PT>(DHs, 32 * wg, kk), 1);
+  wgmma::commit();
+  float cbr[32];                           // B C^T: rows s, columns t
+  load_frag<8>(cbr, cb + ((static_cast<long>(bb) * p.nc + ci) * p.G + g) *
+                             kCbFloats, 1);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) cbr[i] *= decay(As, f.c(i), f.r(i), nrows);
+  uint32_t fb[8][4], fs[8][4];
+  tf::to_frags(cbr, fb, fs);
+  wgmma::wait<0>();
+  wgmma::fence_operand(acc);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] *= ws[f.r(i)];
+  wgmma::fence_operand(acc);
+  wgmma::fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    tf::mma3_rs<32>(acc, fb[kk], fs[kk], tf::kmajor<PT>(DYb, 32 * wg, kk),
+                    tf::kmajor<PT>(DYs, 32 * wg, kk));
+  wgmma::commit();
+  wgmma::wait<0>();
+  wgmma::fence_operand(acc);
+
+  // dx out; x_s . dx_s
+  {
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 16; i += 2) {
+      const int s = f.r(i), q = 32 * wg + f.c(i);
+      rs[(i / 2) % 2] += xv[i] * acc[i] + xv[i + 1] * acc[i + 1];
+      if (s >= nrows || q >= p.P) continue;
+      float* o = dx + xoff + s * xs + q;
+      if (p.vec) {
+        *reinterpret_cast<float2*>(o) = make_float2(acc[i], acc[i + 1]);
+      } else {
+        o[0] = acc[i];
+        if (q + 1 < p.P) o[1] = acc[i + 1];
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float v = rs[hf];
+      v += __shfl_xor_sync(kAll, v, 1);
+      v += __shfl_xor_sync(kAll, v, 2);
+      if (lane % 4 == 0) xdx[wg * R + f.row + 8 * hf] = v;
+    }
+  }
+  __syncthreads();
+
+  // dA_t = dy_t . y_t - x_t . dx_t (+ <dh', h'>, which the state kernel
+  // left in da, on the last valid row); da = its reverse cumsum (warp 0)
+  if (warp == 0) {
+    float* dr = da + row_of(p, bb, r0) * p.H + h;
+    float v[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int t = R - 1 - (2 * lane + k);
+      v[k] = t < nrows ? dyy[t] - (xdx[t] + xdx[R + t]) : 0.f;
+      if (t == nrows - 1) v[k] += dr[static_cast<long>(t) * p.H];
+    }
+    v[1] += v[0];
+    float incl = v[1];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(kAll, incl, o);
+      if (lane >= o) incl += u;
+    }
+    const float excl = incl - v[1];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int t = R - 1 - (2 * lane + k);
+      if (t < nrows) dr[static_cast<long>(t) * p.H] = excl + v[k];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// backward 3: dC and dB of every (chunk, group), summed over the group's
+// heads in order
+// ---------------------------------------------------------------------
+struct DbcSmem {
+  // F^T (n, r'), once; U (r, q), V (r', q), the state (n, q): big and
+  // small halves; r' the chunk's rows permuted by perm8
+  static constexpr int kF = 0, kU = 2 * kRN, kV = 2 * kRN + 2 * kRP;
+  static constexpr int kS = 2 * kRN + 4 * kRP;
+  static constexpr int kTiles = 4 * kRN + 4 * kRP;    // 192 KB
+  using Ring = tf::Ring<1, 4>;
+  // A and the row factor
+  static constexpr size_t bytes =
+      1024 + kTiles + sizeof(Ring) + sizeof(float) * 2 * R;
+};
+
+// kMode 0: dC (rows t): U = dy, V = x, row factor exp(A), state h, F = B.
+// kMode 1: dB (rows s): U = x, V = dy, row factor w, state dh', F = C.
+template <int kMode>
+__device__ __forceinline__ void dbc_body(
+    const Shape& p, const float* __restrict__ u, const float* __restrict__ v,
+    const float* __restrict__ fsrc, const float* __restrict__ a,
+    const float* __restrict__ st32, float* __restrict__ out,
+    unsigned char* base) {
+  unsigned char* Fb = base + DbcSmem::kF;
+  unsigned char* Fs = Fb + kRN;
+  unsigned char* Ub = base + DbcSmem::kU;
+  unsigned char* Us = Ub + kRP;
+  unsigned char* Vb = base + DbcSmem::kV;
+  unsigned char* Vs = Vb + kRP;
+  unsigned char* Sb = base + DbcSmem::kS;
+  unsigned char* Ss = Sb + kRN;
+  auto& ring = *reinterpret_cast<DbcSmem::Ring*>(base + DbcSmem::kTiles);
+  float* As = reinterpret_cast<float*>(&ring + 1);
+  float* rf = As + R;
+
+  const int ci = blockIdx.x, g = blockIdx.y / 2, bb = blockIdx.z;
+  const int rep = p.H / p.G, wg = tc::warpgroup();
+  const int r0 = ci * p.L, nrows = min(p.L, p.S - r0);
+  const long xs = static_cast<long>(p.H) * p.P;
+  const long bs = static_cast<long>(p.G) * p.N;
+  const long goff = row_of(p, bb, r0) * bs + static_cast<long>(g) * p.N;
+  ring.init();
+
+  if (wg == 1) {                           // the producer
+    using WF = tf::Walk<R, NT, 128>;
+    using WU = tf::Walk<R, PT, 128>;
+    constexpr int kSt = kStateFloats / 4 / 128;
+    {
+      const Src sf{fsrc + goff, bs, nrows, p.N, p.vec};
+#pragma unroll 4
+      for (int j = 0; j < WF::kIters; ++j) {
+        int r, k;
+        WF::at(j, r, k);
+        tf::store_trans<NT, true>(Fb, Fs, k, r, sf.at(r, k));
+      }
+      ring.filled(&ring.once);
+    }
+    const bool scanner = threadIdx.x < 128 + 32;
+    float4 vu[WU::kIters], vv[WU::kIters], vs[kSt];
+    float2 av = make_float2(0.f, 0.f);
+    auto fetch = [&](int j) {
+      const int hh = g * rep + j;
+      if (scanner) av = a_pair(a + row_of(p, bb, r0) * p.H + hh, p.H, nrows);
+      const long off = row_of(p, bb, r0) * xs + static_cast<long>(hh) * p.P;
+      const Src su{u + off, xs, nrows, p.P, p.vec};
+      const Src sv{v + off, xs, nrows, p.P, p.vec};
+#pragma unroll
+      for (int i = 0; i < WU::kIters; ++i) {
+        int r, k;
+        WU::at(i, r, k);
+        vu[i] = su.at(r, k);
+        vv[i] = sv.at(r, k);
+      }
+      const float4* sp = reinterpret_cast<const float4*>(
+          st32 + ((static_cast<long>(bb) * p.H + hh) * (p.nc + 1) + ci) *
+                     kStateFloats);
+#pragma unroll
+      for (int m = 0; m < kSt; ++m) vs[m] = __ldg(sp + threadIdx.x % 128 +
+                                                  128 * m);
+    };
+    fetch(0);
+    for (int j = 0; j < rep; ++j) {
+      ring.wait_empty(j);
+      if (scanner) {
+        const int l = threadIdx.x % 32;
+        float c0, c1, tot;
+        scan64(av, c0, c1, tot);
+        As[2 * l] = c0;
+        As[2 * l + 1] = c1;
+        const bool ok0 = 2 * l < nrows, ok1 = 2 * l + 1 < nrows;
+        rf[2 * l] = ok0 ? expf(kMode == 0 ? c0 : tot - c0) : 0.f;
+        rf[2 * l + 1] = ok1 ? expf(kMode == 0 ? c1 : tot - c1) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < WU::kIters; ++i) {
+        int r, k;
+        WU::at(i, r, k);
+        tf::store_plain<R>(Ub, Us, r, k, vu[i]);
+        tf::store_plain<R>(Vb, Vs, r, k, vv[i]);
+      }
+#pragma unroll
+      for (int m = 0; m < kSt; ++m)
+        state_to_tile<1>(Sb, Ss, vs[m], threadIdx.x % 128 + 128 * m);
+      ring.filled(&ring.full[0]);
+      if (j + 1 < rep) fetch(j + 1);
+    }
+    return;
+  }
+
+  const Frag f;
+  const int nkP = (p.P + 7) / 8;
+  float sum[64], gsum[32];                 // rows r; columns n, and r'
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sum[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) gsum[i] = 0.f;
+  for (int j = 0; j < rep; ++j) {
+    ring.wait_full(j);
+    float dP[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dP[i] = 0.f;
+    wgmma::fence_operand(dP);
+    wgmma::fence();
+    for (int kk = 0; kk < nkP; ++kk)
+      tf::mma3_ss<64>(dP, tf::kmajor<R>(Ub, 0, kk), tf::kmajor<R>(Us, 0, kk),
+                      tf::kmajor<R>(Vb, 0, kk), tf::kmajor<R>(Vs, 0, kk), 1);
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operand(dP);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = f.r(i), c = f.c(i);
+      const float d = kMode == 0 ? decay(As, r, c, nrows)
+                                 : decay(As, c, r, nrows);
+      gsum[i] = fmaf(dP[i], d, gsum[i]);
+    }
+    float inter[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) inter[i] = 0.f;
+    wgmma::fence_operand(inter);
+    wgmma::fence();
+    for (int kk = 0; kk < nkP; ++kk)
+      tf::mma3_ss<128>(inter, tf::kmajor<R>(Ub, 0, kk),
+                       tf::kmajor<R>(Us, 0, kk), tf::kmajor<NT>(Sb, 0, kk),
+                       tf::kmajor<NT>(Ss, 0, kk), 1);
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operand(inter);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sum[i] = fmaf(rf[f.r(i)], inter[i], sum[i]);
+    ring.release(j);
+  }
+
+  // + (sum over heads of G) F, the head sum from registers
+  uint32_t fb[8][4], fs[8][4];
+  tf::to_frags(gsum, fb, fs);
+  ring.wait_once();
+  wgmma::fence_operand(sum);
+  wgmma::fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    tf::mma3_rs<128>(sum, fb[kk], fs[kk], tf::kmajor<NT>(Fb, 0, kk),
+                     tf::kmajor<NT>(Fs, 0, kk));
+  wgmma::commit();
+  wgmma::wait<0>();
+  wgmma::fence_operand(sum);
+  float* o = out + goff;
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int r = f.r(i), n = f.c(i);
+    if (r >= nrows || n >= p.N) continue;
+    float* e = o + r * bs + n;
+    if (p.vec) {
+      *reinterpret_cast<float2*>(e) = make_float2(sum[i], sum[i + 1]);
+    } else {
+      e[0] = sum[i];
+      if (n + 1 < p.N) e[1] = sum[i + 1];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kT, 1)
+ssd_t3_bwd_dbc_kernel(Shape p, const float* __restrict__ x,
+                      const float* __restrict__ a,
+                      const float* __restrict__ b,
+                      const float* __restrict__ c,
+                      const float* __restrict__ dy,
+                      const float* __restrict__ states,
+                      const float* __restrict__ dstates,
+                      float* __restrict__ db, float* __restrict__ dc) {
+  extern __shared__ unsigned char raw[];
+  unsigned char* base = align1024(raw);
+  if (blockIdx.y % 2 == 0)
+    dbc_body<0>(p, dy, x, b, a, states, dc, base);
+  else
+    dbc_body<1>(p, x, dy, c, a, dstates, db, base);
+}
+
+bool valid(const Shape& p) {
+  return p.B > 0 && p.S > 0 && p.H > 0 && p.G > 0 && p.H % p.G == 0 &&
+         p.N > 0 && p.N <= NT && p.P > 0 && p.P <= PT && p.L > 0 &&
+         p.L <= R && p.nc == (p.S + p.L - 1) / p.L;
+}
+
+// rows of whole 16-byte chunks and 16-byte aligned pointers
+bool vec_ok(int N, int P, const void* const* ptrs, int n) {
+  if (N % 4 || P % 4) return false;
+  for (int i = 0; i < n; ++i)
+    if (ptrs[i] != nullptr && reinterpret_cast<uintptr_t>(ptrs[i]) % 16)
+      return false;
+  return true;
+}
+
+// The forward's two launches (see ssd_scan_tf32_fwd).
+cudaError_t fwd(const void* x, const void* a, const void* b, const void* c,
+                void* y, void* hT, void* states, void* cb, const Shape& p,
+                cudaStream_t s) {
+  static bool cb_set = false, fwd_set = false;
+  cudaError_t e = tc::set_smem(ssd_t3_cb_kernel, kCbSmem, cb_set);
+  if (e == cudaSuccess)
+    e = tc::set_smem(ssd_t3_fwd_kernel, FwdSmem::bytes, fwd_set);
+  if (e != cudaSuccess) return e;
+  const float* bf = static_cast<const float*>(b);
+  const float* cf = static_cast<const float*>(c);
+  ssd_t3_cb_kernel<<<dim3(p.nc, p.G, p.B), kT, kCbSmem, s>>>(
+      p, bf, cf, static_cast<float*>(cb));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ssd_t3_fwd_kernel<<<dim3(p.H, p.B), kT, FwdSmem::bytes, s>>>(
+      p, static_cast<const float*>(x), static_cast<const float*>(a), bf, cf,
+      static_cast<const float*>(cb), static_cast<float*>(y),
+      static_cast<float*>(hT), static_cast<float*>(states));
+  return cudaGetLastError();
+}
+
+// The backward's three launches (see ssd_scan_tf32_bwd).
+cudaError_t bwd(const void* x, const void* a, const void* b, const void* c,
+                const void* y, const void* states, const void* cb,
+                const void* dy, const void* dhT, void* dstates, void* dx,
+                void* da, void* db, void* dc, const Shape& p,
+                cudaStream_t s) {
+  static bool st_set = false, dx_set = false, dbc_set = false;
+  cudaError_t e =
+      tc::set_smem(ssd_t3_bwd_state_kernel, StateSmem::bytes, st_set);
+  if (e == cudaSuccess)
+    e = tc::set_smem(ssd_t3_bwd_dx_kernel, DxSmem::bytes, dx_set);
+  if (e == cudaSuccess)
+    e = tc::set_smem(ssd_t3_bwd_dbc_kernel, DbcSmem::bytes, dbc_set);
+  if (e != cudaSuccess) return e;
+  const float* xf = static_cast<const float*>(x);
+  const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(b);
+  const float* cf = static_cast<const float*>(c);
+  const float* sf = static_cast<const float*>(states);
+  const float* dyf = static_cast<const float*>(dy);
+  float* dsf = static_cast<float*>(dstates);
+  float* daf = static_cast<float*>(da);
+  ssd_t3_bwd_state_kernel<<<dim3(p.H, p.B), kT, StateSmem::bytes, s>>>(
+      p, af, cf, dyf, static_cast<const float*>(dhT), sf, dsf, daf);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ssd_t3_bwd_dx_kernel<<<dim3(p.nc, p.H, p.B), kT, DxSmem::bytes, s>>>(
+      p, xf, af, bf, static_cast<const float*>(y),
+      static_cast<const float*>(cb), dsf, dyf, static_cast<float*>(dx), daf);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ssd_t3_bwd_dbc_kernel<<<dim3(p.nc, 2 * p.G, p.B), kT, DbcSmem::bytes,
+                          s>>>(p, xf, af, bf, cf, dyf, sf, dsf,
+                               static_cast<float*>(db),
+                               static_cast<float*>(dc));
+  return cudaGetLastError();
+}
+
+}  // namespace t3
+
 }  // namespace
 
-// x (B, S, H, P), b, c (B, S, G, N) of `dtype` (0 = float32, 1 =
-// bfloat16); a (B, S, H) f32; y like x; hT (B, H, N, P) f32; states
-// (B, H, nc, N, P) f32 with nc = ceil(S / L), or null when no gradient is
-// wanted. L = chunk rows (1..64), N <= 128, P <= 64. All contiguous on the
-// device. Returns a cudaError_t (0 = ok).
+// The FMA route: bf16 x (B, S, H, P), b, c (B, S, G, N) of any widths N <=
+// 128, P <= 64 (the tensor-core route takes those that are multiples of
+// 16); a (B, S, H) f32; y like x; hT (B, H, N, P) f32; states (B, H, nc,
+// N, P) f32 with nc = ceil(S / L), or null when no gradient is wanted. L
+// = chunk rows (1..64). All contiguous on the device. Returns a
+// cudaError_t (0 = ok).
 extern "C" int ssd_scan_fwd(const void* x, const void* a, const void* b,
                             const void* c, void* y, void* hT, void* states,
                             int B, int S, int H, int G, int N, int P, int L,
-                            int dtype, void* stream) {
+                            void* stream) {
   const Shape p{B, S, H, G, N, P, L, L > 0 ? (S + L - 1) / L : 0};
   if (!valid(p)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(fwd<float>(x, a, b, c, y, hT, states, p, s));
-    case 1:
-      return static_cast<int>(fwd<bf16>(x, a, b, c, y, hT, states, p, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(fwd<bf16>(x, a, b, c, y, hT, states, p,
+                                    static_cast<cudaStream_t>(stream)));
 }
 
 // The gradients of ssd_scan_fwd: dy like x, dhT (B, H, N, P) f32 or null
@@ -1884,20 +3026,12 @@ extern "C" int ssd_scan_bwd(const void* x, const void* a, const void* b,
                             const void* dy, const void* dhT, void* dstates,
                             void* dx, void* da, void* db, void* dc, int B,
                             int S, int H, int G, int N, int P, int L,
-                            int dtype, void* stream) {
+                            void* stream) {
   const Shape p{B, S, H, G, N, P, L, L > 0 ? (S + L - 1) / L : 0};
   if (!valid(p)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(bwd<float>(x, a, b, c, states, dy, dhT,
-                                         dstates, dx, da, db, dc, p, s));
-    case 1:
-      return static_cast<int>(bwd<bf16>(x, a, b, c, states, dy, dhT,
-                                        dstates, dx, da, db, dc, p, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(bwd<bf16>(x, a, b, c, states, dy, dhT, dstates,
+                                    dx, da, db, dc, p,
+                                    static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* ssd_scan_error_string(int code) {
@@ -1938,5 +3072,46 @@ extern "C" int ssd_scan_tc_bwd(const void* x, const void* a, const void* b,
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(tc::bwd(x, a, b, c, states, cb, dy, dhT, dstates,
                                   dx, da, db, dc, p,
+                                  static_cast<cudaStream_t>(stream)));
+}
+
+// The 3xTF32 route: f32 x, b, c of any widths N <= 128, P <= 64 (16-byte
+// loads where N and P are multiples of 4 and the pointers 16-byte
+// aligned, else element by element), chunk rows L <= 64. Shapes as for
+// ssd_scan_fwd, but `states` (or null when no gradient is wanted) holds
+// the state at each chunk's start and, last, the final one, as h^T (P x
+// N) zero padded to 64 x 128 in fragment order: (B, H, nc + 1, 64 * 128)
+// f32; cb (B, nc, G, 2, 64 * 64) f32 receives C B^T and B C^T of every
+// chunk and group, also in fragment order (the backward reads both). Two
+// launches.
+extern "C" int ssd_scan_tf32_fwd(const void* x, const void* a, const void* b,
+                                 const void* c, void* y, void* hT,
+                                 void* states, void* cb, int B, int S, int H,
+                                 int G, int N, int P, int L, void* stream) {
+  const void* ptrs[] = {x, b, c, y};
+  const t3::Shape p{B, S, H, G, N, P, L, L > 0 ? (S + L - 1) / L : 0,
+                    t3::vec_ok(N, P, ptrs, 4)};
+  if (!t3::valid(p)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(t3::fwd(x, a, b, c, y, hT, states, cb, p,
+                                  static_cast<cudaStream_t>(stream)));
+}
+
+// The gradients of ssd_scan_tf32_fwd: y, states and cb from it, dy like
+// x, dhT (B, H, N, P) f32 or null (zero), dstates scratch like states; dx
+// like x, da like a, db and dc like b. Three launches.
+extern "C" int ssd_scan_tf32_bwd(const void* x, const void* a, const void* b,
+                                 const void* c, const void* y,
+                                 const void* states, const void* cb,
+                                 const void* dy, const void* dhT,
+                                 void* dstates, void* dx, void* da, void* db,
+                                 void* dc, int B, int S, int H, int G, int N,
+                                 int P, int L, void* stream) {
+  const void* ptrs[] = {x, b, c, y, dy, dx, db, dc};
+  const t3::Shape p{B, S, H, G, N, P, L, L > 0 ? (S + L - 1) / L : 0,
+                    t3::vec_ok(N, P, ptrs, 8)};
+  if (!t3::valid(p) || states == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(t3::bwd(x, a, b, c, y, states, cb, dy, dhT,
+                                  dstates, dx, da, db, dc, p,
                                   static_cast<cudaStream_t>(stream)));
 }

@@ -125,6 +125,55 @@ __device__ __forceinline__ void to_frags(const float (&d)[R],
       a[kk][j] = pack_bf16(d[8 * kk + 2 * j], d[8 * kk + 2 * j + 1]);
 }
 
+// d += a b, d 64 x 8 f32; a (64 x 16) and b (16 x 8) bf16 in shared
+// memory, given by their descriptors; TA / TB as for wgmma_ss
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_ss_acc(float (&d)[4], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d += a b, d 64 x 16 f32; a (64 x 16) and b (16 x 16) bf16 in shared
+// memory, given by their descriptors; TA / TB as for wgmma_ss
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_ss_acc(float (&d)[8], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d += a b, d 64 x 32 f32; a (64 x 16) and b (16 x 32) bf16 in shared
+// memory, given by their descriptors; TA / TB as for wgmma_ss
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_ss_acc(float (&d)[16], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
 // d = a b, d 64 x 64 f32; a (64 x 16) and b (16 x 64) bf16 in shared
 // memory, given by their descriptors; TA / TB: a / b MN-major (1) or
 // K-major (0)

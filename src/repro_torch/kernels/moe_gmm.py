@@ -17,7 +17,10 @@ before launch from the dtype, the widths and the pointers' alignment):
   * ``"wgmma"``: bf16 with D and F multiples of 8, 16-byte aligned
     pointers and C > 32 (and every such backward): persistent
     warp-specialised blocks run wgmma products fed by a TMA ring;
-  * ``"wmma"``: the same bf16 widths at C <= 32 (decode): WMMA tiles;
+  * ``"wgmma_decode"``: the same bf16 widths at C <= 32 (decode): the
+    expert weights stream through wgmma as its 64-row operand with the
+    tokens (every group's, stacked) as its N, a TMA ring of weight
+    stages per block, each expert's weights read once a call;
   * ``"tf32x3"``: f32: wgmma on TF32 operands split into big and small
     halves (3xTF32), which holds f32's 1e-4 (16-byte loads where D and F
     are multiples of 4 and the pointers aligned, else element by element);
@@ -62,13 +65,13 @@ __all__ = ["moe_gmm", "moe_gmm_plain", "moe_gmm_bwd", "route", "launches",
 
 launches = 0
 bwd_launches = 0
-route_launches = {"wgmma": 0, "wmma": 0, "tf32x3": 0, "fma": 0}
+route_launches = {"wgmma": 0, "wgmma_decode": 0, "tf32x3": 0, "fma": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _BWD_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-_MAX_Z = 65535            # gridDim.z of the WMMA and FMA kernels
+_MAX_Z = 65535            # gridDim.z of the FMA kernel
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, expert_period: int | None):
@@ -110,11 +113,12 @@ def route(dtype: torch.dtype, C: int, D: int, F: int, aligned: bool,
     whether every pointer it reads or writes is 16-byte aligned (as
     ``csrc/moe_gmm.cu`` chooses them): ``"tf32x3"`` (f32), ``"wgmma"``
     (bf16, D and F multiples of 8, aligned, C > 32 or a backward),
-    ``"wmma"`` (the same at C <= 32) or ``"fma"`` (bf16 otherwise)."""
+    ``"wgmma_decode"`` (the same at C <= 32) or ``"fma"`` (bf16
+    otherwise)."""
     if dtype == torch.float32:
         return "tf32x3"
     if D % 8 == 0 and F % 8 == 0 and aligned:
-        return "wgmma" if backward or C > 32 else "wmma"
+        return "wgmma" if backward or C > 32 else "wgmma_decode"
     return "fma"
 
 

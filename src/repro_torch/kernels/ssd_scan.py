@@ -11,18 +11,25 @@ S % chunk != 0 to the oracle). The dual form is exact for any chunk
 length, so the kernels may take the chunk in fewer rows than asked. State
 widths N above 128 and head dims P above 64 raise.
 
-Two routes (:func:`route`):
+Three routes (:func:`route`, a function of the dtype, the widths and the
+alignment, chosen before launch):
 
-* ``"tc"``: bf16 with N and P multiples of 16 (every shape of the training
-  path): tensor-core (wgmma) kernels fed by TMA, chunks of
-  ``min(chunk, 128)`` rows. The forward is two launches (C B^T of every
-  chunk and group, shared by the group's heads; then the walk over the
-  chunks), the backward three (the carried state gradient in reverse;
-  dx and da of every chunk and head; dB and dC of every chunk and group,
-  summed over its heads). The saved tensors are the state at every
-  chunk's start and C B^T; two backward runs give the same bits.
-* ``"fma"``: f32 (it serves only the reduced float32 checks) and bf16 of
-  other widths: the first design's CUDA-core f32 FMA kernels, in chunks of
+* ``"tc"``: bf16 with N and P multiples of 16 and 16-byte aligned tensors
+  (every shape of the training path): tensor-core (wgmma) kernels fed by
+  TMA, chunks of ``min(chunk, 128)`` rows. The forward is two launches
+  (C B^T of every chunk and group, shared by the group's heads; then the
+  walk over the chunks), the backward three (the carried state gradient
+  in reverse; dx and da of every chunk and head; dB and dC of every chunk
+  and group, summed over its heads). The saved tensors are the state at
+  every chunk's start and C B^T; two backward runs give the same bits.
+* ``"tf32x3"``: every f32 call (the reduced checks, ``[jamba]``, any f32
+  Mamba2 model), at any width: wgmma on TF32 operands split into big and
+  small halves (3xTF32), chunks of ``min(chunk, 64)`` rows, the same
+  launches as ``"tc"``. It saves the state at every chunk's start and
+  the final one, C B^T and B C^T, and y (its backward takes da from
+  dy . y and x . dx); two backward runs give the same bits.
+* ``"fma"``: bf16 of other widths or unaligned tensors (on no path): the
+  first design's CUDA-core f32 FMA kernels, in chunks of
   ``min(chunk, 64)`` rows; one forward launch and two backward launches.
 
 A CPU tensor takes the plain version (:func:`ssd_scan_plain`, the oracle
@@ -31,11 +38,12 @@ raises: it goes through the custom op ``torch.ops.repro_torch.ssd_scan_fwd``
 (y, the final state, and the saved chunk states and C B^T, empty where
 the route keeps none), whose autograd formula is the op
 ``ssd_scan_bwd`` (the four input gradients and its ``dstates``
-workspace). A meta tensor (the dry run's) takes the same ops, which
-there only allocate what the CUDA path allocates; each op has a FLOP
+workspace; it also reads y on the ``"tf32x3"`` route). A meta tensor
+(the dry run's) takes the same ops, which there only allocate what the
+CUDA path allocates; each op has a FLOP
 formula (:func:`ssd_flops`) for ``FlopCounterMode``. ``fwd_launches``
-and ``bwd_launches`` count kernel launches and nothing else
-(:data:`LAUNCHES` per call and route).
+and ``bwd_launches`` count kernel launches, ``route_launches`` both by
+route, and nothing else (:data:`LAUNCHES` per call and route).
 """
 
 from __future__ import annotations
@@ -51,7 +59,7 @@ from .ref import ssd_chunked_ref
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "ssd_scan_fwd", "ssd_scan_bwd",
            "kernel_chunk", "kernel_rows", "route", "ssd_flops", "LAUNCHES",
-           "fwd_launches", "bwd_launches"]
+           "fwd_launches", "bwd_launches", "route_launches"]
 
 fwd_launches = 0
 bwd_launches = 0
@@ -59,17 +67,22 @@ MAX_STATE = 128
 MAX_HEAD_DIM = 64
 MAX_CHUNK = 128                     # the tensor-core route's tile rows
 FMA_CHUNK = 64                      # the FMA route's
+TF32_CHUNK = 64                     # the 3xTF32 route's
+TF32_STATE = 64 * 128               # a 3xTF32 state: h^T padded, floats
 # kernel launches of one forward and one backward call, by route
-LAUNCHES = {"tc": (2, 3), "fma": (1, 2)}
+LAUNCHES = {"tc": (2, 3), "tf32x3": (2, 3), "fma": (1, 2)}
+route_launches = {kind: 0 for kind in LAUNCHES}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SHAPE = [_I] * 8 + [_P]            # B S H G N P L, dtype, stream
-_FWD_ARGTYPES = [_P] * 7 + _SHAPE
-_BWD_ARGTYPES = [_P] * 12 + _SHAPE
-_TC_SHAPE = [_I] * 7 + [_P]         # B S H G N P L, stream
-_TC_FWD_ARGTYPES = [_P] * 8 + _TC_SHAPE
-_TC_BWD_ARGTYPES = [_P] * 13 + _TC_SHAPE
+_SHAPE = [_I] * 7 + [_P]            # B S H G N P L, stream
+# the C entry points by route: forward and backward, and their arguments
+_ENTRY = {"tc": (("ssd_scan_tc_fwd", [_P] * 8 + _SHAPE),
+                 ("ssd_scan_tc_bwd", [_P] * 13 + _SHAPE)),
+          "tf32x3": (("ssd_scan_tf32_fwd", [_P] * 8 + _SHAPE),
+                     ("ssd_scan_tf32_bwd", [_P] * 14 + _SHAPE)),
+          "fma": (("ssd_scan_fwd", [_P] * 7 + _SHAPE),
+                  ("ssd_scan_bwd", [_P] * 12 + _SHAPE))}
 
 
 def _check(x, a, b, c):
@@ -98,24 +111,27 @@ def kernel_chunk(chunk: int) -> int:
 
 
 def route(x, b) -> str:
-    """The kernels a CUDA call takes: ``"tc"`` for bf16 with N and P
-    multiples of 16 and 16-byte aligned tensors, else ``"fma"``. A meta
-    tensor counts as aligned where its offset into its storage is, as
-    every block of the CUDA allocator is."""
+    """The kernels a CUDA call takes: ``"tf32x3"`` for f32 (any width),
+    ``"tc"`` for bf16 with N and P multiples of 16 and 16-byte aligned
+    tensors, else ``"fma"``. A meta tensor counts as aligned where its
+    offset into its storage is, as every block of the CUDA allocator
+    is."""
     def aligned(t):
         if t.device.type == "cuda":
             return t.data_ptr() % 16 == 0
         return t.storage_offset() * t.element_size() % 16 == 0
+    if x.dtype == torch.float32:
+        return "tf32x3"
     N, P = b.shape[3], x.shape[3]
-    return "tc" if (x.dtype == torch.bfloat16 and N % 16 == 0
-                    and P % 16 == 0 and aligned(x) and aligned(b)) \
-        else "fma"
+    return "tc" if (N % 16 == 0 and P % 16 == 0 and aligned(x)
+                    and aligned(b)) else "fma"
 
 
 def kernel_rows(chunk: int, kind: str) -> int:
     """The rows of one chunk in the kernels of route ``kind``."""
     L = kernel_chunk(chunk)
-    return L if kind == "tc" else min(L, FMA_CHUNK)
+    return {"tc": L, "tf32x3": min(L, TF32_CHUNK),
+            "fma": min(L, FMA_CHUNK)}[kind]
 
 
 def ssd_scan_plain(x, a, b, c, chunk: int = 128):
@@ -126,19 +142,18 @@ def ssd_scan_plain(x, a, b, c, chunk: int = 128):
                            return_state=True)
 
 
-def _shape_args(x, b, L, kind):
-    """B S H G N P L (and the dtype code on the FMA route), the stream."""
+def _shape_args(x, b, L):
+    """B S H G N P L, the stream."""
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
-    dtype = [] if kind == "tc" else [_DTYPE_CODES[x.dtype]]
-    return [B, S, H, G, N, P, L, *dtype,
+    return [B, S, H, G, N, P, L,
             torch.cuda.current_stream(x.device).cuda_stream]
 
 
 def _fwd_outputs(x, b, chunk: int, keep: bool):
     """What the forward allocates: y, the final state, the chunk states
-    (0 rows unless ``keep``) and, on the tensor-core route, C B^T of
-    every chunk and group (0 rows on the FMA route)."""
+    (0 rows unless ``keep``) and C B^T of every chunk and group (with B
+    C^T on the 3xTF32 route; 0 rows on the FMA route)."""
     kind = route(x, b)
     L = kernel_rows(chunk, kind)
     B, S, H, P = x.shape
@@ -147,12 +162,19 @@ def _fwd_outputs(x, b, chunk: int, keep: bool):
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     hT = torch.empty((B, H, N, P), **f32)
-    # the tensor-core kernels keep each state as a zero-padded 128 x 64
-    # tile in their fragment order
-    state_shape = (N, P) if kind == "fma" else (MAX_STATE * MAX_HEAD_DIM,)
-    states = torch.empty((B if keep else 0, H, nc, *state_shape), **f32)
-    cb = torch.empty((B if kind == "tc" else 0, nc, G, MAX_CHUNK,
-                      MAX_CHUNK), **f32)
+    # the tensor-core kernels keep each state as a zero-padded tile in
+    # their fragment order: 128 x 64 (h) on "tc", 64 x 128 (h^T) on
+    # "tf32x3", whose states end with the final one
+    Bk = B if keep else 0
+    if kind == "tc":
+        states = torch.empty((Bk, H, nc, MAX_STATE * MAX_HEAD_DIM), **f32)
+        cb = torch.empty((B, nc, G, MAX_CHUNK, MAX_CHUNK), **f32)
+    elif kind == "tf32x3":
+        states = torch.empty((Bk, H, nc + 1, TF32_STATE), **f32)
+        cb = torch.empty((B, nc, G, 2, TF32_CHUNK, TF32_CHUNK), **f32)
+    else:
+        states = torch.empty((Bk, H, nc, N, P), **f32)
+        cb = torch.empty((0, nc, G, MAX_CHUNK, MAX_CHUNK), **f32)
     return y, hT, states, cb
 
 
@@ -160,12 +182,16 @@ def ssd_scan_fwd(x, a, b, c, chunk: int, keep: bool):
     """The forward kernels on contiguous CUDA tensors, at the rows of
     ``kernel_rows(chunk, route(x, b))``: (y, final state, saved), saved
     being what the backward reads (None unless ``keep``): the state at
-    each chunk's start, f32, and on the tensor-core route C B^T of every
-    chunk and group, f32. The FMA route keeps the states as (B, H, nc, N,
-    P); the tensor-core route keeps them, and C B^T, in its kernels' own
-    fragment order (see the CUDA source)."""
+    each chunk's start, f32, C B^T of every chunk and group on the
+    tensor-core routes (with B C^T on "tf32x3"), and y on "tf32x3". The
+    FMA route keeps the states as (B, H, nc, N, P); the tensor-core
+    routes keep them, and C B^T, in their kernels' own fragment order (see
+    the CUDA source)."""
     y, hT, states, cb = _fwd(x, a, b, c, chunk, keep)
-    return y, hT, ((states, cb if cb.numel() else None) if keep else None)
+    if not keep:
+        return y, hT, None
+    return y, hT, (states, cb if cb.numel() else None,
+                   y if route(x, b) == "tf32x3" else None)
 
 
 def _fwd(x, a, b, c, chunk: int, keep: bool):
@@ -175,21 +201,15 @@ def _fwd(x, a, b, c, chunk: int, keep: bool):
     kind = route(x, b)
     L = kernel_rows(chunk, kind)
     y, hT, states, cb = _fwd_outputs(x, b, chunk, keep)
-    sp = states.data_ptr() if keep else None
+    ptrs = [t.data_ptr() for t in (x, a, b, c, y, hT)]
+    ptrs.append(states.data_ptr() if keep else None)
+    if kind != "fma":
+        ptrs.append(cb.data_ptr())
+    launch = _build.kernel_function("ssd_scan", *_ENTRY[kind][0])
     with _build.on_device(x.device):
-        if kind == "tc":
-            launch = _build.kernel_function("ssd_scan", "ssd_scan_tc_fwd",
-                                            _TC_FWD_ARGTYPES)
-            launch(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                   y.data_ptr(), hT.data_ptr(), sp, cb.data_ptr(),
-                   *_shape_args(x, b, L, kind))
-        else:
-            launch = _build.kernel_function("ssd_scan", "ssd_scan_fwd",
-                                            _FWD_ARGTYPES)
-            launch(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                   y.data_ptr(), hT.data_ptr(), sp,
-                   *_shape_args(x, b, L, kind))
+        launch(*ptrs, *_shape_args(x, b, L))
     fwd_launches += LAUNCHES[kind][0]
+    route_launches[kind] += LAUNCHES[kind][0]
     return y, hT, states, cb
 
 
@@ -207,28 +227,24 @@ def _bwd_outputs(x, a, b, c, states):
             torch.empty_like(c), torch.empty_like(states))
 
 
-def _bwd(x, a, b, c, states, cb, dy, dhT, chunk):
+def _bwd(x, a, b, c, states, cb, y, dy, dhT, chunk):
     global bwd_launches
     kind = route(x, b)
     L = kernel_rows(chunk, kind)
     dx, da, db, dc, dstates = _bwd_outputs(x, a, b, c, states)
-    dhp = None if dhT is None else dhT.data_ptr()
+    ptrs = [t.data_ptr() for t in (x, a, b, c)]
+    if kind == "tf32x3":
+        ptrs.append(y.data_ptr())
+    ptrs.append(states.data_ptr())
+    if kind != "fma":
+        ptrs.append(cb.data_ptr())
+    ptrs += [dy.data_ptr(), None if dhT is None else dhT.data_ptr()]
+    ptrs += [t.data_ptr() for t in (dstates, dx, da, db, dc)]
+    launch = _build.kernel_function("ssd_scan", *_ENTRY[kind][1])
     with _build.on_device(x.device):
-        if kind == "tc":
-            launch = _build.kernel_function("ssd_scan", "ssd_scan_tc_bwd",
-                                            _TC_BWD_ARGTYPES)
-            launch(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                   states.data_ptr(), cb.data_ptr(), dy.data_ptr(), dhp,
-                   dstates.data_ptr(), dx.data_ptr(), da.data_ptr(),
-                   db.data_ptr(), dc.data_ptr(), *_shape_args(x, b, L, kind))
-        else:
-            launch = _build.kernel_function("ssd_scan", "ssd_scan_bwd",
-                                            _BWD_ARGTYPES)
-            launch(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                   states.data_ptr(), dy.data_ptr(), dhp,
-                   dstates.data_ptr(), dx.data_ptr(), da.data_ptr(),
-                   db.data_ptr(), dc.data_ptr(), *_shape_args(x, b, L, kind))
+        launch(*ptrs, *_shape_args(x, b, L))
     bwd_launches += LAUNCHES[kind][1]
+    route_launches[kind] += LAUNCHES[kind][1]
     return dx, da, db, dc, dstates
 
 
@@ -254,33 +270,37 @@ def _(x, a, b, c, chunk, keep):
                          device_types="cuda")
 def _bwd_op(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             c: torch.Tensor, states: torch.Tensor, cb: torch.Tensor,
-            dy: torch.Tensor, dhT: Optional[torch.Tensor], chunk: int
+            dy: torch.Tensor, dhT: Optional[torch.Tensor], chunk: int,
+            y: Optional[torch.Tensor] = None
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                        torch.Tensor, torch.Tensor]:
-    return _bwd(x, a, b, c, states, cb if cb.numel() else None, dy, dhT,
+    return _bwd(x, a, b, c, states, cb if cb.numel() else None, y, dy, dhT,
                 chunk)
 
 
 @_bwd_op.register_fake
-def _(x, a, b, c, states, cb, dy, dhT, chunk):
+def _(x, a, b, c, states, cb, dy, dhT, chunk, y=None):
     return _bwd_outputs(x, a, b, c, states)
 
 
 def _setup_context(ctx, inputs, output):
     x, a, b, c, chunk, keep = inputs
-    _, _, states, cb = output
+    y, _, states, cb = output
     ctx.mark_non_differentiable(states, cb)
     ctx.set_materialize_grads(False)
-    ctx.save_for_backward(x, a, b, c, states, cb)
+    # the 3xTF32 backward reads y (da from dy . y)
+    ctx.save_for_backward(x, a, b, c, states, cb,
+                          y if route(x, b) == "tf32x3" else None)
     ctx.chunk = chunk
 
 
 def _backward(ctx, dy, dhT, _dstates, _dcb):
-    x, a, b, c, states, cb = ctx.saved_tensors
+    x, a, b, c, states, cb, y = ctx.saved_tensors
     dy = torch.zeros_like(x) if dy is None else dy.to(x.dtype).contiguous()
     if dhT is not None:
         dhT = dhT.float().contiguous()
-    dx, da, db, dc, _ = _bwd_op(x, a, b, c, states, cb, dy, dhT, ctx.chunk)
+    dx, da, db, dc, _ = _bwd_op(x, a, b, c, states, cb, dy, dhT, ctx.chunk,
+                                y)
     return dx, da, db, dc, None, None
 
 
@@ -300,8 +320,10 @@ def ssd_flops(B, S, H, P, G, N, L) -> tuple[int, int]:
 def _op_flops(x, b, chunk, backward: bool, x_dtype, aligned=True):
     B, S, H, P = x
     G, N = b[2], b[3]
-    kind = "tc" if (x_dtype == torch.bfloat16 and N % 16 == 0
-                    and P % 16 == 0 and aligned) else "fma"
+    if x_dtype == torch.float32:
+        kind = "tf32x3"
+    else:
+        kind = "tc" if N % 16 == 0 and P % 16 == 0 and aligned else "fma"
     return ssd_flops(B, S, H, P, G, N, kernel_rows(chunk, kind))[backward]
 
 
@@ -324,10 +346,10 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         return ssd_scan_plain(x, a, b, c, chunk)
     if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
-    if x.dtype not in _DTYPE_CODES or b.dtype != x.dtype \
+    if x.dtype not in _DTYPES or b.dtype != x.dtype \
             or c.dtype != x.dtype or a.dtype != torch.float32:
         raise TypeError(f"x, b, c must share a dtype among "
-                        f"{list(_DTYPE_CODES)} and a must be float32; got "
+                        f"{list(_DTYPES)} and a must be float32; got "
                         f"{x.dtype}, {b.dtype}, {c.dtype}, {a.dtype}")
     N, P = b.shape[3], x.shape[3]
     if N > MAX_STATE or P > MAX_HEAD_DIM:

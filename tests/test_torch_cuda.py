@@ -189,6 +189,23 @@ def _gmm_inputs(Z, C, D, F, P, dtype, seed=0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 8, 17, 32])
+def test_moe_gmm_decode_on_card(C):
+    """The bf16 decode route (C <= 32): two groups per expert stacked into
+    one block's tokens, D 264 and F 200 ragged against the 64-wide stages
+    and tiles; one launch on "wgmma_decode"."""
+    _card()
+    x, w, _ = _gmm_inputs(8, C, 264, 200, 4, torch.bfloat16)
+    assert gmm_mod.route(x.dtype, C, 264, 200, True) == "wgmma_decode"
+    before = gmm_mod.route_launches["wgmma_decode"]
+    got = ops.moe_gmm(x, w, expert_period=4)
+    assert gmm_mod.route_launches["wgmma_decode"] == before + 1
+    torch.testing.assert_close(got.float(),
+                               gmm_mod.moe_gmm_plain(x, w, 4).float(),
+                               rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C", [64, 65, 127, 128, 129])
 def test_moe_gmm_forward_tile_edges_on_card(dtype, C):
@@ -303,13 +320,18 @@ def test_ssd_scan_kernel_on_card(dtype, S, H, P, G, N, chunk):
     gy = torch.randn((2, S, H, P), generator=g, device="cuda").to(dtype)
     gh = torch.randn((2, H, N, P), generator=g, device="cuda")
     ts = [t.clone().requires_grad_() for t in (x, a, b, c)]
+    kind = ssd_mod.route(x, b)
+    assert kind == ("tf32x3" if dtype == torch.float32 else
+                    "tc" if N % 16 == 0 and P % 16 == 0 else "fma")
     before = (ssd_mod.fwd_launches, ssd_mod.bwd_launches)
+    routed = ssd_mod.route_launches[kind]
     y, h = ops.ssd_scan(*ts, chunk=chunk)
     got = torch.autograd.grad((y.float() * gy.float()).sum()
                               + (h * gh).sum(), ts)
-    nf, nb = ssd_mod.LAUNCHES[ssd_mod.route(x, b)]
+    nf, nb = ssd_mod.LAUNCHES[kind]
     assert (ssd_mod.fwd_launches, ssd_mod.bwd_launches) == (before[0] + nf,
                                                             before[1] + nb)
+    assert ssd_mod.route_launches[kind] == routed + nf + nb
     rs = [t.float().requires_grad_() for t in (x, a, b, c)]
     ry, rh = ssd_mod.ssd_scan_plain(*rs, chunk=chunk)
     want = torch.autograd.grad((ry * gy.float()).sum() + (rh * gh).sum(), rs)
@@ -324,16 +346,19 @@ def test_ssd_scan_kernel_on_card(dtype, S, H, P, G, N, chunk):
 
 
 @pytest.mark.cuda
-def test_ssd_scan_backward_repeats_bits():
-    """Two bf16 backward runs on the same inputs give the same bits (the
-    head sums of dB and dC run in a fixed order, with no atomics)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_backward_repeats_bits(dtype):
+    """Two backward runs on the same inputs give the same bits (the head
+    sums of dB and dC run in a fixed order, with no atomics), on the
+    3xTF32 route (f32) and the tensor-core route (bf16)."""
     from repro_torch.kernels import ssd_scan as ssd_mod
     _card()
-    x, a, b, c = _ssd_inputs(2, 512, 4, 64, 1, 128, torch.bfloat16)
-    assert ssd_mod.route(x, b) == "tc"
+    x, a, b, c = _ssd_inputs(2, 512, 4, 64, 1, 128, dtype)
+    assert ssd_mod.route(x, b) == ("tf32x3" if dtype == torch.float32
+                                   else "tc")
     g = torch.Generator(device="cuda").manual_seed(2)
     gy = torch.randn((2, 512, 4, 64), generator=g,
-                     device="cuda").to(torch.bfloat16)
+                     device="cuda").to(dtype)
     gh = torch.randn((2, 4, 128, 64), generator=g, device="cuda")
     _, _, saved = ssd_mod.ssd_scan_fwd(x, a, b, c, 128, True)
     first = ssd_mod.ssd_scan_bwd(x, a, b, c, saved, gy, gh, 128)

@@ -270,7 +270,7 @@ def test_every_f32_moe_gmm_takes_3xtf32():
                         assert gmm_mod.route(torch.float32, C, a, b, aligned,
                                              backward) == "tf32x3"
     assert gmm_mod.route(torch.bfloat16, 64, 48, 72, True) == "wgmma"
-    assert gmm_mod.route(torch.bfloat16, 32, 48, 72, True) == "wmma"
+    assert gmm_mod.route(torch.bfloat16, 32, 48, 72, True) == "wgmma_decode"
     assert gmm_mod.route(torch.bfloat16, 32, 48, 72, True,
                          backward=True) == "wgmma"
     assert gmm_mod.route(torch.bfloat16, 64, 44, 72, True) == "fma"
