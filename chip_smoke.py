@@ -21,9 +21,15 @@ imports nothing of JAX or of the JAX package. It
    dense paths' GQA 16/2 at head dim 128 and MHA 32/32 at 64, and at
    hubert's bidirectional MHA 16/16 at head dim 80) plus
    ragged, windowed, bidirectional, decode and odd-width cases, with a
-   check that two backward runs give the same bits, ``rmsnorm``; in
-   bf16 and f32 (each call's route asserted, the library calls with TF32
-   off, SDPA's backend named, f32 bounds at the FMA and 3xTF32 rates);
+   check that two backward runs give the same bits, ``rmsnorm`` at
+   every width the ten architectures normalise (8192 rows of D 1024 to
+   8192, 327680 rows of 128, a decode step) and at two cases of its
+   "plain" route, with the share of the bound; in bf16 and f32 (each
+   call's route asserted, the library calls with TF32 off, SDPA's
+   backend named, f32 bounds at the FMA and 3xTF32 rates). The bf16
+   "fma" routes of ``moe_gmm`` (forward and backward) and ``ssd_scan``,
+   on no path, are held and timed at the training shapes with their
+   widths made odd;
 3. serves full-width granite-moe-1b-a400m in bf16 (random weights from a
    seed) at batch 4, prompt 64, gen 32 with ``moe_impl="kernel"``, counts
    the kernel launches of that run, then checks the result: the same
@@ -205,6 +211,11 @@ GMM_CASES = [
     ("tile edge C 65", 4, 65, 256, 136, 2),
     ("tile edge C 127", 4, 127, 256, 136, 2),
     ("tile edge C 129", 4, 129, 256, 136, 2),
+    # the training shapes with D and F off a multiple of 8: bf16 takes the
+    # "fma" route (forward; backward on transposed copies), timed here
+    # although no path launches it
+    ("train gate/up odd", 64, 1280, 1020, 510, 32),
+    ("train down odd", 64, 1280, 510, 1020, 32),
 ]
 REPORT_CASE = ("train gate/up", torch.bfloat16)    # 2 of 3 calls a layer
 # the training shapes, and dw's group walk crossing a ragged C (100 rows:
@@ -229,8 +240,23 @@ FLASH_CASES = [
     ("head dim 48", 1, 130, 130, 6, 3, 48, True, None, 0),
 ]
 FLASH_REPORT = ("train causal", torch.bfloat16)
-RMS_CASES = [(8192, 1024), (31, 96)]
-RMS_REPORT = ((8192, 1024), torch.bfloat16)
+# rmsnorm: (rows, D, x's offset in elements) at the widths the ten
+# architectures normalise, in the rows of a training batch (2 x 4096) and
+# of a decode step (batch 4); then the "plain" route's cases
+RMS_CASES = [
+    (8192, 1024, 0),            # granite-moe (the report case)
+    (8192, 1280, 0),            # hubert-xlarge
+    (8192, 2048, 0),            # qwen2.5-3b, stablelm-1.6b, mamba2-1.3b
+    (8192, 4096, 0),            # mamba2's gated out_norm over d_inner
+    (8192, 5120, 0),            # qwen3-14b, llama4-scout
+    (8192, 8192, 0),            # command-r-35b, llama-3.2-vision, jamba
+    (327680, 128, 0),           # qwen3-14b's q-norm: 8192 tokens x 40 heads
+    (4, 5120, 0),               # a qwen3-14b decode step: launch-bound
+    (31, 96, 0),                # ragged
+    (33, 50, 0),                # rows not whole 16-byte vectors: "plain"
+    (8192, 1024, 1),            # x one element off 16-byte alignment: "plain"
+]
+RMS_REPORT = ((8192, 1024, 0), torch.bfloat16)
 # ssd_scan: tests/test_kernels.py's SSD tolerance for f32 (rtol 2e-3, atol
 # 2e-4; for gradients atol 2e-4 of the gradient's largest element, since
 # da and db sum over whole chunks and over the group's 64 heads), 3e-2
@@ -252,8 +278,12 @@ SSD_CASES = [
     ("S 128", 2, 128, 4, 64, 1, 128, 128, 1.0),
     ("S 129", 2, 129, 4, 64, 1, 128, 128, 1.0),
     ("H 8 G 2", 2, 512, 8, 64, 2, 128, 128, 1.0),
+    # the training shape with P and N off a multiple of 16: bf16 takes the
+    # "fma" route, timed here although no path launches it
+    ("train P 56 N 120", 2, 4096, 64, 56, 1, 120, 128, 1.0),
 ]
 SSD_REPORT = ("train", torch.bfloat16)
+SSD_TIMED = ("train", "train P 56 N 120")
 MAMBA = "mamba2-1.3b"
 CHECK_GEN = 8        # serve checks: batch 4, prompt 64, then 7 decodes
 # Prefill/decode logits (sequential scans with carried state) against a
@@ -1281,24 +1311,33 @@ def roofline_phase(preds: dict, measured: dict) -> list:
 
 
 def rmsnorm_phase(rms) -> dict:
-    """The rmsnorm kernel against its plain version; library call
-    torch.nn.functional.rms_norm."""
+    """The rmsnorm kernel against its plain version at every RMS_CASES
+    width, both dtypes, each call's route asserted ("bulk" at the
+    architectures' model widths, "vector" at rows of at most 512 bytes:
+    the q-norm's D 128 and D 96, "plain" at the odd and the unaligned
+    case); library call torch.nn.functional.rms_norm."""
     import torch.nn.functional as F
     log("[kernels] rmsnorm vs its plain version (tolerance abs + rel: "
-        "f32 1e-5, bf16 2e-2)")
+        "f32 1e-5, bf16 2e-2); share = bound / kernel")
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for N, D in RMS_CASES:
+        for N, D, off in RMS_CASES:
             size = torch.tensor([], dtype=dtype).element_size()
-            sets = [(torch.randn((N, D), generator=g, device="cuda")
-                     .to(dtype), torch.randn((D,), generator=g,
-                                             device="cuda").to(dtype))
+            sets = [(torch.randn((N * D + off,), generator=g, device="cuda")
+                     .to(dtype)[off:].view(N, D),
+                     torch.randn((D,), generator=g, device="cuda").to(dtype))
                     for _ in range(n_sets(N * D * size))]
             x, w = sets[0]
-            err = close_or_raise(f"rmsnorm ({N},{D}) {dtype}",
-                                 rms.rmsnorm(x, w, 1e-5),
-                                 rms.rmsnorm_plain(x, w, 1e-5),
+            dt = str(dtype).removeprefix("torch.")
+            what = f"rmsnorm ({N},{D}) offset {off} {dt}"
+            r0 = dict(rms.route_launches)
+            got = rms.rmsnorm(x, w, 1e-5)
+            kind = route_of(rms.route_launches, r0)
+            expect_route(what, kind, "plain" if off or D * size % 16
+                         else "vector" if D * size <= 512 else "bulk")
+            expect_route(what, kind, rms.route(x, w))
+            err = close_or_raise(what, got, rms.rmsnorm_plain(x, w, 1e-5),
                                  RMS_TOL[dtype])
             kern_ms = graph_ms(lambda a, b: rms.rmsnorm(a, b, 1e-5), sets)
             plain_ms = graph_ms(lambda a, b: rms.rmsnorm_plain(a, b, 1e-5),
@@ -1307,16 +1346,17 @@ def rmsnorm_phase(rms) -> dict:
                               sets)
             bound_ms, bound_by = roof((2 * N * D + D) * size, 4.0 * N * D,
                                       PEAK_FLOPS[torch.float32])
-            dt = str(dtype).removeprefix("torch.")
-            log(f"[kernels] rmsnorm ({N},{D}) {dt:8s}: max|err| {err:.3e} "
-                f"kernel_ms {kern_ms:.4f} plain_ms {plain_ms:.4f} "
-                f"library_ms {lib_ms:.4f} bound_ms {bound_ms:.4f} "
-                f"({bound_by}-bound)")
-            results[((N, D), dtype)] = dict(
-                shape=f"x({N},{D}) {dt}", max_abs_err=err, ms=kern_ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
-            del sets, x, w
+            log(f"[kernels] rmsnorm ({N},{D}) offset {off} {dt:8s}: route "
+                f"{kind} max|err| {err:.3e} kernel_ms {kern_ms:.4f} "
+                f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms "
+                f"{bound_ms:.4f} ({bound_by}-bound), share "
+                f"{bound_ms / kern_ms:.1%}, kernel/library "
+                f"{kern_ms / lib_ms:.2f}")
+            results[((N, D, off), dtype)] = dict(
+                shape=f"x({N},{D}) offset {off} {dt}", max_abs_err=err,
+                ms=kern_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+            del sets, x, w, got
     return results
 
 
@@ -1363,7 +1403,7 @@ def ssd_phase(ssd) -> dict:
                                      device="cuda") * 0.5).to(dtype)
                         for _ in range(2))
                 return x, a, b, c
-            timed = label == SSD_REPORT[0]
+            timed = label in SSD_TIMED
             sets = [draw() for _ in range(2 if timed else 1)]
             x, a, b, c = sets[0]
             kind = ssd.route(x, b)

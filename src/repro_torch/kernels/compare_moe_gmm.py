@@ -17,6 +17,11 @@ dw) by CUDA events around 5 calls after a warm-up; then the library call
 (``torch.bmm``, or ``torch.matmul`` over the groups) the same way as the
 forward, with TF32 off. Prints the card's name and power limit first, one line per shape
 and tree, and a JSON line of the best time of each. Needs a CUDA card.
+Each tree's forward is launched through its own wrapper's ``_launch``,
+not through the custom op ``repro_torch::moe_gmm``: a process holds one
+registration of an op name, the last tree's, so the op would run the
+same kernel for both trees (the backward, ``moe_gmm_bwd``, launches
+directly).
 """
 
 from __future__ import annotations
@@ -156,8 +161,8 @@ def main() -> int:
         for turn, name in enumerate(("other", "this", "this", "other")):
             gmm = trees[name]
             err = _check(f"{name} {label} {dt} forward",
-                         gmm.moe_gmm(x, w, P), want, tol)
-            ms = _graph_ms(lambda a, b: gmm.moe_gmm(a, b, P), sets)
+                         gmm._launch(x, w, P), want, tol)
+            ms = _graph_ms(lambda a, b: gmm._launch(a, b, P), sets)
             line = (f"{label:16s} {dt:8s} {name:5s} turn {turn}: forward "
                     f"{ms:.4f} ms {flops / ms / 1e9:.1f} TFLOP/s (max|err| "
                     f"{err:.3e})")

@@ -1,6 +1,7 @@
 // Hopper's asynchronous copies (sm_90a): mbarriers, TMA tile loads and
-// stores and the host-side encoding of TMA maps, shared by the
-// flash-attention and grouped-GEMM kernels.
+// stores, 1-D bulk loads (no tensor map) and the host-side encoding of
+// TMA maps, shared by the flash-attention, grouped-GEMM, SSD-scan and
+// rmsnorm kernels.
 //
 // A TMA map is built on the host for every call by cuTensorMapEncodeTiled,
 // a libcuda function reached through the runtime's driver entry point (so
@@ -81,6 +82,19 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap& map,
       "r"(smem_u32(s)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+
+// 1-D bulk copy (no tensor map): `bytes` contiguous bytes from global
+// memory at g into shared memory at s; completes on bar (armed by
+// mbar_expect). Both addresses and `bytes` must be multiples of 16.
+__device__ __forceinline__ void bulk_load(void* s, const void* g, int bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(s)),
+      "l"(reinterpret_cast<uint64_t>(g)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }

@@ -124,15 +124,34 @@ def test_flash_attention_kernel_refuses_wide_heads():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rmsnorm_kernel_on_card(dtype):
+@pytest.mark.parametrize("rows,D,offset", [
+    (31, 96, 0),
+    # the widths the ten architectures normalise, at a few rows; 1001 and
+    # 77 rows fill no "bulk" tile of any width (tiles hold a power of two
+    # rows); D 128 and 96 take "vector" (rows of at most 512 bytes)
+    (8, 1280, 0), (4, 4096, 0), (4, 5120, 0), (2, 8192, 0), (40, 128, 0),
+    (1001, 1024, 0), (77, 8192, 0), (1001, 128, 0), (333, 2048, 0),
+    # the "plain" route: rows not whole 16-byte vectors, and x one element
+    # off 16-byte alignment
+    (33, 50, 0), (1001, 1024, 1),
+])
+def test_rmsnorm_kernel_on_card(dtype, rows, D, offset):
     from repro_torch.kernels import rmsnorm as rms_mod
     _card()
     g = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((31, 96), generator=g, device="cuda").to(dtype)
-    w = torch.randn((96,), generator=g, device="cuda").to(dtype)
+    buf = torch.randn((rows * D + offset,), generator=g, device="cuda")
+    x = buf.to(dtype)[offset:].view(rows, D)
+    w = torch.randn((D,), generator=g, device="cuda").to(dtype)
+    row_bytes = D * x.element_size()
+    kind = ("plain" if offset or row_bytes % 16 else
+            "vector" if row_bytes <= 512 else "bulk")
+    assert rms_mod.route(x, w) == kind
     before = rms_mod.launches
+    routed = dict(rms_mod.route_launches)
     got = ops.rmsnorm(x, w, 1e-5)
     assert rms_mod.launches == before + 1
+    assert {k: v - routed[k] for k, v in rms_mod.route_launches.items()} \
+        == {k: int(k == kind) for k in routed}
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(),
                                rms_mod.rmsnorm_plain(x, w, 1e-5).float(),

@@ -280,7 +280,12 @@ def test_moe_gmm_grouped_period_grads_vs_tiled_jax(G, E, C, D, F):
         np.testing.assert_allclose(_f32(g), _f32(wa), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("rows,d", [(64, 128), (256, 512), (31, 96)])
+# the widths the ten architectures normalise, at a few rows: hubert-xlarge
+# 1280, mamba2's gated norm 4096, qwen3-14b 5120, command-r 8192, the
+# q/k-norm 128; and (33, 50), whose rows are not whole 16-byte vectors
+@pytest.mark.parametrize("rows,d", [(64, 128), (256, 512), (31, 96),
+                                    (8, 1280), (4, 4096), (4, 5120),
+                                    (2, 8192), (40, 128), (33, 50)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_wrapper_vs_jax(rows, d, dtype):
     jx, tx = _inputs((rows, d), 50, dtype)
@@ -290,6 +295,46 @@ def test_rmsnorm_wrapper_vs_jax(rows, d, dtype):
     assert got.dtype == tx.dtype
     tol = 1e-5 if dtype == "float32" else 2e-2      # test_kernels.py:30
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d,dtype,offset,want", [
+    (1024, torch.float32, 0, "bulk"), (1024, torch.bfloat16, 0, "bulk"),
+    (1280, torch.float32, 0, "bulk"), (2048, torch.bfloat16, 0, "bulk"),
+    (4096, torch.float32, 0, "bulk"), (5120, torch.bfloat16, 0, "bulk"),
+    (8192, torch.float32, 0, "bulk"), (8192, torch.bfloat16, 0, "bulk"),
+    (256, torch.float32, 0, "bulk"), (512, torch.bfloat16, 0, "bulk"),
+    # rows of at most 512 bytes: the q/k-norm's D 128, and D 96
+    (128, torch.float32, 0, "vector"), (128, torch.bfloat16, 0, "vector"),
+    (96, torch.bfloat16, 0, "vector"), (256, torch.bfloat16, 0, "vector"),
+    # offsets of whole 16-byte vectors keep the route
+    (1024, torch.float32, 4, "bulk"), (1024, torch.bfloat16, 8, "bulk"),
+    # one element off 16-byte alignment
+    (1024, torch.float32, 1, "plain"), (1024, torch.bfloat16, 1, "plain"),
+    (1024, torch.bfloat16, 4, "plain"),
+    # rows that are not whole 16-byte vectors, or wider than a stage
+    (50, torch.float32, 0, "plain"), (50, torch.bfloat16, 0, "plain"),
+    (1020, torch.bfloat16, 0, "plain"), (16384, torch.float32, 0, "plain"),
+    (16384, torch.bfloat16, 0, "bulk"), (16392, torch.bfloat16, 0, "plain"),
+])
+def test_rmsnorm_route_on_meta(d, dtype, offset, want):
+    """The route a CUDA call takes, from meta tensors: the width, the dtype
+    and x's offset into its storage (w at offset 0)."""
+    from repro_torch.kernels import rmsnorm as rms_mod
+    rows = 3
+    x = torch.empty(rows * d + offset, dtype=dtype, device="meta")[offset:]
+    x = x.view(rows, d)
+    w = torch.empty(d, dtype=dtype, device="meta")
+    assert x.storage_offset() == offset
+    assert rms_mod.route(x, w) == want
+    # an unaligned w takes "plain" too; a copy (x not contiguous) aligns
+    wv = torch.empty(d + 1, dtype=dtype, device="meta")[1:]
+    assert rms_mod.route(x, wv) == "plain"
+    row_bytes = d * x.element_size()
+    fits = row_bytes % 16 == 0 and row_bytes <= 32768
+    xt = torch.empty(d, rows, dtype=dtype, device="meta").t()
+    assert rms_mod.route(xt, w) == ("plain" if not fits else
+                                    "vector" if row_bytes <= 512 else
+                                    "bulk")
 
 
 def test_rmsnorm_grad_vs_jax():
