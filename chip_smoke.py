@@ -27,9 +27,11 @@ imports nothing of JAX or of the JAX package. It
    "plain" route, with the share of the bound; in bf16 and f32 (each
    call's route asserted, the library calls with TF32 off, SDPA's
    backend named, f32 bounds at the FMA and 3xTF32 rates). The bf16
-   "fma" routes of ``moe_gmm`` (forward and backward) and ``ssd_scan``,
-   on no path, are held and timed at the training shapes with their
-   widths made odd;
+   edge routes of ``moe_gmm`` ("wgmma_edge", forward and backward) and
+   ``ssd_scan`` ("tc_edge"), on no path, are held and timed at the
+   training shapes with their widths made odd and with every tensor one
+   element off alignment, and held at small widths whose rows are only
+   2-byte aligned;
 3. serves full-width granite-moe-1b-a400m in bf16 (random weights from a
    seed) at batch 4, prompt 64, gen 32 with ``moe_impl="kernel"``, counts
    the kernel launches of that run, then checks the result: the same
@@ -193,7 +195,9 @@ FLASH_GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
 RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 L2_BYTES = 50e6
 
-# (label, Z = groups x experts, C, D, F, expert period)
+# (label, Z = groups x experts, C, D, F, expert period[, offset]): the
+# offset, where given, puts every tensor that many elements into its
+# storage
 GMM_CASES = [
     ("prefill gate/up", 32, 80, 1024, 512, 32),
     ("prefill down", 32, 80, 512, 1024, 32),
@@ -211,17 +215,27 @@ GMM_CASES = [
     ("tile edge C 65", 4, 65, 256, 136, 2),
     ("tile edge C 127", 4, 127, 256, 136, 2),
     ("tile edge C 129", 4, 129, 256, 136, 2),
-    # the training shapes with D and F off a multiple of 8: bf16 takes the
-    # "fma" route (forward; backward on transposed copies), timed here
-    # although no path launches it
+    # the training shapes with D and F off a multiple of 8, and with every
+    # tensor one element off 16-byte alignment: bf16 takes the edge route
+    # ("wgmma_edge": rows loaded as 16-byte granules and shifted into place
+    # by the producer's threads), timed here although no path launches
+    # it; rows only 2-byte aligned at a small shape
     ("train gate/up odd", 64, 1280, 1020, 510, 32),
     ("train down odd", 64, 1280, 510, 1020, 32),
+    ("train gate/up offset", 64, 1280, 1024, 512, 32, 1),
+    ("2-byte rows", 4, 100, 51, 77, 2),
 ]
 REPORT_CASE = ("train gate/up", torch.bfloat16)    # 2 of 3 calls a layer
-# the training shapes, and dw's group walk crossing a ragged C (100 rows:
-# the rows past C must read 0, not the next expert's)
+# the training shapes, dw's group walk crossing a ragged C (100 rows: the
+# rows past C must read 0, not the next expert's), and 2-byte rows
 GMM_BWD_CASES = [c for c in GMM_CASES if c[0].startswith("train")] + [
-    ("grouped ragged", 6, 100, 264, 200, 3)]
+    ("grouped ragged", 6, 100, 264, 200, 3),
+    ("2-byte rows", 4, 100, 51, 77, 2)]
+# the backwards held under torch.profiler (two kernels, no copy): the
+# training shape in both dtypes, and bf16's edge route
+GMM_NO_COPY = (("train gate/up", torch.bfloat16),
+               ("train gate/up", torch.float32),
+               ("train gate/up odd", torch.bfloat16))
 
 # (label, B, Sq, Skv, Hq, Hkv, D, causal, window, kv_offset)
 FLASH_CASES = [
@@ -262,8 +276,10 @@ RMS_REPORT = ((8192, 1024, 0), torch.bfloat16)
 # da and db sum over whole chunks and over the group's 64 heads), 3e-2
 # for bf16 as for flash attention
 SSD_TOL = {torch.float32: (2e-3, 2e-4), torch.bfloat16: (3e-2, 3e-2)}
-# (label, B, S, H, P, G, N, chunk, |a| scale): the training path's shape
-# first (mamba2-1.3b at batch 2 x 4096), in both dtypes; the others small
+# (label, B, S, H, P, G, N, chunk, |a| scale[, offset]): the training
+# path's shape first (mamba2-1.3b at batch 2 x 4096), in both dtypes; the
+# others small; the offset, where given, puts every tensor that many
+# elements into its storage
 SSD_CASES = [
     ("train", 2, 4096, 64, 64, 1, 128, 128, 1.0),
     ("S 100 one partial chunk", 2, 100, 4, 64, 1, 128, 128, 1.0),
@@ -278,12 +294,18 @@ SSD_CASES = [
     ("S 128", 2, 128, 4, 64, 1, 128, 128, 1.0),
     ("S 129", 2, 129, 4, 64, 1, 128, 128, 1.0),
     ("H 8 G 2", 2, 512, 8, 64, 2, 128, 128, 1.0),
-    # the training shape with P and N off a multiple of 16: bf16 takes the
-    # "fma" route, timed here although no path launches it
+    # the training shape with P and N off a multiple of 16 (TMA's bounds
+    # pad them) and with every tensor one element off 16-byte alignment
+    # (2-byte pieces): bf16 takes "tc_edge", timed here although no path
+    # launches it; rows in 4- and 8-byte pieces, and rows only 2-byte
+    # aligned, at a small shape
     ("train P 56 N 120", 2, 4096, 64, 56, 1, 120, 128, 1.0),
+    ("train offset", 2, 4096, 64, 64, 1, 128, 128, 1.0, 1),
+    ("P 50 N 100", 2, 300, 4, 50, 1, 100, 128, 1.0),
+    ("2-byte rows P 49 N 77", 2, 300, 4, 49, 2, 77, 128, 1.0),
 ]
 SSD_REPORT = ("train", torch.bfloat16)
-SSD_TIMED = ("train", "train P 56 N 120")
+SSD_TIMED = ("train", "train P 56 N 120", "train offset")
 MAMBA = "mamba2-1.3b"
 CHECK_GEN = 8        # serve checks: batch 4, prompt 64, then 7 decodes
 # Prefill/decode logits (sequential scans with carried state) against a
@@ -420,15 +442,20 @@ def elastic_supervisor(supervisor_cls, topology, run_step, save, restore,
 
 
 def elastic_stub_run(supervisor_cls, topology, sched: dict = ELASTIC,
-                     steps: int = TRAIN_STEPS) -> dict:
-    """``sched`` over ``steps`` steps with stub callbacks and a unit step
-    time: the events, the executed and the saved steps, and each remesh
-    plan's fields."""
+                     steps: int = TRAIN_STEPS,
+                     times: list[float] | None = None) -> dict:
+    """``sched`` over ``steps`` steps with stub callbacks, host 0's step
+    time being ``times[k]`` at the k-th executed step (a unit time where
+    ``times`` is None or runs out): the events, the executed and the
+    saved steps, and each remesh plan's fields."""
     out = dict(executed=[], saved=[], plans=[])
 
     def run_step(s):
+        k = len(out["executed"])
         out["executed"].append(s)
-        return elastic_times(s, 1.0, sched)
+        return elastic_times(
+            s, times[k] if times is not None and k < len(times) else 1.0,
+            sched)
 
     def save(s):
         out["saved"].append(s)
@@ -606,6 +633,18 @@ def expect_route(what: str, got: str, want: str) -> None:
                              f"{want}")
 
 
+def at_offset(t, off: int):
+    """t's values in a contiguous tensor whose data starts ``off`` elements
+    into its storage (off 0: t itself), so that a kernel sees a pointer
+    off 16-byte alignment."""
+    if not off:
+        return t
+    flat = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    view = flat[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def gmm_exact(x, w, P):
     """moe_gmm's plain arithmetic in float64 on the card: the reference of
     the f32 checks. An f32 sum of the training dw's 2560 unit products
@@ -626,19 +665,21 @@ def kernel_phase(gmm) -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for label, Z, C, D, F, P in GMM_CASES:
+        for label, Z, C, D, F, P, *off in GMM_CASES:
+            off = off[0] if off else 0
             size = torch.tensor([], dtype=dtype).element_size()
-            sets = [(torch.randn((Z, C, D), generator=g, device="cuda")
-                     .to(dtype),
-                     (torch.randn((P, D, F), generator=g, device="cuda")
-                      / math.sqrt(D)).to(dtype))
+            sets = [(at_offset(torch.randn((Z, C, D), generator=g,
+                                           device="cuda").to(dtype), off),
+                     at_offset((torch.randn((P, D, F), generator=g,
+                                            device="cuda")
+                                / math.sqrt(D)).to(dtype), off))
                     for _ in range(n_sets((Z * C * D + P * D * F) * size))]
             x, w = sets[0]
             r0 = dict(gmm.route_launches)
             got = gmm.moe_gmm(x, w, P)
             kind = route_of(gmm.route_launches, r0)
             expect_route(f"moe_gmm {label} {dtype}", kind,
-                         gmm.route(dtype, C, D, F, True))
+                         gmm.route(dtype, C, D, F, off == 0))
             want = gmm.moe_gmm_plain(x, w, P)
             torch.cuda.synchronize()
             tol = TOL[dtype]
@@ -690,16 +731,18 @@ def gmm_backward_phase(gmm) -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for label, Z, C, D, F, P in GMM_BWD_CASES:
+        for label, Z, C, D, F, P, *off in GMM_BWD_CASES:
+            off = off[0] if off else 0
             x = torch.randn((Z, C, D), generator=g, device="cuda").to(dtype)
             w = (torch.randn((P, D, F), generator=g, device="cuda")
                  / math.sqrt(D)).to(dtype)
             gy = torch.randn((Z, C, F), generator=g, device="cuda").to(dtype)
+            x, w, gy = (at_offset(t, off) for t in (x, w, gy))
             r0 = dict(gmm.route_launches)
             dx, dw = gmm.moe_gmm_bwd(x, w, gy, P)
             kind = route_of(gmm.route_launches, r0)
             expect_route(f"moe_gmm bwd {label} {dtype}", kind,
-                         gmm.route(dtype, C, D, F, True, backward=True))
+                         gmm.route(dtype, C, D, F, off == 0, backward=True))
             if not all(torch.equal(a, b) for a, b in
                        zip(gmm.moe_gmm_bwd(x, w, gy, P), (dx, dw))):
                 raise AssertionError(f"moe_gmm bwd {label} {dtype}: two "
@@ -750,17 +793,17 @@ def gmm_backward_phase(gmm) -> dict:
                 max_abs_err=err, ms=kern_ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
             del x, w, gy, dx, dw, xr, wr, yr, dxr, dwr
-    for dtype in (torch.bfloat16, torch.float32):
-        gmm_backward_copies(gmm, dtype)
+    for label, dtype in GMM_NO_COPY:
+        gmm_backward_copies(gmm, dtype, label)
     return results
 
 
-def gmm_backward_copies(gmm, dtype) -> None:
-    """One backward at the train gate/up shape under torch.profiler: the
-    two moe_gmm kernels and no other kernel (no transposed copy)."""
+def gmm_backward_copies(gmm, dtype, label: str) -> None:
+    """One backward at GMM_CASES' shape ``label`` under torch.profiler:
+    the two moe_gmm kernels and no other kernel (no transposed copy)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    _, Z, C, D, F, P = GMM_BWD_CASES[0]
+    _, Z, C, D, F, P, *_ = next(c for c in GMM_CASES if c[0] == label)
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     x, gy = (torch.randn(s, generator=g, device="cuda").to(dtype)
              for s in ((Z, C, D), (Z, C, F)))
@@ -773,7 +816,8 @@ def gmm_backward_copies(gmm, dtype) -> None:
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     dt = str(dtype).removeprefix("torch.")
-    log(f"[kernels] moe_gmm bwd {dt} x({Z},{C},{D}) under torch.profiler: "
+    log(f"[kernels] moe_gmm bwd {label} {dt} x({Z},{C},{D}) w({P},{D},{F}) "
+        f"under torch.profiler: "
         f"{len(names)} device operations: {[n[:60] for n in names]}")
     if len(names) != 2 or not all("moe_gmm" in n for n in names):
         raise AssertionError(f"the {dt} moe_gmm backward launched other "
@@ -1388,7 +1432,8 @@ def ssd_phase(ssd) -> dict:
         "must give the same bits")
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     results = {}
-    for label, B, S, H, P, G, N, chunk, a_scale in SSD_CASES:
+    for label, B, S, H, P, G, N, chunk, a_scale, *off in SSD_CASES:
+        off = off[0] if off else 0
         for dtype in (torch.bfloat16, torch.float32):
             size = torch.tensor([], dtype=dtype).element_size()
             decay = torch.exp(torch.linspace(0.0, math.log(16.0), H,
@@ -1402,14 +1447,14 @@ def ssd_phase(ssd) -> dict:
                 b, c = ((torch.randn((B, S, G, N), generator=g,
                                      device="cuda") * 0.5).to(dtype)
                         for _ in range(2))
-                return x, a, b, c
+                return tuple(at_offset(t, off) for t in (x, a, b, c))
             timed = label in SSD_TIMED
             sets = [draw() for _ in range(2 if timed else 1)]
             x, a, b, c = sets[0]
-            kind = ssd.route(x, b)
+            kind = ssd.route(x, b, c)
             L = ssd.kernel_rows(chunk, kind)
-            gy = torch.randn((B, S, H, P), generator=g,
-                             device="cuda").to(dtype)
+            gy = at_offset(torch.randn((B, S, H, P), generator=g,
+                                       device="cuda").to(dtype), off)
             gh = torch.randn((B, H, N, P), generator=g, device="cuda")
             r0 = dict(ssd.route_launches)
             y, hT, saved = ssd.ssd_scan_fwd(x, a, b, c, chunk, True)
@@ -1425,7 +1470,8 @@ def ssd_phase(ssd) -> dict:
             rtol, atol = SSD_TOL[dtype]
             dt = str(dtype).removeprefix("torch.")
             shape = (f"x({B},{S},{H},{P}) b,c({B},{S},{G},{N}) {dt} chunk "
-                     f"{chunk} ({kind} route, kernel rows {L})")
+                     f"{chunk}{f' offset {off}' if off else ''} ({kind} "
+                     f"route, kernel rows {L})")
             name = f"ssd_scan {label} {dt}"
             f_err = max(close_or_raise(f"{name} y", y, ry, rtol, atol),
                         close_or_raise(f"{name} state", hT, rh, rtol, atol))
@@ -2849,7 +2895,12 @@ def elastic_phase(gmm, fa, rms) -> dict:
     from it), save through ``CheckpointManager.save_sync`` (the JAX
     layout, under TMPDIR), restore through ``restore_latest`` +
     ``from_jax`` / ``opt_from_jax``, and record the remesh plans. Checks:
-    (a) the events and executed steps equal the stub run's; (b) every
+    (a) the events and executed steps equal those of the stub run fed
+    this run's measured step times (the heartbeat monitor's EWMA reads
+    them, so a slow step can move the straggler's flagging by a step),
+    and the event kinds and executed steps those of the unit-time stub
+    run (the failure, its remesh, the restore, the checkpoints, the
+    straggler's eviction); (b) every
     executed step's loss, the replays included, the uninterrupted run's
     at that step and (c) the final weights the uninterrupted run's, bit
     for bit where the two uninterrupted runs agree bit for bit, otherwise
@@ -3001,14 +3052,23 @@ def elastic_phase(gmm, fa, rms) -> dict:
         weights = {k: v.detach().to("cpu", copy=True)
                    for k, v in state["params"].state_dict().items()}
         del state
-    stub = elastic_stub_run(Supervisor, topology)
+    steps = [s for s, _, _ in executed]
+    stub = elastic_stub_run(Supervisor, topology,
+                            times=[t for _, _, t in executed])
+    unit = elastic_stub_run(Supervisor, topology)
     log(f"[elastic] events {sup.events}")
     if sup.events != stub["events"] or final != stub["final"] \
-            or [s for s, _, _ in executed] != stub["executed"]:
+            or steps != stub["executed"]:
         raise AssertionError(f"[elastic] events {sup.events}, executed "
-                             f"{[s for s, _, _ in executed]}, against the "
-                             f"stub run's {stub['events']}, "
+                             f"{steps}, against the stub run's on the same "
+                             f"step times {stub['events']}, "
                              f"{stub['executed']}")
+    if sorted(e for _, e in sup.events) != sorted(
+            e for _, e in unit["events"]) or steps != unit["executed"]:
+        raise AssertionError(f"[elastic] events {sup.events}, executed "
+                             f"{steps}: not the event kinds and steps of "
+                             f"the unit-time stub run {unit['events']}, "
+                             f"{unit['executed']}")
     if [(p.surviving, p.mesh_shape, p.dropped, p.data_parallel_scale)
             for p in plans] != stub["plans"]:
         raise AssertionError("[elastic] the remesh plans differ from the "
@@ -3029,7 +3089,7 @@ def elastic_phase(gmm, fa, rms) -> dict:
         seen.add(s)
     t_replay = sum(t for _, t in replayed)
     log(f"[elastic] stub run's events equal; executed steps "
-        f"{[s for s, _, _ in executed]}, replayed {[s for s, _ in replayed]} "
+        f"{steps}, replayed {[s for s, _ in replayed]} "
         f"({len(replayed)} steps, {t_replay:.2f} s of step time); every "
         f"executed loss equals the uninterrupted run's "
         f"({'bit for bit' if same else 'within their spread'}; largest "

@@ -15,7 +15,10 @@ graph's own launch, some microseconds, is spread over 16 calls and not
 over the two or three sets a decode shape needs), the backward (dx and
 dw) by CUDA events around 5 calls after a warm-up; then the library call
 (``torch.bmm``, or ``torch.matmul`` over the groups) the same way as the
-forward, with TF32 off. Prints the card's name and power limit first, one line per shape
+forward, and for the backward its two products (``torch.matmul`` for dx,
+and for dw summed over the groups) the same way as the backward, with
+TF32 off. The training shapes run also with D and F off a multiple of 8
+(1020 and 510: the edge route's loads). Prints the card's name and power limit first, one line per shape
 and tree, and a JSON line of the best time of each. Needs a CUDA card.
 Each tree's forward is launched through its own wrapper's ``_launch``,
 not through the custom op ``repro_torch::moe_gmm``: a process holds one
@@ -49,8 +52,10 @@ SHAPES = [
     ("train gate/up", 64, 1280, 1024, 512, 32, torch.bfloat16),
     ("train down", 64, 1280, 512, 1024, 32, torch.bfloat16),
     ("train gate/up", 64, 1280, 1024, 512, 32, torch.float32),
+    ("train gate/up odd", 64, 1280, 1020, 510, 32, torch.bfloat16),
+    ("train down odd", 64, 1280, 510, 1020, 32, torch.bfloat16),
 ]
-BWD = {"train gate/up", "train down"}
+BWD = {"train gate/up", "train down", "train gate/up odd", "train down odd"}
 # tests/test_kernels.py's tolerances (atol = rtol)
 TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
 L2_BYTES = 50e6
@@ -188,8 +193,17 @@ def main() -> int:
                 return torch.matmul(a.view(G, P, C, D), b)
         torch.backends.cuda.matmul.allow_tf32 = False
         ms = _graph_ms(lib, sets)
-        print(f"{label:16s} {dt:8s} library forward {ms:.4f} ms", flush=True)
+        line = f"{label:16s} {dt:8s} library forward {ms:.4f} ms"
         best[(label, dt, "library", "fwd")] = ms
+        if label in BWD:
+            G = Z // P
+            bms = _event_ms(lambda: (
+                torch.matmul(gy.view(G, P, C, F), w.transpose(1, 2)),
+                torch.matmul(x.view(G, P, C, D).transpose(2, 3),
+                             gy.view(G, P, C, F)).sum(0)))
+            line += f"; backward {bms:.4f} ms"
+            best[(label, dt, "library", "bwd")] = bms
+        print(line, flush=True)
         del sets, x, w, gy, want, dwant
         torch.cuda.empty_cache()
     print(json.dumps({"card": card, "best_ms": {

@@ -9,9 +9,10 @@ one card, in turns.
 and called through its own low-level entry points with the states kept
 for the backward, as the training path calls it. At the training shape
 of mamba2-1.3b (batch 2 x 4096, 64 heads of 64, one group, state 128,
-chunk 128), in bf16 and in f32, both trees are held against this
-checkout's plain version, then timed in the order other, this, this,
-other: the forward
+chunk 128), in bf16 and in f32, and at that shape with its widths off
+a multiple of 16 in bf16 (P 56, N 120: TMA's bounds pad them; P 50, N
+100: the edge loads), both trees are held against this checkout's plain
+version, then timed in the order other, this, this, other: the forward
 from a CUDA graph over argument sets that exceed the L2, the backward by
 CUDA events around 5 calls after a warm-up; then this tree's forward and
 backward once more under torch.profiler, device time by kernel. Prints
@@ -36,8 +37,14 @@ import torch.nn.functional as F
 
 from . import ssd_scan as this_ssd
 
-# (B, S, H, P, G, N, chunk): chip_smoke.py's training shape
-SHAPE = (2, 4096, 64, 64, 1, 128, 128)
+# (label, (B, S, H, P, G, N, chunk), dtypes): chip_smoke.py's training
+# shape, and the same with P and N off a multiple of 16
+CASES = [
+    ("train", (2, 4096, 64, 64, 1, 128, 128),
+     (torch.bfloat16, torch.float32)),
+    ("train P 56 N 120", (2, 4096, 64, 56, 1, 120, 128), (torch.bfloat16,)),
+    ("train P 50 N 100", (2, 4096, 64, 50, 1, 100, 128), (torch.bfloat16,)),
+]
 # tests/test_kernels.py's SSD tolerances (rtol, atol; gradients atol x
 # their largest element)
 TOL = {torch.bfloat16: (3e-2, 3e-2), torch.float32: (2e-3, 2e-4)}
@@ -145,11 +152,13 @@ def main() -> int:
         text=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     trees = {"other": _load_other(args.other.resolve()), "this": this_ssd}
-    B, S, H, P, G, N, chunk = SHAPE
     gen = torch.Generator(device="cuda").manual_seed(0)
-    decay = torch.exp(torch.linspace(0.0, math.log(16.0), H, device="cuda"))
     best: dict = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for label, (B, S, H, P, G, N, chunk), dtype in (
+            (lbl, shape, dt) for lbl, shape, dts in CASES for dt in dts):
+        decay = torch.exp(torch.linspace(0.0, math.log(16.0), H,
+                                         device="cuda"))
+
         def draw():
             x = (torch.randn((B, S, H, P), generator=gen, device="cuda")
                  * 0.5).to(dtype)
@@ -184,17 +193,17 @@ def main() -> int:
             bms = _event_ms(lambda: bwd(x, a, b, c, saved, gy, gh))
             del saved
             torch.cuda.empty_cache()
-            print(f"train {dt:8s} {name:5s} turn {turn}: forward {fms:.4f} ms "
-                  f"(max|err| {err:.3e}); backward {bms:.4f} ms (max|err| "
-                  f"{berr:.3e})", flush=True)
+            print(f"{label} {dt:8s} {name:5s} turn {turn}: forward "
+                  f"{fms:.4f} ms (max|err| {err:.3e}); backward {bms:.4f} ms "
+                  f"(max|err| {berr:.3e})", flush=True)
             for k, v in (("fwd", fms), ("bwd", bms)):
-                best[(dt, name, k)] = min(best.get((dt, name, k), math.inf),
-                                          v)
+                key = (label, dt, name, k)
+                best[key] = min(best.get(key, math.inf), v)
         fwd, bwd = _entry_points(this_ssd, chunk)
         saved = fwd(x, a, b, c)[2]
         for k, fn in (("forward", lambda: fwd(x, a, b, c)),
                       ("backward", lambda: bwd(x, a, b, c, saved, gy, gh))):
-            print(f"train {dt:8s} this  {k} by kernel: " + ", ".join(
+            print(f"{label} {dt:8s} this  {k} by kernel: " + ", ".join(
                 f"{n} {v:.4f} ms" for n, v in _by_kernel(fn).items()),
                 flush=True)
         del sets, x, a, b, c, gy, gh, ry, rh, want, saved

@@ -32,10 +32,15 @@
 //    which holds f32's 1e-4, reading x, w and g as stored (16-byte loads
 //    where D and F are multiples of 4 and the pointers 16-byte aligned,
 //    else element by element);
-//  * bf16 of other widths: FMAs on tiles staged as float. Their backward
-//    runs the forward kernel on transposed copies made by the wrapper.
-// The FMA kernel runs one block per (F tile, C tile, z) with the D loop
-// inside the block and masks ragged C, D and F itself.
+//  * bf16 of any other widths or alignment (rows not whole 16-byte
+//    multiples, which TMA cannot take, or unaligned pointers), forward
+//    and backward at any C: the wgmma route's tiles, products and modes
+//    with x, w and g read as stored, only the loads and the epilogue
+//    changed (the edge route, "The edge loads" below; 128 x 128 tiles):
+//    the producer warpgroup loads B and each consumer warpgroup its own
+//    half of A, two threads a row, as the 16-byte granules that cover it,
+//    shifted into the swizzled panels in registers (zero past the
+//    matrix's edge); the consumers store from registers with masks.
 //
 // The f32 route: tf32 operands in shared memory must be K-major, so the
 // MN-major ones as stored (w in the forward, x and g in dw) are
@@ -99,101 +104,7 @@
 
 namespace {
 
-constexpr int kThreadsX = 16;              // threads along F
-constexpr int kThreadsY = 16;              // threads along C
-constexpr int kThreads = kThreadsX * kThreadsY;
-constexpr int kBK = 32;                    // depth of one staged tile
-constexpr int kTN = 4;                     // outputs per thread along F
-constexpr int kBN = kThreadsX * kTN;       // 64 columns per block
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// TM outputs per thread along C: the block covers kThreadsY * TM rows.
-template <typename T, int TM>
-__global__ void __launch_bounds__(kThreads)
-moe_gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-               T* __restrict__ out, int C, int D, int F, int period) {
-  constexpr int kBM = kThreadsY * TM;
-  // x tile stored transposed (k-major) so a thread reads its TM rows of
-  // one k with stride kThreadsY; +1 keeps the transposing store free of
-  // bank conflicts.
-  __shared__ float xs[kBK][kBM + 1];
-  __shared__ float ws[kBK][kBN];
-
-  const int z = blockIdx.z;
-  const int e = z % period;
-  const int row0 = blockIdx.y * kBM;
-  const int col0 = blockIdx.x * kBN;
-  const T* xz = x + static_cast<size_t>(z) * C * D;
-  const T* we = w + static_cast<size_t>(e) * D * F;
-  T* oz = out + static_cast<size_t>(z) * C * F;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % kThreadsX;
-  const int ty = tid / kThreadsX;
-
-  float acc[TM][kTN];
-#pragma unroll
-  for (int m = 0; m < TM; ++m)
-#pragma unroll
-    for (int n = 0; n < kTN; ++n) acc[m][n] = 0.f;
-
-  for (int k0 = 0; k0 < D; k0 += kBK) {
-    // neighbouring threads read neighbouring elements of a row of x
-    // (contiguous along D) and of a row of w (contiguous along F)
-    for (int i = tid; i < kBM * kBK; i += kThreads) {
-      const int r = i / kBK, c = i % kBK;
-      const int gr = row0 + r, gc = k0 + c;
-      xs[c][r] = (gr < C && gc < D)
-                     ? to_f32(xz[static_cast<size_t>(gr) * D + gc])
-                     : 0.f;
-    }
-    for (int i = tid; i < kBK * kBN; i += kThreads) {
-      const int r = i / kBN, c = i % kBN;
-      const int gr = k0 + r, gc = col0 + c;
-      ws[r][c] = (gr < D && gc < F)
-                     ? to_f32(we[static_cast<size_t>(gr) * F + gc])
-                     : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[TM], b[kTN];
-#pragma unroll
-      for (int m = 0; m < TM; ++m) a[m] = xs[kk][ty + m * kThreadsY];
-#pragma unroll
-      for (int n = 0; n < kTN; ++n) b[n] = ws[kk][tx + n * kThreadsX];
-#pragma unroll
-      for (int m = 0; m < TM; ++m)
-#pragma unroll
-        for (int n = 0; n < kTN; ++n) acc[m][n] = fmaf(a[m], b[n], acc[m][n]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int m = 0; m < TM; ++m) {
-    const int r = row0 + ty + m * kThreadsY;
-    if (r >= C) continue;
-#pragma unroll
-    for (int n = 0; n < kTN; ++n) {
-      const int c = col0 + tx + n * kThreadsX;
-      if (c < F) oz[static_cast<size_t>(r) * F + c] = from_f32<T>(acc[m][n]);
-    }
-  }
-}
+using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------------
 // bf16 wgmma route: persistent warp-specialised blocks, TMA ring
@@ -212,12 +123,14 @@ constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 // Shared memory of a block with BN-wide tiles: the ring's stages (A, 128
 // rows, then B, BN columns, 64 deep), each consumer's epilogue tile (64 x
 // BN bf16) and the ring's barriers (full: the stage landed, armed by the
-// producer's lane with the bytes; empty: the 8 consumer warps are done).
-template <int BN>
+// producer's lane with the bytes, or, kEdge, by every producer thread
+// once its stores are in; empty: the 8 consumer warps are done). kEdge
+// has no epilogue tiles.
+template <int BN, bool kEdge = false>
 struct WsCfg {
   static constexpr int kStages = BN == 256 ? 3 : 4;
   static constexpr int kA = 2 * kPanel, kStage = kA + BN * 128;
-  static constexpr int kEpi = BN / 64 * kPanel;
+  static constexpr int kEpi = kEdge ? 0 : BN / 64 * kPanel;
   struct Ring {
     uint64_t full[kStages], empty[kStages];
   };
@@ -231,6 +144,7 @@ struct WsCfg {
 struct Gemm {
   int Z, P, C, M, N;
   int tm, tn, ksteps, ntiles;
+  int K;                                   // forward, dx: the depth, D or F
 };
 
 // Tile t -> expert e, the z it reads (forward, dx) and its first output
@@ -258,13 +172,172 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
+// ---------------------------------------------------------------------
+// The edge loads: stages filled by the block's own threads
+// ---------------------------------------------------------------------
+// Where TMA cannot take a tensor (rows not whole 16-byte multiples, or an
+// unaligned base), the block's threads fill each stage's panels in the
+// layout the TMA box would give (128-byte lines, the 16-byte chunk c of
+// row r at chunk c ^ (r % 8)), two threads a row: each loads its half of
+// the row's 64 columns (128 bytes at any even offset) as the five 16-byte
+// granules that cover it (a granule holding a byte of the tensor lies in
+// that byte's page, so the slack read past a row's end is safe), shifts
+// them into place in registers (word selects, and a funnel shift where
+// the row sits 2 bytes off a word), zeroes what lies past the matrix and
+// stores four 16-byte chunks. The producer warpgroup fills B (BN is 128
+// on this route), a stage's loads in flight while the previous stage is
+// stored; each consumer warpgroup fills the half of A that it alone reads,
+// two stages ahead, while its products run. No warpgroup trades
+// registers: the consumers keep 64 accumulators in their 168.
+// Measured on the way there (train gate/up with D 1020, F 510, forward,
+// torch.matmul 0.45 ms; the TMA route at D 1024 0.14): cp.async pieces of
+// 4 and 8 bytes, 0.74 ms (about 6 bytes a cycle an SM); a 1-D bulk copy a
+// row into a staging buffer, 0.66 ms for the copies alone (the copy
+// engine's rate of requests); 16-byte cp.async granules into a staging
+// buffer, nine lanes a row, 1.02 ms for the copies alone (their index
+// arithmetic); nine or eight lanes a row in registers, 0.69-2.2 ms (their
+// instructions); the producer alone, a thread a row, 0.52 ms; with the
+// consumers loading A, 0.47 ms, four threads a row no faster; the
+// consumers' loads after their wait rather than beside their products,
+// 0.49 ms; a five- or six-stage ring, or a second producer warpgroup, no
+// faster. The tensor cores are busy about a fifth of the time. Two later
+// designs, neither kept: A by TMA through a map whose rows are g rows of
+// A (g rows make whole 16-byte granules, so the strides suit TMA) fails,
+// since TMA takes no box that starts off a 16-byte boundary (the card
+// stops on an illegal instruction) and row q of a map row starts q K
+// columns in; and TMA boxes from the 16-byte boundary before each row
+// into unswizzled staging tiles with 8 columns of slack, shifted into the
+// panels from shared memory by the producer (or by the producer and the
+// consumers), right on the card but slower than these loads from global
+// memory.
+
+// The sources and the destination of the edge route: A and B as stored;
+// out stored in bf16 pairs where `pair` (even row length, 4-byte aligned
+// base), else element by element.
+struct Edge {
+  const bf16* a;
+  const bf16* b;
+  bf16* out;
+  bool pair;
+};
+
+// One operand of a stage as the edge loads read it: its tile's row 0,
+// column 0 (byte address), row stride (bytes), the tile's rows inside the
+// matrix, and the valid columns of its first and second 64-column panel.
+// A "tall" operand is one panel of 128 rows (A in the forward and dx, B
+// in dx), a "wide" one two panels of 64 rows, side by side in the matrix's
+// columns (A in dw, B in the forward and dw); either way tile row i sits
+// at line i of the operand's shared memory.
+struct EdgeOp {
+  const char* base;
+  long ld;
+  int rows, n0, n1;
+};
+
+// The tile from row r0, column c0 of a row-major bf16 matrix m (rows x
+// cols, row stride ld elements).
+__device__ __forceinline__ EdgeOp edge_op(const bf16* m, long ld, int rows,
+                                          int cols, int r0, int c0) {
+  return EdgeOp{reinterpret_cast<const char*>(m + r0 * ld + c0), 2 * ld,
+                rows - r0, max(0, min(64, cols - c0)),
+                max(0, min(64, cols - c0 - 64))};
+}
+
+// The operands of stage s of tile (e, z, m0, n0). Forward: A = x[z] rows
+// m0 .., depth columns k0 ..; B = w[e] depth rows k0 .., columns n0 ...
+// dx: A = g[z]; B = w[e] rows n0 .., depth columns k0 ... dw: A = x[zz]
+// and B = g[zz], depth rows c0 .., columns m0 .. and n0 ...
+template <int kMode>
+__device__ __forceinline__ void edge_ops(const Gemm& p, const Edge& ed,
+                                         int e, int z, int m0, int n0, int s,
+                                         EdgeOp& A, EdgeOp& B) {
+  if (kMode == kDw) {
+    const int csteps = (p.C + kWsBK - 1) / kWsBK;
+    const long zz = (s / csteps) * p.P + e;
+    const int c0 = (s % csteps) * kWsBK;
+    A = edge_op(ed.a + zz * p.C * p.M, p.M, p.C, p.M, c0, m0);
+    B = edge_op(ed.b + zz * p.C * p.N, p.N, p.C, p.N, c0, n0);
+    return;
+  }
+  const int K = p.K, k0 = s * kWsBK;
+  A = edge_op(ed.a + static_cast<long>(z) * p.C * K, K, p.C, K, m0, k0);
+  const bf16* we = ed.b + static_cast<long>(e) * K * p.N;
+  B = kMode == kFwd ? edge_op(we, p.N, K, p.N, k0, n0)
+                    : edge_op(we, K, p.N, K, n0, k0);
+}
+
+// Tile row i of operand O: its first byte and its valid columns (0 past
+// the matrix).
+template <bool kTall>
+__device__ __forceinline__ const char* edge_at(const EdgeOp& O, int i,
+                                               int& n) {
+  const int r = kTall ? i : i & 63, pn = kTall ? 0 : i >> 6;
+  n = r < O.rows ? (pn ? O.n1 : O.n0) : 0;
+  return O.base + r * O.ld + 128 * pn;
+}
+
+// Half h of a row whose first byte is at g (n valid columns; 0: past the
+// matrix): the granules 4 h .. 4 h + 4 that cover it, counted from the one
+// holding its first byte (0 past its valid bytes), and the offset m of
+// that byte in it.
+__device__ __forceinline__ void edge_load_half(const char* g, int n, int h,
+                                               uint4 (&v)[5], int& m) {
+  const uintptr_t s0 = reinterpret_cast<uintptr_t>(g);
+  m = static_cast<int>(s0 & 15);
+  const int end = n ? m + 2 * n : 0;
+  const uint4* base = reinterpret_cast<const uint4*>(s0 & ~uintptr_t{15});
+#pragma unroll
+  for (int k = 0; k < 5; ++k)
+    v[k] = 16 * (4 * h + k) < end ? __ldg(base + 4 * h + k)
+                                  : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Half a row, shifted: granules g[0..4] (granules 4 h .. 4 h + 4 of a
+// row whose bytes start m bytes into its first granule), shifted left by
+// m bytes (two words, one word, then a half word), 0 from column n
+// (counted from this half's first) on, stored as chunks 4 h .. 4 h + 3
+// of line `line` (shared address) of panel row r.
+__device__ __forceinline__ void edge_half(const uint4 (&g)[5], int m, int n,
+                                          int h, uint32_t line, int r) {
+  uint32_t u[20];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    u[4 * k] = g[k].x;
+    u[4 * k + 1] = g[k].y;
+    u[4 * k + 2] = g[k].z;
+    u[4 * k + 3] = g[k].w;
+  }
+#pragma unroll
+  for (int k = 0; k < 18; ++k) u[k] = m & 8 ? u[k + 2] : u[k];
+#pragma unroll
+  for (int k = 0; k < 17; ++k) u[k] = m & 4 ? u[k + 1] : u[k];
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    u[k] = m & 2 ? __funnelshift_r(u[k], u[k + 1], 16) : u[k];
+  if (n < 32) {                            // past the matrix: zero
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      u[k] = 2 * k >= n ? 0u : 2 * k + 1 >= n ? u[k] & 0xffffu : u[k];
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                     line + (((4 * h + q) ^ (r & 7)) << 4)),
+                 "r"(u[4 * q]), "r"(u[4 * q + 1]), "r"(u[4 * q + 2]),
+                 "r"(u[4 * q + 3])
+                 : "memory");
+}
+
 // BN: the output tile's columns, 128 or 256 (a consumer's m64nBN product).
-template <int kMode, int BN>
+// kEdge: the block's threads fill the stages from `ed` (the edge loads: B
+// by the producer, each consumer's half of A by itself) and the consumers
+// store from registers, in place of the TMA maps.
+template <int kMode, int BN, bool kEdge>
 __global__ void __launch_bounds__(kWsThreads, 1)
 moe_gmm_ws_kernel(Gemm p, const __grid_constant__ CUtensorMap ta,
                   const __grid_constant__ CUtensorMap tb,
-                  const __grid_constant__ CUtensorMap to) {
-  using Cfg = WsCfg<BN>;
+                  const __grid_constant__ CUtensorMap to, const Edge ed) {
+  using Cfg = WsCfg<BN, kEdge>;
   constexpr int kStages = Cfg::kStages, kStage = Cfg::kStage;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring_smem = align1024(smem_raw);   // stage s: A, then B
@@ -272,7 +345,7 @@ moe_gmm_ws_kernel(Gemm p, const __grid_constant__ CUtensorMap ta,
   auto& ring = *reinterpret_cast<typename Cfg::Ring*>(epi + 2 * Cfg::kEpi);
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.full[s], kEdge ? 128 : 1);
       mbar_init(&ring.empty[s], kConsumers / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -280,8 +353,59 @@ moe_gmm_ws_kernel(Gemm p, const __grid_constant__ CUtensorMap ta,
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {         // the producer warpgroup
-    wgmma::setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == kConsumers) {
+    if (kEdge) {
+      static_assert(!kEdge || BN == 128, "the edge route runs BN 128");
+      static_assert(Cfg::kA == kWsBM * 128, "B's lines follow A's");
+      constexpr bool kTallB = kMode == kDx;     // see EdgeOp
+      const int pt = threadIdx.x - kConsumers;
+      const int mine = (p.ntiles - 1 - static_cast<int>(blockIdx.x)) /
+                           static_cast<int>(gridDim.x) + 1;
+      const int total = mine * p.ksteps;   // this block's stages
+      // stage it's rows of B of this thread: two threads a row (half hb
+      // each), rows pt / 2 and 64 + pt / 2 (the consumers load A)
+      const int rb = pt / 2, hb = pt % 2;
+      struct Half {
+        uint4 g[5];
+        int m, n;
+      };
+      auto load = [&](int it, Half (&H)[2]) {
+        const int t = blockIdx.x + (it / p.ksteps) * gridDim.x;
+        int e, z, m0, n0;
+        tile_coords<kMode, BN>(p, t, e, z, m0, n0);
+        EdgeOp A, B;
+        edge_ops<kMode>(p, ed, e, z, m0, n0, it % p.ksteps, A, B);
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          edge_load_half(edge_at<kTallB>(B, rb + 64 * q, H[q].n), H[q].n, hb,
+                         H[q].g, H[q].m);
+      };
+      auto put = [&](int it, const Half (&H)[2]) {
+        const uint32_t b = smem_u32(ring_smem + (it % kStages) * kStage) +
+                           Cfg::kA;
+        if (it >= kStages)                 // the consumers released it
+          mbar_wait(&ring.empty[it % kStages], (it / kStages - 1) & 1);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int r = rb + 64 * q;       // line r of B
+          edge_half(H[q].g, H[q].m, H[q].n - 32 * hb, hb, b + r * 128, r);
+        }
+        wgmma::fence_proxy();              // the stores, for wgmma
+        mbar_arrive(&ring.full[it % kStages]);
+      };
+      // two stages' rows in flight: stage it + 1's loads while stage it is
+      // stored
+      Half h0[2], h1[2];
+      if (total > 0) load(0, h0);
+      for (int it = 0; it < total; it += 2) {
+        if (it + 1 < total) load(it + 1, h1);
+        put(it, h0);
+        if (it + 1 >= total) break;
+        if (it + 2 < total) load(it + 2, h0);
+        put(it + 1, h1);
+      }
+    } else {
+      wgmma::setmaxnreg_dec<kProducerRegs>();
+      if (threadIdx.x != kConsumers) return;
       const int csteps = (p.C + kWsBK - 1) / kWsBK;   // dw: stages a group
       int it = 0;
       for (int t = blockIdx.x; t < p.ntiles; t += gridDim.x) {
@@ -318,7 +442,7 @@ moe_gmm_ws_kernel(Gemm p, const __grid_constant__ CUtensorMap ta,
     }
     return;
   }
-  wgmma::setmaxnreg_inc<kConsumerRegs>();
+  if (!kEdge) wgmma::setmaxnreg_inc<kConsumerRegs>();
 
   const int wg = threadIdx.x / 128;
   const bool leader = threadIdx.x % 128 == 0;
@@ -328,6 +452,38 @@ moe_gmm_ws_kernel(Gemm p, const __grid_constant__ CUtensorMap ta,
   unsigned char* ep = epi + wg * Cfg::kEpi;
   constexpr int TA = kMode == kDw ? 1 : 0, TB = kMode == kDx ? 0 : 1;
   float acc[BN / 2];
+  // kEdge: each consumer warpgroup loads the half of A it reads itself
+  // (its lines 64 wg ..), kAhead stages ahead, two threads a row (half h
+  // each), while its products run; a stage's loads are issued one stage
+  // before its stores
+  constexpr int kAhead = kStages - 2;
+  constexpr bool kTallA = kMode != kDw;
+  const int ct = threadIdx.x % 128, ra = 64 * wg + ct / 2, hh = ct % 2;
+  const int total = (p.ntiles - 1 - static_cast<int>(blockIdx.x)) /
+                        static_cast<int>(gridDim.x) * p.ksteps + p.ksteps;
+  uint4 ga[5];
+  int ma = 0, na = 0;
+  auto a_load = [&](int it2) {
+    const int t = blockIdx.x + (it2 / p.ksteps) * gridDim.x;
+    int e, z, m0, n0;
+    tile_coords<kMode, BN>(p, t, e, z, m0, n0);
+    EdgeOp A, B;
+    edge_ops<kMode>(p, ed, e, z, m0, n0, it2 % p.ksteps, A, B);
+    edge_load_half(edge_at<kTallA>(A, ra, na), na, hh, ga, ma);
+  };
+  auto a_store = [&](int it2) {
+    edge_half(ga, ma, na - 32 * hh, hh,
+              smem_u32(ring_smem + (it2 % kStages) * kStage) + ra * 128, ra);
+  };
+  if (kEdge) {
+    for (int it2 = 0; it2 < kAhead && it2 < total; ++it2) {
+      a_load(it2);
+      a_store(it2);
+    }
+    if (kAhead < total) a_load(kAhead);
+    wgmma::fence_proxy();                  // the stores, for wgmma
+    warpgroup_sync(wg);
+  }
   int it = 0;
   for (int t = blockIdx.x; t < p.ntiles; t += gridDim.x) {
     int e, z, m0, n0;
@@ -348,6 +504,16 @@ moe_gmm_ws_kernel(Gemm p, const __grid_constant__ CUtensorMap ta,
         wgmma::wgmma_ss_acc<TA, TB>(acc, da, db);
       }
       wgmma::commit();
+      if (kEdge) {
+        // while the products run: stage it + kAhead's A half into the slot
+        // stage it - 2 left (read: the last wait)
+        if (it + kAhead < total) {
+          a_store(it + kAhead);
+          if (it + kAhead + 1 < total) a_load(it + kAhead + 1);
+        }
+        wgmma::fence_proxy();              // the stores, for wgmma
+        warpgroup_sync(wg);
+      }
       wgmma::wait<1>();                    // the previous stage is read
       if (s > 0 && lane == 0) mbar_arrive(&ring.empty[(it - 1) % kStages]);
     }
@@ -355,6 +521,31 @@ moe_gmm_ws_kernel(Gemm p, const __grid_constant__ CUtensorMap ta,
     wgmma::fence_operand(acc);
     if (lane == 0) mbar_arrive(&ring.empty[(it - 1) % kStages]);
 
+    if (kEdge) {
+      // the edge epilogue: masked stores from registers, rows < M and
+      // columns < N, bf16 pairs where the rows allow them
+      bf16* o = ed.out + static_cast<size_t>(kMode == kDw ? e : z) * p.M * p.N;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = m0 + 64 * wg + frow + 8 * hf;
+        if (r >= p.M) continue;
+        bf16* orow = o + static_cast<size_t>(r) * p.N;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int c = n0 + 8 * j + fcol;
+          const float x0 = acc[4 * j + 2 * hf], x1 = acc[4 * j + 2 * hf + 1];
+          if (ed.pair) {
+            if (c < p.N)
+              *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+                  __floats2bfloat162_rn(x0, x1);
+          } else {
+            if (c < p.N) orow[c] = __float2bfloat16_rn(x0);
+            if (c + 1 < p.N) orow[c + 1] = __float2bfloat16_rn(x1);
+          }
+        }
+      }
+      continue;
+    }
     // epilogue: the warpgroup's 64 rows as bf16 into its swizzled tile
     // (64-column panels, conflict-free), then TMA stores that clip the
     // ragged edge and run on while the next tile's products start
@@ -379,7 +570,7 @@ moe_gmm_ws_kernel(Gemm p, const __grid_constant__ CUtensorMap ta,
       bulk_commit();
     }
   }
-  if (leader) bulk_wait_read();            // before the block's memory goes
+  if (!kEdge && leader) bulk_wait_read();  // before the block's memory goes
 }
 
 // A TMA map of a contiguous bf16 tensor (d2, d1, d0) as 3-D (d0, d1, d2),
@@ -410,37 +601,47 @@ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // One launch of mode kMode with BN-wide tiles: a persistent grid of
 // min(tiles, SMs) blocks; the shared-memory limit is raised on the first
-// launch.
-template <int kMode, int BN>
+// launch. kEdge: the edge loads and stores (no TMA map is built).
+template <int kMode, int BN, bool kEdge>
 cudaError_t launch_ws_bn(Gemm p, const void* a, const void* b, void* out,
                          int D, int F, int sms, cudaStream_t s) {
-  CUtensorMap ta, tb, to;
-  cudaError_t e = map3(&to, out, p.N, p.M, kMode == kDw ? p.P : p.Z, 64);
-  if (e != cudaSuccess) return e;
-  if (kMode == kFwd) {                     // a = x, b = w
-    e = map3(&ta, a, D, p.C, p.Z, kWsBM);
-    if (e == cudaSuccess) e = map3(&tb, b, F, D, p.P, 64);
-  } else if (kMode == kDx) {               // a = g, b = w
-    e = map3(&ta, a, F, p.C, p.Z, kWsBM);
-    if (e == cudaSuccess) e = map3(&tb, b, F, D, p.P, BN);
-  } else {                                 // a = x, b = g
-    e = map3(&ta, a, D, p.C, p.Z, 64);
-    if (e == cudaSuccess) e = map3(&tb, b, F, p.C, p.Z, 64);
+  CUtensorMap ta{}, tb{}, to{};
+  Edge ed{};
+  cudaError_t e = cudaSuccess;
+  if (kEdge) {
+    // A: x (rows of D) or, in dx, g (rows of F); B: w or, in dw, g (F)
+    ed = Edge{static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+              static_cast<bf16*>(out),
+              p.N % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0};
+  } else {
+    e = map3(&to, out, p.N, p.M, kMode == kDw ? p.P : p.Z, 64);
+    if (e != cudaSuccess) return e;
+    if (kMode == kFwd) {                   // a = x, b = w
+      e = map3(&ta, a, D, p.C, p.Z, kWsBM);
+      if (e == cudaSuccess) e = map3(&tb, b, F, D, p.P, 64);
+    } else if (kMode == kDx) {             // a = g, b = w
+      e = map3(&ta, a, F, p.C, p.Z, kWsBM);
+      if (e == cudaSuccess) e = map3(&tb, b, F, D, p.P, BN);
+    } else {                               // a = x, b = g
+      e = map3(&ta, a, D, p.C, p.Z, 64);
+      if (e == cudaSuccess) e = map3(&tb, b, F, p.C, p.Z, 64);
+    }
+    if (e != cudaSuccess) return e;
   }
-  if (e != cudaSuccess) return e;
+  p.K = kMode == kFwd ? D : F;
   p.tn = cdiv(p.N, BN);
   p.ntiles = (kMode == kDw ? p.P : p.Z) * p.tm * p.tn;
   static bool smem_set = false;
   if (!smem_set) {
-    e = cudaFuncSetAttribute(moe_gmm_ws_kernel<kMode, BN>,
+    e = cudaFuncSetAttribute(moe_gmm_ws_kernel<kMode, BN, kEdge>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(WsCfg<BN>::bytes));
+                             static_cast<int>(WsCfg<BN, kEdge>::bytes));
     if (e != cudaSuccess) return e;
     smem_set = true;
   }
-  moe_gmm_ws_kernel<kMode, BN><<<p.ntiles < sms ? p.ntiles : sms,
-                                 kWsThreads, WsCfg<BN>::bytes, s>>>(p, ta,
-                                                                   tb, to);
+  moe_gmm_ws_kernel<kMode, BN, kEdge>
+      <<<p.ntiles < sms ? p.ntiles : sms, kWsThreads,
+         WsCfg<BN, kEdge>::bytes, s>>>(p, ta, tb, to, ed);
   return cudaGetLastError();
 }
 
@@ -448,16 +649,17 @@ cudaError_t launch_ws_bn(Gemm p, const void* a, const void* b, void* out,
 // where they still give every SM a tile.
 template <int kMode>
 cudaError_t launch_ws(Gemm p, const void* a, const void* b, void* out,
-                      int D, int F, cudaStream_t s) {
+                      int D, int F, bool edge, cudaStream_t s) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   p.tm = cdiv(p.M, kWsBM);
-  const int wide = (kMode == kDw ? p.P : p.Z) * p.tm * cdiv(p.N, 256);
-  return wide >= sms ? launch_ws_bn<kMode, 256>(p, a, b, out, D, F, sms, s)
-                     : launch_ws_bn<kMode, 128>(p, a, b, out, D, F, sms, s);
+  const bool wide = (kMode == kDw ? p.P : p.Z) * p.tm * cdiv(p.N, 256) >= sms;
+  if (edge) return launch_ws_bn<kMode, 128, true>(p, a, b, out, D, F, sms, s);
+  return wide ? launch_ws_bn<kMode, 256, false>(p, a, b, out, D, F, sms, s)
+              : launch_ws_bn<kMode, 128, false>(p, a, b, out, D, F, sms, s);
 }
 
 // ---------------------------------------------------------------------
@@ -590,6 +792,8 @@ cudaError_t launch_decode(const void* x, const void* w, void* out, int Z,
   const int Cp = cdiv(C, 8) * 8, groups = Z / period;
   const int gb = groups < 128 / Cp ? groups : 128 / Cp;
   const Dec p{Z, period, C, D, F, Cp, gb};
+  if (period > 65535 || cdiv(groups, gb) > 65535)   // gridDim.y, .z
+    return cudaErrorInvalidValue;
   const int n = gb * Cp;
   if (n <= 8) return launch_decode_nb<8>(p, x, w, out, s);
   if (n <= 16) return launch_decode_nb<16>(p, x, w, out, s);
@@ -864,77 +1068,52 @@ bool f32_vec(const void* a, const void* b, const void* c, int D, int F) {
          (addr(a) | addr(b) | addr(c)) % 16 == 0;
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* w, void* out, int Z, int C,
-                   int D, int F, int period, cudaStream_t stream) {
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  T* op = static_cast<T*>(out);
-  const dim3 block(kThreads);
-  if (C > kThreadsY) {
-    constexpr int kBM = kThreadsY * 4;
-    const dim3 grid((F + kBN - 1) / kBN, (C + kBM - 1) / kBM, Z);
-    moe_gmm_kernel<T, 4><<<grid, block, 0, stream>>>(xp, wp, op, C, D, F,
-                                                     period);
-  } else {
-    const dim3 grid((F + kBN - 1) / kBN, 1, Z);
-    moe_gmm_kernel<T, 1><<<grid, block, 0, stream>>>(xp, wp, op, C, D, F,
-                                                     period);
-  }
-  return cudaGetLastError();
+bool bad_shape(int Z, int C, int D, int F, int period) {
+  return Z <= 0 || C <= 0 || D <= 0 || F <= 0 || period <= 0 || Z % period;
 }
 
-bool bad_shape(int Z, int C, int D, int F, int period) {
-  return Z <= 0 || C <= 0 || D <= 0 || F <= 0 || period <= 0 || Z % period ||
-         Z > 65535;
+// The route's kernels take the call: f32 any (3xTF32, never `edge`); bf16
+// through TMA where tc_ok, else with `edge` (the edge loads and stores).
+bool takes(const void* a, const void* b, const void* c, int D, int F,
+           int dtype, int edge) {
+  if (dtype == 0) return edge == 0;
+  return dtype == 1 && (edge != 0 || tc_ok(a, b, c, D, F));
 }
 
 }  // namespace
 
 // x: (Z, C, D), w: (period, D, F), out: (Z, C, F), all contiguous, on the
-// device. dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = ok).
+// device. dtype: 0 = float32, 1 = bfloat16. edge (bf16 only): 0 for the
+// TMA-fed wgmma kernels, which need D and F multiples of 8 and 16-byte
+// aligned pointers (the decode kernel at C <= 32), 1 for the same tiles
+// fed by the edge loads, at any width and alignment. Returns a
+// cudaError_t (0 = ok; cudaErrorInvalidValue for a call the chosen
+// kernels do not take).
 extern "C" int moe_gmm_launch(const void* x, const void* w, void* out, int Z,
                               int C, int D, int F, int period, int dtype,
-                              void* stream) {
-  if (bad_shape(Z, C, D, F, period))
+                              int edge, void* stream) {
+  if (bad_shape(Z, C, D, F, period) || !takes(x, w, out, D, F, dtype, edge))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(launch_tf32<kFwd>(
-          Gemm{Z, period, C, C, F, 0, 0, cdiv(D, kT3BK), 0}, x, w, out, D,
-          F, f32_vec(x, w, out, D, F), s));
-    case 1:
-      if (tc_ok(x, w, out, D, F)) {
-        if (C <= 32)
-          return static_cast<int>(
-              launch_decode(x, w, out, Z, C, D, F, period, s));
-        return static_cast<int>(launch_ws<kFwd>(
-            Gemm{Z, period, C, C, F, 0, 0, cdiv(D, kWsBK), 0}, x, w, out, D,
-            F, s));
-      }
-      return static_cast<int>(
-          launch<__nv_bfloat16>(x, w, out, Z, C, D, F, period, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (dtype == 0)
+    return static_cast<int>(launch_tf32<kFwd>(
+        Gemm{Z, period, C, C, F, 0, 0, cdiv(D, kT3BK), 0}, x, w, out, D, F,
+        f32_vec(x, w, out, D, F), s));
+  if (C <= 32 && !edge)
+    return static_cast<int>(launch_decode(x, w, out, Z, C, D, F, period, s));
+  return static_cast<int>(launch_ws<kFwd>(
+      Gemm{Z, period, C, C, F, 0, 0, cdiv(D, kWsBK), 0}, x, w, out, D, F,
+      edge != 0, s));
 }
 
 // The backward of moe_gmm_launch, reading x, w and the output gradient g
 // (Z, C, F) as stored: dx (Z, C, D) = g[z] @ w[e]^T, and dw (period, D, F)
-// = sum over groups of x[z]^T @ g[z]. dtype 0 (f32, 3xTF32): any widths;
-// dtype 1 (bf16, the wgmma route): D and F multiples of 8 and 16-byte
-// aligned pointers. cudaErrorInvalidValue for another shape (the wrapper
-// takes its transposed-copy route there).
-bool bwd_ok(const void* a, const void* b, const void* c, int D, int F,
-            int dtype) {
-  return dtype == 0 || (dtype == 1 && tc_ok(a, b, c, D, F));
-}
-
+// = sum over groups of x[z]^T @ g[z]. dtype and edge as for
+// moe_gmm_launch (bf16 at any C runs the wgmma kernels).
 extern "C" int moe_gmm_dx_launch(const void* g, const void* w, void* dx,
                                  int Z, int C, int D, int F, int period,
-                                 int dtype, void* stream) {
-  if (bad_shape(Z, C, D, F, period) || !bwd_ok(g, w, dx, D, F, dtype))
+                                 int dtype, int edge, void* stream) {
+  if (bad_shape(Z, C, D, F, period) || !takes(g, w, dx, D, F, dtype, edge))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -942,13 +1121,14 @@ extern "C" int moe_gmm_dx_launch(const void* g, const void* w, void* dx,
         Gemm{Z, period, C, C, D, 0, 0, cdiv(F, kT3BK), 0}, g, w, dx, D, F,
         f32_vec(g, w, dx, D, F), s));
   return static_cast<int>(launch_ws<kDx>(
-      Gemm{Z, period, C, C, D, 0, 0, cdiv(F, kWsBK), 0}, g, w, dx, D, F, s));
+      Gemm{Z, period, C, C, D, 0, 0, cdiv(F, kWsBK), 0}, g, w, dx, D, F,
+      edge != 0, s));
 }
 
 extern "C" int moe_gmm_dw_launch(const void* x, const void* g, void* dw,
                                  int Z, int C, int D, int F, int period,
-                                 int dtype, void* stream) {
-  if (bad_shape(Z, C, D, F, period) || !bwd_ok(x, g, dw, D, F, dtype))
+                                 int dtype, int edge, void* stream) {
+  if (bad_shape(Z, C, D, F, period) || !takes(x, g, dw, D, F, dtype, edge))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -957,7 +1137,7 @@ extern "C" int moe_gmm_dw_launch(const void* x, const void* g, void* dw,
         g, dw, D, F, f32_vec(x, g, dw, D, F), s));
   return static_cast<int>(launch_ws<kDw>(
       Gemm{Z, period, C, D, F, 0, 0, Z / period * cdiv(C, kWsBK), 0}, x, g,
-      dw, D, F, s));
+      dw, D, F, edge != 0, s));
 }
 
 extern "C" const char* moe_gmm_error_string(int code) {

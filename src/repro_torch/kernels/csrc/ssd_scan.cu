@@ -32,21 +32,33 @@
 // In f32 (64-row chunks) the products bound it: 23.7 GFLOP a forward and
 // 47.4 a backward, 0.144 and 0.288 ms at 3xTF32's 165 TFLOP/s.
 //
-// Three routes, chosen by the wrapper:
+// Two families of kernels, chosen by the wrapper:
 //
-//  * The tensor-core route (namespace tc): bf16 with N and P multiples of
-//    16 (N <= 128, P <= 64), chunks of up to 128 rows. Operands live in
+//  * The tensor-core kernels (namespace tc): bf16 at any N <= 128 and P <=
+//    64 (the wrapper's route "tc" where N and P are multiples of 16 and
+//    the tensors 16-byte aligned, every shape of the training path;
+//    "tc_edge" otherwise), chunks of up to 128 rows. Operands live in
 //    shared memory as bf16 in 128-byte-swizzled 64-column panels
 //    (wgmma_bf16.cuh), loaded by TMA from 3-D maps over the tensors as
 //    stored, (P, H, B*S) and (N, G, B*S): one box is the 128 rows of one
-//    chunk of one head or group. Rows past the chunk (a chunk shorter than
-//    128 rows, or the end of S) get a = 0, exp(A) = w = 0 and a masked
-//    decay, and are never stored. Every product is an m64nNk16 wgmma with
+//    chunk of one head or group; the maps' bounds zero the columns past N
+//    and P, and the products run over N and P rounded up to 16. Where TMA
+//    cannot take the rows (N or P not a multiple of 8, or a base not
+//    16-byte aligned), every thread of the block fills the same panels by
+//    cp.async in the widest pieces the rows allow, zero-filling past the
+//    edge (element loads through registers for rows only 2-byte aligned:
+//    odd N or P, or a base one element off), and y, dx, dB and dC leave
+//    through stores masked at N and P. Rows past the chunk (a chunk
+//    shorter than 128 rows, or the end of S) get a = 0, exp(A) = w = 0
+//    and a masked decay, and are never stored. Every product is an m64nNk16 wgmma with
 //    f32 accumulators in registers; two warpgroups share each 128-row
 //    tile, one m64 half each. x, B, C and dy are exact in bf16; the f32
-//    factors (the decayed scores C B^T * D, the state, w x, exp(A) dy, the
-//    head sum of G) are rounded to bf16 operands once, as flash attention
-//    rounds P. The f32 state itself is carried in f32 registers.
+//    factors (the state, w x, exp(A) dy, the head sum of G) are rounded
+//    to bf16 operands once, as flash attention rounds P, and the
+//    forward's decayed scores C B^T * D go in as two bf16 operands, the
+//    rounding and its residual (scores of order 10 rounded once cost y
+//    up to 0.1 where its terms cancel). The f32 state itself is carried
+//    in f32 registers.
 //    - The decay D of the L x L scores: the upper 64 x 64 block is zero,
 //      so its elements and its products are skipped; the lower block
 //      takes exp(A_t - A_63) exp(A_63 - A_s), two factors <= 1, in place
@@ -103,8 +115,8 @@
 //      not fit. At 64 rows the forward holds C (64 x 128), h^T (64 x 128),
 //      x^T (64 x 64) and (w B)^T (128 x 64), both halves: 224 KB of the
 //      227, one buffer each. 64-row chunks double the saved states against
-//      128 (273 MB at the mamba2 shape with the final one; the FMA route
-//      kept 268) and the steps of the serial walk. C B^T therefore comes from a first launch
+//      128 (273 MB at the mamba2 shape with the final one) and the steps
+//      of the serial walk. C B^T therefore comes from a first launch
 //      (with B C^T for the backward: `cb`, 4.2 MB at that shape), and the
 //      walk's producer warpgroup refills C while the consumer runs the
 //      state update, and x and B while it runs C h.
@@ -137,17 +149,6 @@
 //      of the last take turns (a block per half of N with a two-stage
 //      ring, which does overlap them, took 1.06 ms against 0.67 at the
 //      mamba2 shape: it splits dy and x and computes dy x^T twice).
-//
-//  * The FMA route (the first design, kept only for bf16 widths that the
-//    tensor-core route does not take: N or P not multiples of 16, or
-//    unaligned tensors; no path has such a shape): CUDA-core f32 FMAs on
-//    tiles staged as float (bf16 widened on load, outputs rounded once), in
-//    chunks of min(L, 64) rows. Forward: one block of 8 warps per
-//    (head, batch) walks the chunks with the state in registers. Backward:
-//    the same reverse walk for dstates, then one block per (chunk, group,
-//    batch) that computes C B^T once and loops over the group's heads,
-//    summing dB and dC in registers in head order. Shared-memory rows have
-//    odd strides in floats, so column reads across a warp hit 32 banks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -163,25 +164,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int kThreads = 256;              // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int LT = 64;                     // chunk rows (tile)
-constexpr int NP = 128;                    // state width N, padded
-constexpr int PP = 64;                     // head dim P, padded
-constexpr int LDL = LT + 1, LDN = NP + 1, LDP = PP + 1;
-constexpr int RI = LT / kWarps;            // 8 rows of 64 per thread
-constexpr int NI = NP / kWarps;            // 16 rows of 128 per thread
-constexpr int PJ = PP / 32;                // 2 columns of 64 per thread
-constexpr int NJ = NP / 32;                // 4 columns of 128 per thread
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -189,670 +172,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-struct Shape {
-  int B, S, H, G, N, P, L, nc;
-};
-
-// Rows [0, LT) x columns [0, WP) of a tile from rows of `g` (row stride
-// `stride` elements), as f32; rows >= nrows and columns >= width read 0.
-template <typename T, int WP>
-__device__ __forceinline__ void load_rows(float* s, int ld, const T* g,
-                                          long stride, int nrows,
-                                          int width) {
-  for (int i = threadIdx.x; i < LT * WP; i += kThreads) {
-    const int r = i / WP, c = i % WP;
-    s[r * ld + c] = (r < nrows && c < width)
-                        ? to_f32(g[r * stride + c]) : 0.f;
-  }
-}
-
-// An (N, P) f32 state from global memory into an NP x PP tile, zero padded.
-__device__ __forceinline__ void load_state(float* s, const float* g, int N,
-                                           int P) {
-  for (int i = threadIdx.x; i < NP * PP; i += kThreads) {
-    const int n = i / PP, c = i % PP;
-    s[n * LDP + c] = (n < N && c < P) ? g[n * P + c] : 0.f;
-  }
-}
-
-// Warp 0: acum = inclusive cumsum of the chunk's a (rows >= nrows are 0),
-// eA = exp(acum), w = exp(acum[LT-1] - acum). The caller synchronises.
-__device__ __forceinline__ void chunk_cumsum(float* acum, float* eA,
-                                             float* w, const float* a,
-                                             long stride, int nrows) {
-  if (threadIdx.x >= 32) return;
-  const int l = threadIdx.x;
-  const float v0 = 2 * l < nrows ? a[(2 * l) * stride] : 0.f;
-  const float v1 = v0 + (2 * l + 1 < nrows ? a[(2 * l + 1) * stride] : 0.f);
-  float s = v1;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float t = __shfl_up_sync(kFull, s, o);
-    if (l >= o) s += t;
-  }
-  const float total = __shfl_sync(kFull, s, 31);
-  const float c0 = s - v1 + v0, c1 = s;
-  acum[2 * l] = c0;
-  acum[2 * l + 1] = c1;
-  eA[2 * l] = expf(c0);
-  eA[2 * l + 1] = expf(c1);
-  w[2 * l] = expf(total - c0);
-  w[2 * l + 1] = expf(total - c1);
-}
-
 // ---------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ a,
-               const T* __restrict__ b, const T* __restrict__ c,
-               T* __restrict__ y, float* __restrict__ hT,
-               float* __restrict__ states, Shape p) {
-  extern __shared__ __align__(16) float sm[];
-  float* Xs = sm;                          // LT x LDP
-  float* Bs = Xs + LT * LDP;               // LT x LDN
-  float* Cs = Bs + LT * LDN;               // LT x LDN
-  float* Ss = Cs + LT * LDN;               // LT x LDL
-  float* Hs = Ss + LT * LDL;               // NP x LDP
-  float* acum = Hs + NP * LDP;             // LT
-  float* eA = acum + LT;                   // LT
-  float* w = eA + LT;                      // LT
-
-  const int h = blockIdx.x, bb = blockIdx.y, g = h / (p.H / p.G);
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  const long xs = static_cast<long>(p.H) * p.P;   // row strides
-  const long bs = static_cast<long>(p.G) * p.N;
-  const T* xb = x + (static_cast<long>(bb) * p.S * p.H + h) * p.P;
-  T* yb = y + (static_cast<long>(bb) * p.S * p.H + h) * p.P;
-  const float* ab = a + static_cast<long>(bb) * p.S * p.H + h;
-  const T* bb_ = b + (static_cast<long>(bb) * p.S * p.G + g) * p.N;
-  const T* cb_ = c + (static_cast<long>(bb) * p.S * p.G + g) * p.N;
-  const long head = static_cast<long>(bb) * p.H + h;
-
-  // the state: h[n][q] with n = ty + 8 i, q = tx + 32 j
-  float hr[NI][PJ];
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int j = 0; j < PJ; ++j) {
-      hr[i][j] = 0.f;
-      Hs[(ty + kWarps * i) * LDP + tx + 32 * j] = 0.f;
-    }
-
-  for (int ci = 0; ci < p.nc; ++ci) {
-    const int r0 = ci * p.L, nrows = min(p.L, p.S - r0);
-    if (states != nullptr) {
-      float* st = states + (head * p.nc + ci) * p.N * p.P;
-#pragma unroll
-      for (int i = 0; i < NI; ++i)
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) {
-          const int n = ty + kWarps * i, q = tx + 32 * j;
-          if (n < p.N && q < p.P) st[n * p.P + q] = hr[i][j];
-        }
-    }
-    load_rows<T, PP>(Xs, LDP, xb + r0 * xs, xs, nrows, p.P);
-    load_rows<T, NP>(Bs, LDN, bb_ + r0 * bs, bs, nrows, p.N);
-    load_rows<T, NP>(Cs, LDN, cb_ + r0 * bs, bs, nrows, p.N);
-    chunk_cumsum(acum, eA, w, ab + static_cast<long>(r0) * p.H, p.H, nrows);
-    __syncthreads();
-
-    // S[t][s] = (C_t . B_s) exp(A_t - A_s) for s <= t, else 0
-    {
-      float acc[RI][2] = {};
-      for (int n = 0; n < NP; ++n) {
-        float cv[RI], bv[2];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) cv[i] = Cs[(ty + kWarps * i) * LDN + n];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) bv[j] = Bs[(tx + 32 * j) * LDN + n];
-#pragma unroll
-        for (int i = 0; i < RI; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) acc[i][j] = fmaf(cv[i], bv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int t = ty + kWarps * i, s = tx + 32 * j;
-          Ss[t * LDL + s] =
-              s <= t ? acc[i][j] * expf(acum[t] - acum[s]) : 0.f;
-        }
-    }
-    __syncthreads();
-
-    // y[t][q] = exp(A_t) (C_t . h)[q] + sum_s S[t][s] x[s][q]
-    {
-      float acc[RI][PJ] = {};
-      for (int n = 0; n < NP; ++n) {
-        float cv[RI], hv[PJ];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) cv[i] = Cs[(ty + kWarps * i) * LDN + n];
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) hv[j] = Hs[n * LDP + tx + 32 * j];
-#pragma unroll
-        for (int i = 0; i < RI; ++i)
-#pragma unroll
-          for (int j = 0; j < PJ; ++j) acc[i][j] = fmaf(cv[i], hv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float e = eA[ty + kWarps * i];
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) acc[i][j] *= e;
-      }
-      for (int s = 0; s < LT; ++s) {
-        float sv[RI], xv[PJ];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) sv[i] = Ss[(ty + kWarps * i) * LDL + s];
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) xv[j] = Xs[s * LDP + tx + 32 * j];
-#pragma unroll
-        for (int i = 0; i < RI; ++i)
-#pragma unroll
-          for (int j = 0; j < PJ; ++j) acc[i][j] = fmaf(sv[i], xv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) {
-          const int t = ty + kWarps * i, q = tx + 32 * j;
-          if (t < nrows && q < p.P)
-            yb[(r0 + t) * xs + q] = from_f32<T>(acc[i][j]);
-        }
-    }
-    __syncthreads();                       // C.h has read the old state
-
-    // h <- exp(A_L) h + sum_s w_s B_s (x) x_s
-    {
-      const float decay = eA[LT - 1];
-#pragma unroll
-      for (int i = 0; i < NI; ++i)
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) hr[i][j] *= decay;
-      for (int s = 0; s < LT; ++s) {
-        float bv[NI], xv[PJ];
-        const float ws = w[s];
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) xv[j] = Xs[s * LDP + tx + 32 * j] * ws;
-#pragma unroll
-        for (int i = 0; i < NI; ++i) bv[i] = Bs[s * LDN + ty + kWarps * i];
-#pragma unroll
-        for (int i = 0; i < NI; ++i)
-#pragma unroll
-          for (int j = 0; j < PJ; ++j) hr[i][j] = fmaf(bv[i], xv[j], hr[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < NI; ++i)
-#pragma unroll
-        for (int j = 0; j < PJ; ++j)
-          Hs[(ty + kWarps * i) * LDP + tx + 32 * j] = hr[i][j];
-    }
-    __syncthreads();
-  }
-
-  float* out = hT + head * p.N * p.P;
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int j = 0; j < PJ; ++j) {
-      const int n = ty + kWarps * i, q = tx + 32 * j;
-      if (n < p.N && q < p.P) out[n * p.P + q] = hr[i][j];
-    }
-}
-
-// ---------------------------------------------------------------------
-// backward 1: the carried state gradient, chunks in reverse
-// ---------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-ssd_bwd_state_kernel(const float* __restrict__ a, const T* __restrict__ c,
-                     const T* __restrict__ dy, const float* __restrict__ dhT,
-                     float* __restrict__ dstates, Shape p) {
-  extern __shared__ __align__(16) float sm[];
-  float* Cs = sm;                          // LT x LDN
-  float* Ys = Cs + LT * LDN;               // LT x LDP
-  float* acum = Ys + LT * LDP;
-  float* eA = acum + LT;
-  float* w = eA + LT;
-
-  const int h = blockIdx.x, bb = blockIdx.y, g = h / (p.H / p.G);
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  const long xs = static_cast<long>(p.H) * p.P;
-  const long bs = static_cast<long>(p.G) * p.N;
-  const T* yb = dy + (static_cast<long>(bb) * p.S * p.H + h) * p.P;
-  const float* ab = a + static_cast<long>(bb) * p.S * p.H + h;
-  const T* cb_ = c + (static_cast<long>(bb) * p.S * p.G + g) * p.N;
-  const long head = static_cast<long>(bb) * p.H + h;
-
-  float dh[NI][PJ];
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int j = 0; j < PJ; ++j) {
-      const int n = ty + kWarps * i, q = tx + 32 * j;
-      dh[i][j] = (dhT != nullptr && n < p.N && q < p.P)
-                     ? dhT[head * p.N * p.P + n * p.P + q] : 0.f;
-    }
-
-  for (int ci = p.nc - 1; ci >= 0; --ci) {
-    const int r0 = ci * p.L, nrows = min(p.L, p.S - r0);
-    float* st = dstates + (head * p.nc + ci) * p.N * p.P;
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-#pragma unroll
-      for (int j = 0; j < PJ; ++j) {
-        const int n = ty + kWarps * i, q = tx + 32 * j;
-        if (n < p.N && q < p.P) st[n * p.P + q] = dh[i][j];
-      }
-    load_rows<T, NP>(Cs, LDN, cb_ + r0 * bs, bs, nrows, p.N);
-    load_rows<T, PP>(Ys, LDP, yb + r0 * xs, xs, nrows, p.P);
-    chunk_cumsum(acum, eA, w, ab + static_cast<long>(r0) * p.H, p.H, nrows);
-    __syncthreads();
-    const float decay = eA[LT - 1];
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-#pragma unroll
-      for (int j = 0; j < PJ; ++j) dh[i][j] *= decay;
-    for (int t = 0; t < LT; ++t) {
-      float cv[NI], yv[PJ];
-      const float e = eA[t];
-#pragma unroll
-      for (int j = 0; j < PJ; ++j) yv[j] = Ys[t * LDP + tx + 32 * j] * e;
-#pragma unroll
-      for (int i = 0; i < NI; ++i) cv[i] = Cs[t * LDN + ty + kWarps * i];
-#pragma unroll
-      for (int i = 0; i < NI; ++i)
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) dh[i][j] = fmaf(cv[i], yv[j], dh[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------------
-// backward 2: every chunk on its own, the heads of a group in one block
-// ---------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ a,
-                     const T* __restrict__ b, const T* __restrict__ c,
-                     const T* __restrict__ dy,
-                     const float* __restrict__ states,
-                     const float* __restrict__ dstates, T* __restrict__ dx,
-                     float* __restrict__ da, T* __restrict__ db,
-                     T* __restrict__ dc, Shape p) {
-  extern __shared__ __align__(16) float sm[];
-  float* Bs = sm;                          // LT x LDN
-  float* Cs = Bs + LT * LDN;               // LT x LDN
-  float* CBs = Cs + LT * LDN;              // LT x LDL: C B^T
-  float* SGs = CBs + LT * LDL;             // LT x LDL: S^, then G
-  float* Xs = SGs + LT * LDL;              // LT x LDP
-  float* Ys = Xs + LT * LDP;               // LT x LDP: dy
-  float* H0s = Ys + LT * LDP;              // NP x LDP: state at the start
-  float* DHs = H0s + NP * LDP;             // NP x LDP: grad of the end state
-  float* acum = DHs + NP * LDP;
-  float* eA = acum + LT;
-  float* w = eA + LT;
-  float* rowM = w + LT;                    // row sums of M
-  float* qs = rowM + LT;                   // Q_s = w_s x_s . (B dh')_s
-  float* t1 = qs + LT;                     // exp(A_t) C_t . (dy h^T)_t
-  float* colp = t1 + LT;                   // kWarps x LT column partials
-  float* red = colp + kWarps * LT;         // kWarps
-
-  const int ci = blockIdx.x, g = blockIdx.y, bb = blockIdx.z;
-  const int rep = p.H / p.G;
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  const int r0 = ci * p.L, nrows = min(p.L, p.S - r0);
-  const long xs = static_cast<long>(p.H) * p.P;
-  const long bs = static_cast<long>(p.G) * p.N;
-  const long goff = (static_cast<long>(bb) * p.S * p.G + g) * p.N +
-                    static_cast<long>(r0) * bs;
-
-  load_rows<T, NP>(Bs, LDN, b + goff, bs, nrows, p.N);
-  load_rows<T, NP>(Cs, LDN, c + goff, bs, nrows, p.N);
-  __syncthreads();
-  {                                        // C B^T, rows t, columns s
-    float acc[RI][2] = {};
-    for (int n = 0; n < NP; ++n) {
-      float cv[RI], bv[2];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) cv[i] = Cs[(ty + kWarps * i) * LDN + n];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) bv[j] = Bs[(tx + 32 * j) * LDN + n];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) acc[i][j] = fmaf(cv[i], bv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        CBs[(ty + kWarps * i) * LDL + tx + 32 * j] = acc[i][j];
-  }
-
-  // dB (rows s) and dC (rows t) of the group, summed over its heads
-  float dB[RI][NJ] = {}, dC[RI][NJ] = {};
-
-  for (int h = g * rep; h < (g + 1) * rep; ++h) {
-    const long hoff = (static_cast<long>(bb) * p.S * p.H + h) * p.P +
-                      static_cast<long>(r0) * xs;
-    const long head = static_cast<long>(bb) * p.H + h;
-    load_rows<T, PP>(Xs, LDP, x + hoff, xs, nrows, p.P);
-    load_rows<T, PP>(Ys, LDP, dy + hoff, xs, nrows, p.P);
-    load_state(H0s, states + (head * p.nc + ci) * p.N * p.P, p.N, p.P);
-    load_state(DHs, dstates + (head * p.nc + ci) * p.N * p.P, p.N, p.P);
-    chunk_cumsum(acum, eA, w,
-                 a + static_cast<long>(bb) * p.S * p.H + h +
-                     static_cast<long>(r0) * p.H,
-                 p.H, nrows);
-    __syncthreads();
-
-    // dP = dy x^T (rows t, columns s), then S^ and G with the decay mask
-    float gm[RI][2] = {};
-    for (int q = 0; q < PP; ++q) {
-      float yv[RI], xv[2];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) yv[i] = Ys[(ty + kWarps * i) * LDP + q];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) xv[j] = Xs[(tx + 32 * j) * LDP + q];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) gm[i][j] = fmaf(yv[i], xv[j], gm[i][j]);
-    }
-    {
-      float colpart[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const int t = ty + kWarps * i;
-        float rowpart = 0.f;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int s = tx + 32 * j;
-          float sh = 0.f, gv = 0.f;
-          if (s <= t) {
-            const float d = expf(acum[t] - acum[s]);
-            const float cbv = CBs[t * LDL + s];
-            sh = cbv * d;
-            gv = gm[i][j] * d;
-            const float m = cbv * gv;
-            rowpart += m;
-            colpart[j] += m;
-          }
-          SGs[t * LDL + s] = sh;
-          gm[i][j] = gv;
-        }
-        rowpart = warp_sum(rowpart);
-        if (tx == 0) rowM[t] = rowpart;
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) colp[ty * LT + tx + 32 * j] = colpart[j];
-    }
-    __syncthreads();
-
-    // dx[s] = w_s (B dh')_s + sum_t S^[t][s] dy_t (rows s, columns q)
-    {
-      float acc[RI][PJ] = {};
-      for (int n = 0; n < NP; ++n) {
-        float bv[RI], dv[PJ];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) bv[i] = Bs[(ty + kWarps * i) * LDN + n];
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) dv[j] = DHs[n * LDP + tx + 32 * j];
-#pragma unroll
-        for (int i = 0; i < RI; ++i)
-#pragma unroll
-          for (int j = 0; j < PJ; ++j) acc[i][j] = fmaf(bv[i], dv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const int s = ty + kWarps * i;
-        float qv = 0.f;
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) {
-          acc[i][j] *= w[s];
-          qv = fmaf(Xs[s * LDP + tx + 32 * j], acc[i][j], qv);
-        }
-        qv = warp_sum(qv);
-        if (tx == 0) qs[s] = qv;
-      }
-      for (int t = 0; t < LT; ++t) {
-        float sv[RI], yv[PJ];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) sv[i] = SGs[t * LDL + ty + kWarps * i];
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) yv[j] = Ys[t * LDP + tx + 32 * j];
-#pragma unroll
-        for (int i = 0; i < RI; ++i)
-#pragma unroll
-          for (int j = 0; j < PJ; ++j) acc[i][j] = fmaf(sv[i], yv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < PJ; ++j) {
-          const int s = ty + kWarps * i, q = tx + 32 * j;
-          if (s < nrows && q < p.P)
-            dx[hoff + s * xs + q] = from_f32<T>(acc[i][j]);
-        }
-    }
-    __syncthreads();                       // S^ is read: G takes its place
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        SGs[(ty + kWarps * i) * LDL + tx + 32 * j] = gm[i][j];
-    __syncthreads();
-
-    // dC[t] += exp(A_t) (dy h^T)_t + sum_s G[t][s] B_s (rows t, columns n)
-    {
-      float acc[RI][NJ] = {};
-      for (int q = 0; q < PP; ++q) {
-        float yv[RI], hv[NJ];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) yv[i] = Ys[(ty + kWarps * i) * LDP + q];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) hv[j] = H0s[(tx + 32 * j) * LDP + q];
-#pragma unroll
-        for (int i = 0; i < RI; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(yv[i], hv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const int t = ty + kWarps * i;
-        const float e = eA[t];
-        float tv = 0.f;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          acc[i][j] *= e;
-          tv = fmaf(Cs[t * LDN + tx + 32 * j], acc[i][j], tv);
-          dC[i][j] += acc[i][j];
-        }
-        tv = warp_sum(tv);
-        if (tx == 0) t1[t] = tv;
-      }
-    }
-    for (int s = 0; s < LT; ++s) {
-      float gv[RI], bv[NJ];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) gv[i] = SGs[(ty + kWarps * i) * LDL + s];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) bv[j] = Bs[s * LDN + tx + 32 * j];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) dC[i][j] = fmaf(gv[i], bv[j], dC[i][j]);
-    }
-
-    // dB[s] += w_s (x dh'^T)_s + sum_t G[t][s] C_t (rows s, columns n)
-    {
-      float acc[RI][NJ] = {};
-      for (int q = 0; q < PP; ++q) {
-        float xv[RI], dv[NJ];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) xv[i] = Xs[(ty + kWarps * i) * LDP + q];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) dv[j] = DHs[(tx + 32 * j) * LDP + q];
-#pragma unroll
-        for (int i = 0; i < RI; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(xv[i], dv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float ws = w[ty + kWarps * i];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) dB[i][j] = fmaf(ws, acc[i][j], dB[i][j]);
-      }
-    }
-    for (int t = 0; t < LT; ++t) {
-      float gv[RI], cv[NJ];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) gv[i] = SGs[t * LDL + ty + kWarps * i];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) cv[j] = Cs[t * LDN + tx + 32 * j];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) dB[i][j] = fmaf(gv[i], cv[j], dB[i][j]);
-    }
-
-    // <dh', h> for the exp(A_L) h term of the state update
-    {
-      float v = 0.f;
-      for (int i = threadIdx.x; i < NP * PP; i += kThreads) {
-        const int n = i / PP, q = i % PP;
-        v = fmaf(DHs[n * LDP + q], H0s[n * LDP + q], v);
-      }
-      v = warp_sum(v);
-      if (tx == 0) red[ty] = v;
-    }
-    __syncthreads();
-
-    // dA, then da = its reverse cumsum over the chunk (warp 0)
-    if (ty == 0) {
-      float v[2], qsum = 0.f;
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int t = LT - 1 - (2 * tx + k);
-        float col = 0.f;
-#pragma unroll
-        for (int wi = 0; wi < kWarps; ++wi) col += colp[wi * LT + t];
-        v[k] = rowM[t] - col + t1[t] - qs[t];
-        qsum += qs[t];
-      }
-      qsum = warp_sum(qsum);
-      if (tx == 0) {
-        float dot = 0.f;
-#pragma unroll
-        for (int wi = 0; wi < kWarps; ++wi) dot += red[wi];
-        v[0] += qsum + eA[LT - 1] * dot;     // row LT-1: the A_L terms
-      }
-      v[1] += v[0];
-      float s = v[1];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float u = __shfl_up_sync(kFull, s, o);
-        if (tx >= o) s += u;
-      }
-      const float excl = s - v[1];
-      float* dab = da + static_cast<long>(bb) * p.S * p.H + h +
-                   static_cast<long>(r0) * p.H;
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int t = LT - 1 - (2 * tx + k);
-        if (t < nrows) dab[static_cast<long>(t) * p.H] = excl + v[k];
-      }
-    }
-    __syncthreads();                       // before the next head's loads
-  }
-
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int r = ty + kWarps * i, n = tx + 32 * j;
-      if (r < nrows && n < p.N) {
-        db[goff + r * bs + n] = from_f32<T>(dB[i][j]);
-        dc[goff + r * bs + n] = from_f32<T>(dC[i][j]);
-      }
-    }
-}
-
-constexpr size_t kFwdSmem =
-    sizeof(float) * (LT * LDP + 2 * LT * LDN + LT * LDL + NP * LDP + 3 * LT);
-constexpr size_t kBwdStateSmem =
-    sizeof(float) * (LT * LDN + LT * LDP + 3 * LT);
-constexpr size_t kBwdChunkSmem =
-    sizeof(float) * (2 * LT * LDN + 2 * LT * LDL + 2 * LT * LDP +
-                     2 * NP * LDP + 6 * LT + kWarps * LT + kWarps);
-
-bool valid(const Shape& p) {
-  return p.B > 0 && p.S > 0 && p.H > 0 && p.G > 0 && p.H % p.G == 0 &&
-         p.N > 0 && p.N <= NP && p.P > 0 && p.P <= PP && p.L > 0 &&
-         p.L <= LT && p.nc == (p.S + p.L - 1) / p.L;
-}
-
-// Raise a kernel's dynamic shared-memory limit once (before any stream
-// capture: the first call of each entry point is a plain launch).
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  done = e == cudaSuccess;
-  return e;
-}
-
-template <typename T>
-cudaError_t fwd(const void* x, const void* a, const void* b, const void* c,
-                void* y, void* hT, void* states, const Shape& p,
-                cudaStream_t s) {
-  auto kern = ssd_fwd_kernel<T>;
-  static bool done = false;
-  const cudaError_t e = allow_smem(kern, kFwdSmem, done);
-  if (e != cudaSuccess) return e;
-  kern<<<dim3(p.H, p.B), kThreads, kFwdSmem, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(a),
-      static_cast<const T*>(b), static_cast<const T*>(c), static_cast<T*>(y),
-      static_cast<float*>(hT), static_cast<float*>(states), p);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t bwd(const void* x, const void* a, const void* b, const void* c,
-                const void* states, const void* dy, const void* dhT,
-                void* dstates, void* dx, void* da, void* db, void* dc,
-                const Shape& p, cudaStream_t s) {
-  auto k1 = ssd_bwd_state_kernel<T>;
-  auto k2 = ssd_bwd_chunk_kernel<T>;
-  static bool done1 = false, done2 = false;
-  cudaError_t e = allow_smem(k1, kBwdStateSmem, done1);
-  if (e == cudaSuccess) e = allow_smem(k2, kBwdChunkSmem, done2);
-  if (e != cudaSuccess) return e;
-  k1<<<dim3(p.H, p.B), kThreads, kBwdStateSmem, s>>>(
-      static_cast<const float*>(a), static_cast<const T*>(c),
-      static_cast<const T*>(dy), static_cast<const float*>(dhT),
-      static_cast<float*>(dstates), p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  k2<<<dim3(p.nc, p.G, p.B), kThreads, kBwdChunkSmem, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(a),
-      static_cast<const T*>(b), static_cast<const T*>(c),
-      static_cast<const T*>(dy), static_cast<const float*>(states),
-      static_cast<const float*>(dstates), static_cast<T*>(dx),
-      static_cast<float*>(da), static_cast<T*>(db), static_cast<T*>(dc), p);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------
-// The tensor-core route (bf16, N and P multiples of 16)
+// The tensor-core kernels (bf16: the routes "tc" and "tc_edge")
 // ---------------------------------------------------------------------
 namespace tc {
 
@@ -898,9 +219,12 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-__device__ __forceinline__ void init_bars(uint64_t* bar, int n) {
+// n barriers, each completing after `count` arrivals (and the bytes
+// armed by mbar_expect)
+__device__ __forceinline__ void init_bars(uint64_t* bar, int n,
+                                          int count = 1) {
   if (threadIdx.x == 0) {
-    for (int i = 0; i < n; ++i) mbar_init(&bar[i], 1);
+    for (int i = 0; i < n; ++i) mbar_init(&bar[i], count);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -1025,18 +349,154 @@ __device__ __forceinline__ void scale_rows(unsigned char* dst,
 }
 
 // Rows [r0, r0 + 64) of a swizzled 128 x 64 bf16 tile to rows of `out`
-// (row stride ld elements): rows < nrows, columns < P, 16 bytes a store.
+// (row stride ld elements): rows < nrows, columns < P, in pieces of w
+// bytes (16 where the rows and `out` allow it; w divides 2 P, so no piece
+// crosses column P).
 __device__ __forceinline__ void store_rows(bf16* out, long ld,
                                            const unsigned char* tile, int r0,
-                                           int nrows, int P) {
+                                           int nrows, int P, int w) {
   const int t = threadIdx.x % 128;
+  if (w == 16) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int j = t + 128 * k, r = r0 + j / 8, cc = j % 8;
-    if (r < nrows && cc * 8 < P)
-      *reinterpret_cast<uint4*>(out + r * ld + cc * 8) =
-          *reinterpret_cast<const uint4*>(tile + r * 128 +
-                                          ((cc ^ (r % 8)) * 16));
+    for (int k = 0; k < 4; ++k) {
+      const int j = t + 128 * k, r = r0 + j / 8, cc = j % 8;
+      if (r < nrows && cc * 8 < P)
+        *reinterpret_cast<uint4*>(out + r * ld + cc * 8) =
+            *reinterpret_cast<const uint4*>(tile + r * 128 +
+                                            ((cc ^ (r % 8)) * 16));
+    }
+    return;
+  }
+  const int e = w / 2, per = 64 / e;       // elements a piece, pieces a row
+  for (int j = t; j < 64 * per; j += 128) {
+    const int r = r0 + j / per, c = (j % per) * e;
+    if (r >= nrows || c >= P) continue;
+    const unsigned char* s = tile + wgmma::sw_offset<R>(r, c);
+    bf16* o = out + r * ld + c;
+    if (w == 8)
+      *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(s);
+    else if (w == 4)
+      *reinterpret_cast<uint32_t*>(o) = *reinterpret_cast<const uint32_t*>(s);
+    else
+      *o = *reinterpret_cast<const bf16*>(s);
+  }
+}
+
+// The edge loads (kLd): where TMA cannot take x, dy, B or C (N or P not a
+// multiple of 8, or a base not 16-byte aligned), every thread of the
+// block fills its share of a chunk's tile in the layout the TMA box gives
+// (wgmma_bf16.cuh's swizzled 128-row panels), in pieces of W bytes: the
+// widest that divides the tensor's row length and base address, by
+// cp.async (W 16, 8 or 4), whose src-size zero-fills the columns past N or
+// P and the rows past the chunk, or, for rows only 2-byte aligned, by
+// element loads through registers. The columns the products read past N
+// and P are thus exact zeros. The stage's barrier then takes two
+// arrivals a thread: after its shared stores (with a proxy fence), and
+// when its copies land.
+struct Io {
+  const bf16* x;                           // the loads' sources (kLd)
+  const bf16* dy;
+  const bf16* b;
+  const bf16* c;
+  int wx, wdy, wb, wc;                     // their piece widths, bytes
+  int wy, wdx, wdb, wdc;                   // the outputs' (stores)
+};
+constexpr int kLdArrivals = 2 * kT;
+
+template <int W>
+__device__ __forceinline__ void ld_pieces(unsigned char* dst,
+                                          const bf16* src, long ld,
+                                          int nrows, int cols, int panels) {
+  // a thread keeps one column of pieces and steps down the rows
+  constexpr int kE = W / 2, kPer = 64 / kE;
+  const int per_row = panels * kPer, step = kT / per_row;
+  const int c = (threadIdx.x % per_row) * kE;
+  const int bytes = 2 * max(0, min(kE, cols - c));
+  const uint32_t base = smem_u32(dst) + wgmma::sw_offset<R>(0, c);
+  const uint32_t chunk = (c % 64) / 8;
+  int t = threadIdx.x / per_row;
+  const bf16* g = src + t * ld + c;
+  for (; t < R; t += step, g += step * ld) {
+    const int n = t < nrows ? bytes : 0;
+    const uint32_t s = base + t * 128 + ((chunk ^ (t % 8)) - chunk) * 16;
+    if constexpr (W == 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       s),
+                   "l"(n ? g : src), "r"(n)
+                   : "memory");
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                       s),
+                   "l"(n ? g : src), "n"(W), "r"(n)
+                   : "memory");
+  }
+}
+
+__device__ __forceinline__ void ld_elems(unsigned char* dst, const bf16* src,
+                                         long ld, int nrows, int cols,
+                                         int panels) {
+  const unsigned short* s16 = reinterpret_cast<const unsigned short*>(src);
+  const int per_row = panels * 8;          // 16-byte chunks a row
+  for (int i = threadIdx.x; i < R * per_row; i += kT) {
+    const int t = i / per_row, c = (i % per_row) * 8;
+    const unsigned short* row = s16 + t * ld;
+    uint32_t v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c0 = c + 2 * k;
+      const uint32_t lo = t < nrows && c0 < cols ? __ldg(row + c0) : 0u;
+      const uint32_t hi = t < nrows && c0 + 1 < cols ? __ldg(row + c0 + 1)
+                                                     : 0u;
+      v[k] = lo | hi << 16;
+    }
+    *reinterpret_cast<uint4*>(dst + wgmma::sw_offset<R>(t, c)) =
+        make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// Rows t < 128 of one chunk's tile (`panels` 64-column panels) from rows
+// of `src` (row t at src + t * ld; rows from nrows on and columns from
+// cols on read 0), w-byte pieces, by every thread of the block.
+__device__ __forceinline__ void ld_tile(unsigned char* dst, const bf16* src,
+                                        long ld, int nrows, int cols,
+                                        int panels, int w) {
+  switch (w) {
+    case 16:
+      ld_pieces<16>(dst, src, ld, nrows, cols, panels);
+      break;
+    case 8:
+      ld_pieces<8>(dst, src, ld, nrows, cols, panels);
+      break;
+    case 4:
+      ld_pieces<4>(dst, src, ld, nrows, cols, panels);
+      break;
+    default:
+      ld_elems(dst, src, ld, nrows, cols, panels);
+  }
+}
+
+// This thread's arrivals on a stage filled by ld_tile; `elems`: some tile
+// went through ld_elems, whose shared stores need a proxy fence for wgmma
+// (a fence also waits for the thread's copies in flight: only where
+// needed; the consumers fence cp.async's writes after their wait).
+__device__ __forceinline__ void ld_arrive(uint64_t* bar, bool elems) {
+  if (elems) wgmma::fence_proxy();
+  mbar_arrive(bar);
+  mbar_arrive_copies(bar);
+}
+
+// A pair (n, n + 1) of a row of bf16 outputs, columns < N: one 4-byte
+// store where `pair` (the rows and base allow it), else element by
+// element.
+__device__ __forceinline__ void store_pair(bf16* o, int n, int N, bool pair,
+                                           float lo, float hi) {
+  if (pair) {
+    if (n < N)
+      *reinterpret_cast<__nv_bfloat162*>(o + n) =
+          __floats2bfloat162_rn(lo, hi);
+  } else {
+    if (n < N) o[n] = __float2bfloat16_rn(lo);
+    if (n + 1 < N) o[n + 1] = __float2bfloat16_rn(hi);
   }
 }
 
@@ -1100,15 +560,15 @@ __device__ __forceinline__ float frag_to_tile(unsigned char* tile,
 }
 
 // An m64n64 f32 fragment (rows n of the warpgroup, columns q) of an
-// N x P f32 state to global memory, rows < N, columns < P.
+// N x P f32 state to global memory, rows < N, columns < P (element by
+// element: P may be odd).
 __device__ __forceinline__ void store_state(float* g, const float (&d)[32],
                                             int n0, int N, int P) {
   const Frag f;
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
+  for (int i = 0; i < 32; ++i) {
     const int n = n0 + f.r(i), q = f.c(i);
-    if (n < N && q < P)
-      *reinterpret_cast<float2*>(g + n * P + q) = make_float2(d[i], d[i + 1]);
+    if (n < N && q < P) g[n * P + q] = d[i];
   }
 }
 
@@ -1116,18 +576,27 @@ __device__ __forceinline__ void store_state(float* g, const float (&d)[32],
 // C.B^T of every chunk and group, once: cb (B, nc, G, 128 x 128) f32, in
 // fragment order
 // ---------------------------------------------------------------------
+template <bool kLd>
 __global__ void __launch_bounds__(kT, 1)
 ssd_tc_cb_kernel(Shape p, const __grid_constant__ CUtensorMap tb,
-          const __grid_constant__ CUtensorMap tcm, float* __restrict__ cb) {
+          const __grid_constant__ CUtensorMap tcm, const Io io,
+          float* __restrict__ cb) {
   extern __shared__ unsigned char raw[];
   unsigned char* Bt = align1024(raw);
   unsigned char* Ct = Bt + kWide;
   uint64_t* bar = reinterpret_cast<uint64_t*>(Ct + kWide);
   const int ci = blockIdx.x, g = blockIdx.y, bb = blockIdx.z;
   const int wg = warpgroup();
-  init_bars(bar, 1);
-  if (threadIdx.x == 0) {
-    const int row = bb * p.S + ci * p.L;
+  const int row = bb * p.S + ci * p.L;
+  init_bars(bar, 1, kLd ? kLdArrivals : 1);
+  if (kLd) {
+    const long off = (static_cast<long>(row) * p.G + g) * p.N;
+    const long ld = static_cast<long>(p.G) * p.N;
+    const int nrows = min(p.L, p.S - ci * p.L);
+    ld_tile(Bt, io.b + off, ld, nrows, p.N, 2, io.wb);
+    ld_tile(Ct, io.c + off, ld, nrows, p.N, 2, io.wc);
+    ld_arrive(bar, io.wb == 2 || io.wc == 2);
+  } else if (threadIdx.x == 0) {
     mbar_expect(bar, 2 * kWide);
     for (int c = 0; c < 2; ++c) {
       tma_load_3d(Bt + c * kPanel, tb, bar, 64 * c, g, row);
@@ -1135,12 +604,13 @@ ssd_tc_cb_kernel(Shape p, const __grid_constant__ CUtensorMap tb,
     }
   }
   mbar_wait(bar, 0);
+  if (kLd) wgmma::fence_proxy();           // cp.async's writes, for wgmma
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   wgmma::fence_operand(acc);
   wgmma::fence();
-  for (int kk = 0; kk < p.N / 16; ++kk)
+  for (int kk = 0; kk < (p.N + 15) / 16; ++kk)
     wgmma::wgmma_ss_acc<0, 0>(acc, wgmma::kmajor<R>(Ct, 64 * wg, kk),
                               wgmma::kmajor<R>(Bt, 0, kk));
   wgmma::commit();
@@ -1160,10 +630,11 @@ struct FwdSmem {
       1024 + 2 * kStage + 3 * kPanel + 2 * sizeof(Scan) + 2 * 8;
 };
 
+template <bool kLd>
 __global__ void __launch_bounds__(kT, 1)
 ssd_tc_fwd_kernel(Shape p, const __grid_constant__ CUtensorMap tx,
            const __grid_constant__ CUtensorMap tb,
-           const __grid_constant__ CUtensorMap tcm,
+           const __grid_constant__ CUtensorMap tcm, const Io io,
            const float* __restrict__ a, const float* __restrict__ cb,
            bf16* __restrict__ y, float* __restrict__ hT,
            float* __restrict__ states) {
@@ -1180,14 +651,28 @@ ssd_tc_fwd_kernel(Shape p, const __grid_constant__ CUtensorMap tx,
   const bool scanner = threadIdx.x % 128 < 32;
   Scan& sc = scans[wg];
   const Frag f;
-  const int nkN = p.N / 16;
+  const int nkN = (p.N + 15) / 16;
   const long head = static_cast<long>(bb) * p.H + h;
 
   auto X = [&](int st) { return ring + st * FwdSmem::kStage; };
   auto Bt = [&](int st) { return X(st) + kPanel; };
   auto Ct = [&](int st) { return X(st) + 3 * kPanel; };
+  // chunk ci into stage ci % 2: by thread 0 through TMA, or (kLd) by
+  // every thread
   auto fetch = [&](int ci) {
     const int st = ci % 2, row = bb * p.S + ci * p.L;
+    if (kLd) {
+      const int nrows = min(p.L, p.S - ci * p.L);
+      const long gb = (static_cast<long>(row) * p.G + g) * p.N;
+      ld_tile(X(st), io.x + (static_cast<long>(row) * p.H + h) * p.P,
+              static_cast<long>(p.H) * p.P, nrows, p.P, 1, io.wx);
+      ld_tile(Bt(st), io.b + gb, static_cast<long>(p.G) * p.N, nrows, p.N,
+              2, io.wb);
+      ld_tile(Ct(st), io.c + gb, static_cast<long>(p.G) * p.N, nrows, p.N,
+              2, io.wc);
+      ld_arrive(&full[st], io.wx == 2 || io.wb == 2 || io.wc == 2);
+      return;
+    }
     mbar_expect(&full[st], FwdSmem::kStage);
     tma_load_3d(X(st), tx, &full[st], 0, h, row);
     for (int c = 0; c < 2; ++c) {
@@ -1195,11 +680,12 @@ ssd_tc_fwd_kernel(Shape p, const __grid_constant__ CUtensorMap tx,
       tma_load_3d(Ct(st) + c * kPanel, tcm, &full[st], 64 * c, g, row);
     }
   };
+  const bool loader = kLd || threadIdx.x == 0;
 
   for (int i = threadIdx.x; i < kPanel / 16; i += kT)
     reinterpret_cast<uint4*>(Ht)[i] = make_uint4(0, 0, 0, 0);
-  init_bars(full, 2);
-  if (threadIdx.x == 0) {
+  init_bars(full, 2, kLd ? kLdArrivals : 1);
+  if (loader) {
     fetch(0);
     if (p.nc > 1) fetch(1);
   }
@@ -1227,6 +713,7 @@ ssd_tc_fwd_kernel(Shape p, const __grid_constant__ CUtensorMap tx,
     if (states != nullptr)
       store_frag<8>(states + (head * p.nc + ci) * kStateFloats, hacc, wg);
     mbar_wait(&full[st], (ci / 2) & 1);
+    if (kLd) wgmma::fence_proxy();         // cp.async's writes, for wgmma
     wg_sync(wg);                           // the scan
     scale_rows(WX, X(st), sc.w, 64 * wg);
     wgmma::fence_proxy();
@@ -1252,7 +739,10 @@ ssd_tc_fwd_kernel(Shape p, const __grid_constant__ CUtensorMap tx,
           hacc, wgmma::mnmajor<R>(Bt(st) + wg * kPanel, kk),
           wgmma::mnmajor<R>(WX, kk));
     wgmma::commit();
-    uint32_t fr[8][4];
+    // the decayed scores as two bf16 operands, their rounding and its
+    // residual: one bf16 rounding of scores of order 10 cost y up to 0.1
+    // where its terms cancel
+    uint32_t fr[8][4], frl[8][4];
     auto sd = [&](auto w) {
       constexpr int W = decltype(w)::value;
 #pragma unroll
@@ -1261,6 +751,10 @@ ssd_tc_fwd_kernel(Shape p, const __grid_constant__ CUtensorMap tx,
                  : cbr[i] * dmat<W, true>(sc, 64 * W + f.r(i), f.c(i), i,
                                           nrows);
       wgmma::to_frags(cbr, fr);
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        cbr[i] -= __bfloat162float(__float2bfloat16_rn(cbr[i]));
+      wgmma::to_frags(cbr, frl);
     };
     if (wg == 0) sd(WG<0>{}); else sd(WG<1>{});
     wgmma::wait<0>();                      // the state's product ran under D
@@ -1271,19 +765,23 @@ ssd_tc_fwd_kernel(Shape p, const __grid_constant__ CUtensorMap tx,
     wgmma::fence_operand(yacc);
     wgmma::fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)         // rows t < 64: columns s < 64
+    for (int kk = 0; kk < 4; ++kk) {       // rows t < 64: columns s < 64
       wgmma::wgmma_rs_acc<1>(yacc, fr[kk], wgmma::mnmajor<R>(X(st), kk));
+      wgmma::wgmma_rs_acc<1>(yacc, frl[kk], wgmma::mnmajor<R>(X(st), kk));
+    }
     if (wg == 1) {
 #pragma unroll
-      for (int kk = 4; kk < 8; ++kk)
+      for (int kk = 4; kk < 8; ++kk) {
         wgmma::wgmma_rs_acc<1>(yacc, fr[kk], wgmma::mnmajor<R>(X(st), kk));
+        wgmma::wgmma_rs_acc<1>(yacc, frl[kk], wgmma::mnmajor<R>(X(st), kk));
+      }
     }
     wgmma::commit();
     wgmma::wait<0>();
     wgmma::fence_operand(yacc);
     wgmma::fence_operand(hacc);
     __syncthreads();                       // Ht, WX and stage st are read
-    if (threadIdx.x == 0 && ci + 2 < p.nc) fetch(ci + 2);
+    if (loader && ci + 2 < p.nc) fetch(ci + 2);
 
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
@@ -1292,7 +790,8 @@ ssd_tc_fwd_kernel(Shape p, const __grid_constant__ CUtensorMap tx,
     }
     wg_sync(wg);
     store_rows(y + ((static_cast<long>(bb) * p.S + r0) * p.H + h) * p.P,
-               static_cast<long>(p.H) * p.P, Ys, 64 * wg, nrows, p.P);
+               static_cast<long>(p.H) * p.P, Ys, 64 * wg, nrows, p.P,
+               io.wy);
   }
   store_state(hT + head * p.N * p.P, hacc, 64 * wg, p.N, p.P);
 }
@@ -1306,9 +805,10 @@ struct StateSmem {
       1024 + 2 * kStage + kPanel + 2 * sizeof(Scan) + 2 * 8;
 };
 
+template <bool kLd>
 __global__ void __launch_bounds__(kT, 1)
 ssd_tc_bwd_state_kernel(Shape p, const __grid_constant__ CUtensorMap tdy,
-                 const __grid_constant__ CUtensorMap tcm,
+                 const __grid_constant__ CUtensorMap tcm, const Io io,
                  const float* __restrict__ a, const float* __restrict__ dhT,
                  float* __restrict__ dstates) {
   extern __shared__ unsigned char raw[];
@@ -1327,27 +827,34 @@ ssd_tc_bwd_state_kernel(Shape p, const __grid_constant__ CUtensorMap tdy,
   auto DY = [&](int st) { return ring + st * StateSmem::kStage; };
   auto Ct = [&](int st) { return DY(st) + kPanel; };
   auto fetch = [&](int it) {                // it-th chunk from the end
-    const int st = it % 2, row = bb * p.S + (p.nc - 1 - it) * p.L;
+    const int st = it % 2, ci = p.nc - 1 - it, row = bb * p.S + ci * p.L;
+    if (kLd) {
+      const int nrows = min(p.L, p.S - ci * p.L);
+      ld_tile(DY(st), io.dy + (static_cast<long>(row) * p.H + h) * p.P,
+              static_cast<long>(p.H) * p.P, nrows, p.P, 1, io.wdy);
+      ld_tile(Ct(st), io.c + (static_cast<long>(row) * p.G + g) * p.N,
+              static_cast<long>(p.G) * p.N, nrows, p.N, 2, io.wc);
+      ld_arrive(&full[st], io.wdy == 2 || io.wc == 2);
+      return;
+    }
     mbar_expect(&full[st], StateSmem::kStage);
     tma_load_3d(DY(st), tdy, &full[st], 0, h, row);
     for (int c = 0; c < 2; ++c)
       tma_load_3d(Ct(st) + c * kPanel, tcm, &full[st], 64 * c, g, row);
   };
-  init_bars(full, 2);
-  if (threadIdx.x == 0) {
+  const bool loader = kLd || threadIdx.x == 0;
+  init_bars(full, 2, kLd ? kLdArrivals : 1);
+  if (loader) {
     fetch(0);
     if (p.nc > 1) fetch(1);
   }
-  float dh[32];
+  float dh[32];                            // element by element: P may be odd
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
+  for (int i = 0; i < 32; ++i) {
     const int n = 64 * wg + f.r(i), q = f.c(i);
-    const bool ok = dhT != nullptr && n < p.N && q < p.P;
-    const float2 v = ok ? *reinterpret_cast<const float2*>(
-                              dhT + head * p.N * p.P + n * p.P + q)
-                        : make_float2(0.f, 0.f);
-    dh[i] = v.x;
-    dh[i + 1] = v.y;
+    dh[i] = dhT != nullptr && n < p.N && q < p.P
+                ? dhT[head * p.N * p.P + n * p.P + q]
+                : 0.f;
   }
   float av[4];
   auto a_base = [&](int ci) {
@@ -1365,6 +872,7 @@ ssd_tc_bwd_state_kernel(Shape p, const __grid_constant__ CUtensorMap tdy,
     }
     store_frag<8>(dstates + (head * p.nc + ci) * kStateFloats, dh, wg);
     mbar_wait(&full[st], (it / 2) & 1);
+    if (kLd) wgmma::fence_proxy();         // cp.async's writes, for wgmma
     wg_sync(wg);
     scale_rows(EDY, DY(st), sc.eA, 64 * wg);
     wgmma::fence_proxy();
@@ -1384,7 +892,7 @@ ssd_tc_bwd_state_kernel(Shape p, const __grid_constant__ CUtensorMap tdy,
     wgmma::wait<0>();
     wgmma::fence_operand(dh);
     __syncthreads();                       // EDY and stage st are read
-    if (threadIdx.x == 0 && it + 2 < p.nc) fetch(it + 2);
+    if (loader && it + 2 < p.nc) fetch(it + 2);
   }
 }
 
@@ -1400,11 +908,12 @@ struct DxSmem {
                                   sizeof(float) * (8 * R + 3 * R + 8) + 8;
 };
 
+template <bool kLd>
 __global__ void __launch_bounds__(kT, 1)
 ssd_tc_bwd_dx_kernel(Shape p, const __grid_constant__ CUtensorMap tx,
               const __grid_constant__ CUtensorMap tdy,
               const __grid_constant__ CUtensorMap tb,
-              const __grid_constant__ CUtensorMap tcm,
+              const __grid_constant__ CUtensorMap tcm, const Io io,
               const float* __restrict__ a, const float* __restrict__ cb,
               const float* __restrict__ states,
               const float* __restrict__ dstates, bf16* __restrict__ dx,
@@ -1431,20 +940,36 @@ ssd_tc_bwd_dx_kernel(Shape p, const __grid_constant__ CUtensorMap tx,
   const int g = h / (p.H / p.G), wg = warpgroup();
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int r0 = ci * p.L, nrows = min(p.L, p.S - r0);
-  const int nkN = p.N / 16, nkP = p.P / 16;
+  const int nkN = (p.N + 15) / 16, nkP = (p.P + 15) / 16;
   const long head = static_cast<long>(bb) * p.H + h;
   const long sbase = (head * p.nc + ci) * kStateFloats;
   const Frag f;
 
-  init_bars(bar, 1);
+  // kLd: every thread's two arrivals, and thread 0's for the states
+  init_bars(bar, 1, kLd ? kLdArrivals + 1 : 1);
+  const int row = bb * p.S + r0, sb = kStateFloats * 4;
+  if (kLd) {
+    const long xo = (static_cast<long>(row) * p.H + h) * p.P;
+    const long bo = (static_cast<long>(row) * p.G + g) * p.N;
+    const long lx = static_cast<long>(p.H) * p.P;
+    const long lb = static_cast<long>(p.G) * p.N;
+    ld_tile(X, io.x + xo, lx, nrows, p.P, 1, io.wx);
+    ld_tile(DY, io.dy + xo, lx, nrows, p.P, 1, io.wdy);
+    ld_tile(Bt, io.b + bo, lb, nrows, p.N, 2, io.wb);
+    ld_tile(Ct, io.c + bo, lb, nrows, p.N, 2, io.wc);
+    ld_arrive(bar, io.wx == 2 || io.wdy == 2 || io.wb == 2 || io.wc == 2);
+  }
   if (threadIdx.x == 0) {
-    const int row = bb * p.S + r0, sb = kStateFloats * 4;
-    mbar_expect(bar, 2 * kPanel + 2 * kWide + 2 * sb);
-    tma_load_3d(X, tx, bar, 0, h, row);
-    tma_load_3d(DY, tdy, bar, 0, h, row);
-    for (int c = 0; c < 2; ++c) {
-      tma_load_3d(Bt + c * kPanel, tb, bar, 64 * c, g, row);
-      tma_load_3d(Ct + c * kPanel, tcm, bar, 64 * c, g, row);
+    if (kLd) {
+      mbar_expect(bar, 2 * sb);
+    } else {
+      mbar_expect(bar, 2 * kPanel + 2 * kWide + 2 * sb);
+      tma_load_3d(X, tx, bar, 0, h, row);
+      tma_load_3d(DY, tdy, bar, 0, h, row);
+      for (int c = 0; c < 2; ++c) {
+        tma_load_3d(Bt + c * kPanel, tb, bar, 64 * c, g, row);
+        tma_load_3d(Ct + c * kPanel, tcm, bar, 64 * c, g, row);
+      }
     }
     bulk_load(H32, states + sbase, sb, bar);
     bulk_load(DH32, dstates + sbase, sb, bar);
@@ -1458,6 +983,7 @@ ssd_tc_bwd_dx_kernel(Shape p, const __grid_constant__ CUtensorMap tx,
   load_frag<16>(cbr, cb + ((static_cast<long>(bb) * p.nc + ci) * p.G + g) *
                              R * R, wg);
   mbar_wait(bar, 0);
+  if (kLd) wgmma::fence_proxy();           // cp.async's writes, for wgmma
   // h and dh' as bf16 tiles (n, q), zero padded; <dh', h> in f32
   float dot = warp_sum(frag_to_tile<true>(HB, H32, DHB, DH32));
   if (lane == 0) red[warp] = dot;
@@ -1587,7 +1113,7 @@ ssd_tc_bwd_dx_kernel(Shape p, const __grid_constant__ CUtensorMap tx,
     st_bf2(SH, 64 * wg + f.r(i), f.c(i), acc[i], acc[i + 1]);
   wg_sync(wg);
   store_rows(dx + ((static_cast<long>(bb) * p.S + r0) * p.H + h) * p.P,
-             static_cast<long>(p.H) * p.P, SH, 64 * wg, nrows, p.P);
+             static_cast<long>(p.H) * p.P, SH, 64 * wg, nrows, p.P, io.wdx);
 
   // dA_t = rowM - colM + t1 - q (+ sum q + exp(A_L) <dh', h> on the last
   // valid row); da = its reverse cumsum over the chunk (warp 0)
@@ -1644,10 +1170,13 @@ struct DbcSmem {
 
 // kMode 0: dC (rows t): U = dy, V = x, row factor exp(A), state h, F = B.
 // kMode 1: dB (rows s): U = x, V = dy, row factor w, state dh', F = C.
-template <int kMode>
+// kLd: U, V and F come from the raw tensors (u, v, fp) in pieces of wu,
+// wv and wf bytes; out is stored in pairs where wo >= 4.
+template <int kMode, bool kLd>
 __device__ __forceinline__ void dbc_body(
     const Shape& p, const CUtensorMap& tu, const CUtensorMap& tv,
-    const CUtensorMap& tf, const float* __restrict__ a,
+    const CUtensorMap& tf, const bf16* u, const bf16* v, const bf16* fp,
+    int wu, int wv, int wf, int wo, const float* __restrict__ a,
     const float* __restrict__ st32, bf16* __restrict__ out,
     unsigned char* base) {
   unsigned char* ring = base;
@@ -1662,7 +1191,7 @@ __device__ __forceinline__ void dbc_body(
   const int rep = p.H / p.G, wg = warpgroup();
   const int r0 = ci * p.L, nrows = min(p.L, p.S - r0);
   const int row = bb * p.S + r0, sb = kStateFloats * 4;
-  const int nkP = p.P / 16;
+  const int nkP = (p.P + 15) / 16;
   const Frag f;
 
   auto U = [&](int st) { return ring + st * DbcSmem::kStage; };
@@ -1670,8 +1199,16 @@ __device__ __forceinline__ void dbc_body(
   auto sbase = [&](int h) {
     return ((static_cast<long>(bb) * p.H + h) * p.nc + ci) * kStateFloats;
   };
+  const long lx = static_cast<long>(p.H) * p.P;
   auto fetch = [&](int j) {
     const int st = j % 2, h = g * rep + j;
+    if (kLd) {
+      const long off = (static_cast<long>(row) * p.H + h) * p.P;
+      ld_tile(U(st), u + off, lx, nrows, p.P, 1, wu);
+      ld_tile(V(st), v + off, lx, nrows, p.P, 1, wv);
+      ld_arrive(&bars[st], wu == 2 || wv == 2);
+      return;
+    }
     mbar_expect(&bars[st], 2 * kPanel);
     tma_load_3d(U(st), tu, &bars[st], 0, h, row);
     tma_load_3d(V(st), tv, &bars[st], 0, h, row);
@@ -1680,12 +1217,25 @@ __device__ __forceinline__ void dbc_body(
     mbar_expect(&bars[3], sb);
     bulk_load(S32, st32 + sbase(g * rep + j), sb, &bars[3]);
   };
-  init_bars(bars, 4);
+  const bool loader = kLd || threadIdx.x == 0;
   if (threadIdx.x == 0) {
+    // U V x2 and F: one arrival, or every thread's two (kLd); S32: one
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i], kLd ? kLdArrivals : 1);
+    mbar_init(&bars[3], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (kLd) {
+    ld_tile(Ft, fp + (static_cast<long>(row) * p.G + g) * p.N,
+            static_cast<long>(p.G) * p.N, nrows, p.N, 2, wf);
+    ld_arrive(&bars[2], wf == 2);
+  } else if (threadIdx.x == 0) {
     mbar_expect(&bars[2], kWide);
     for (int c = 0; c < 2; ++c)
       tma_load_3d(Ft + c * kPanel, tf, &bars[2], 64 * c, g, row);
-    fetch_state(0);
+  }
+  if (threadIdx.x == 0) fetch_state(0);
+  if (loader) {
     fetch(0);
     if (rep > 1) fetch(1);
   }
@@ -1710,6 +1260,7 @@ __device__ __forceinline__ void dbc_body(
     __syncthreads();                       // the scan; S32 is read
     if (threadIdx.x == 0 && j + 1 < rep) fetch_state(j + 1);
     mbar_wait(&bars[st], (j / 2) & 1);
+    if (kLd) wgmma::fence_proxy();         // cp.async's writes, for wgmma
     scale_rows(US, U(st), kMode == 0 ? sc.eA : sc.w, 64 * wg);
     wgmma::fence_proxy();
     __syncthreads();                       // ST, US whole
@@ -1744,13 +1295,14 @@ __device__ __forceinline__ void dbc_body(
     wgmma::wait<0>();
     wgmma::fence_operand(acc);
     __syncthreads();                       // US, ST, stage st are read
-    if (threadIdx.x == 0 && j + 2 < rep) fetch(j + 2);
+    if (loader && j + 2 < rep) fetch(j + 2);
   }
 
   // + (sum over heads of G) F, the head sum in registers
   uint32_t fr[8][4];
   wgmma::to_frags(gsum, fr);
   mbar_wait(&bars[2], 0);
+  if (kLd) wgmma::fence_proxy();           // cp.async's writes, for wgmma
   wgmma::fence();
   // the upper block of the head sum is 0: dC rows t < 64 stop at s = 64,
   // dB rows s >= 64 start at t = 64
@@ -1772,27 +1324,29 @@ __device__ __forceinline__ void dbc_body(
   bf16* o = out + static_cast<long>(row) * ld + static_cast<long>(g) * p.N;
 #pragma unroll
   for (int i = 0; i < 64; i += 2) {
-    const int r = 64 * wg + f.r(i), n = f.c(i);
-    if (r < nrows && n < p.N)
-      *reinterpret_cast<__nv_bfloat162*>(o + r * ld + n) =
-          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    const int r = 64 * wg + f.r(i);
+    if (r < nrows) store_pair(o + r * ld, f.c(i), p.N, wo >= 4, acc[i],
+                              acc[i + 1]);
   }
 }
 
+template <bool kLd>
 __global__ void __launch_bounds__(kT, 1)
 ssd_tc_bwd_dbc_kernel(Shape p, const __grid_constant__ CUtensorMap tx,
                const __grid_constant__ CUtensorMap tdy,
                const __grid_constant__ CUtensorMap tb,
-               const __grid_constant__ CUtensorMap tcm,
+               const __grid_constant__ CUtensorMap tcm, const Io io,
                const float* __restrict__ a, const float* __restrict__ states,
                const float* __restrict__ dstates, bf16* __restrict__ db,
                bf16* __restrict__ dc) {
   extern __shared__ unsigned char raw[];
   unsigned char* base = align1024(raw);
   if (blockIdx.y % 2 == 0)
-    dbc_body<0>(p, tdy, tx, tb, a, states, dc, base);
+    dbc_body<0, kLd>(p, tdy, tx, tb, io.dy, io.x, io.b, io.wdy, io.wx,
+                     io.wb, io.wdc, a, states, dc, base);
   else
-    dbc_body<1>(p, tx, tdy, tcm, a, dstates, db, base);
+    dbc_body<1, kLd>(p, tx, tdy, tcm, io.x, io.dy, io.c, io.wx, io.wdy,
+                     io.wc, io.wdb, a, dstates, db, base);
 }
 
 // A TMA map of a contiguous bf16 tensor (rows, d1, d0) as 3-D (d0, d1,
@@ -1819,14 +1373,38 @@ cudaError_t map_rows(CUtensorMap* map, const void* base, int d0, int d1,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-bool valid(const Shape& p, const void* const* ptrs, int n) {
+// N up to 128 and P up to 64 at any width; the f32 workspaces (states,
+// cb, dstates: bulk copies and float4 stores) 16-byte aligned.
+bool valid(const Shape& p, const void* const* f32, int n) {
   for (int i = 0; i < n; ++i)
-    if (ptrs[i] != nullptr && reinterpret_cast<uintptr_t>(ptrs[i]) % 16)
+    if (f32[i] != nullptr && reinterpret_cast<uintptr_t>(f32[i]) % 16)
       return false;
   return p.B > 0 && p.S > 0 && p.H > 0 && p.G > 0 && p.H % p.G == 0 &&
-         p.N > 0 && p.N <= R && p.N % 16 == 0 && p.P > 0 && p.P <= 64 &&
-         p.P % 16 == 0 && p.L > 0 && p.L <= R &&
-         p.nc == (p.S + p.L - 1) / p.L;
+         p.N > 0 && p.N <= R && p.P > 0 && p.P <= 64 && p.L > 0 &&
+         p.L <= R && p.nc == (p.S + p.L - 1) / p.L;
+}
+
+// The widest piece (16, 8, 4 or 2 bytes) that divides both the base
+// address and the row length of rows of `cols` bf16 elements.
+int piece(const void* base, int cols) {
+  const uintptr_t v =
+      reinterpret_cast<uintptr_t>(base) | static_cast<uintptr_t>(cols) * 2;
+  return v % 16 == 0 ? 16 : v % 8 == 0 ? 8 : v % 4 == 0 ? 4 : 2;
+}
+
+// The edge loads are needed unless TMA takes every bf16 input: rows of
+// whole 16-byte chunks (N and P multiples of 8) and 16-byte aligned bases.
+Io make_io(const Shape& p, const void* x, const void* dy, const void* b,
+           const void* c, const void* y, const void* dx, const void* db,
+           const void* dc, bool& ld) {
+  const Io io{static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
+              static_cast<const bf16*>(b), static_cast<const bf16*>(c),
+              piece(x, p.P), dy ? piece(dy, p.P) : 16, piece(b, p.N),
+              piece(c, p.N), y ? piece(y, p.P) : 16,
+              dx ? piece(dx, p.P) : 16, db ? piece(db, p.N) : 16,
+              dc ? piece(dc, p.N) : 16};
+  ld = io.wx < 16 || io.wdy < 16 || io.wb < 16 || io.wc < 16;
+  return io;
 }
 
 template <typename K>
@@ -1839,68 +1417,108 @@ cudaError_t set_smem(K kernel, size_t bytes, bool& done) {
   return e;
 }
 
-// The forward's two launches (see ssd_scan_tc_fwd).
-cudaError_t fwd(const void* x, const void* a, const void* b, const void* c,
-                void* y, void* hT, void* states, void* cb, const Shape& p,
-                cudaStream_t s) {
+// The TMA maps of the bf16 inputs (left empty where the edge loads
+// replace them: a map cannot hold such rows).
+cudaError_t maps(bool ld, const Shape& p, CUtensorMap* m, const void* const* t,
+                 const int* cols, const int* d1, int n) {
   const long rows = static_cast<long>(p.B) * p.S;
-  CUtensorMap tx, tb, tcm;
-  cudaError_t e = map_rows(&tx, x, p.P, p.H, rows);
-  if (e == cudaSuccess) e = map_rows(&tb, b, p.N, p.G, rows);
-  if (e == cudaSuccess) e = map_rows(&tcm, c, p.N, p.G, rows);
+  for (int i = 0; i < n; ++i) {
+    m[i] = CUtensorMap{};
+    if (ld) continue;
+    const cudaError_t e = map_rows(&m[i], t[i], cols[i], d1[i], rows);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// The forward's two launches (see ssd_scan_tc_fwd).
+template <bool kLd>
+cudaError_t fwd_k(const void* a, void* y, void* hT, void* states, void* cb,
+                  const Io& io, const CUtensorMap* m, const Shape& p,
+                  cudaStream_t s) {
   static bool cb_set = false, fwd_set = false;
   constexpr size_t kCbSmem = 1024 + 2 * kWide + 8;
-  if (e == cudaSuccess) e = set_smem(ssd_tc_cb_kernel, kCbSmem, cb_set);
+  cudaError_t e = set_smem(ssd_tc_cb_kernel<kLd>, kCbSmem, cb_set);
   if (e == cudaSuccess)
-    e = set_smem(ssd_tc_fwd_kernel, FwdSmem::bytes, fwd_set);
+    e = set_smem(ssd_tc_fwd_kernel<kLd>, FwdSmem::bytes, fwd_set);
   if (e != cudaSuccess) return e;
-  ssd_tc_cb_kernel<<<dim3(p.nc, p.G, p.B), kT, kCbSmem, s>>>(
-      p, tb, tcm, static_cast<float*>(cb));
+  ssd_tc_cb_kernel<kLd><<<dim3(p.nc, p.G, p.B), kT, kCbSmem, s>>>(
+      p, m[1], m[2], io, static_cast<float*>(cb));
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  ssd_tc_fwd_kernel<<<dim3(p.H, p.B), kT, FwdSmem::bytes, s>>>(
-      p, tx, tb, tcm, static_cast<const float*>(a),
+  ssd_tc_fwd_kernel<kLd><<<dim3(p.H, p.B), kT, FwdSmem::bytes, s>>>(
+      p, m[0], m[1], m[2], io, static_cast<const float*>(a),
       static_cast<const float*>(cb), static_cast<bf16*>(y),
       static_cast<float*>(hT), static_cast<float*>(states));
   return cudaGetLastError();
 }
 
-// The backward's three launches (see ssd_scan_tc_bwd).
-cudaError_t bwd(const void* x, const void* a, const void* b, const void* c,
-                const void* states, const void* cb, const void* dy,
-                const void* dhT, void* dstates, void* dx, void* da, void* db,
-                void* dc, const Shape& p, cudaStream_t s) {
-  const long rows = static_cast<long>(p.B) * p.S;
-  CUtensorMap tx, tdy, tb, tcm;
-  cudaError_t e = map_rows(&tx, x, p.P, p.H, rows);
-  if (e == cudaSuccess) e = map_rows(&tdy, dy, p.P, p.H, rows);
-  if (e == cudaSuccess) e = map_rows(&tb, b, p.N, p.G, rows);
-  if (e == cudaSuccess) e = map_rows(&tcm, c, p.N, p.G, rows);
+cudaError_t fwd(const void* x, const void* a, const void* b, const void* c,
+                void* y, void* hT, void* states, void* cb, const Shape& p,
+                cudaStream_t s) {
+  bool ld = false;
+  const Io io = make_io(p, x, nullptr, b, c, y, nullptr, nullptr, nullptr,
+                        ld);
+  CUtensorMap m[3];
+  const void* t[3] = {x, b, c};
+  const int cols[3] = {p.P, p.N, p.N}, d1[3] = {p.H, p.G, p.G};
+  const cudaError_t e = maps(ld, p, m, t, cols, d1, 3);
+  if (e != cudaSuccess) return e;
+  return ld ? fwd_k<true>(a, y, hT, states, cb, io, m, p, s)
+            : fwd_k<false>(a, y, hT, states, cb, io, m, p, s);
+}
+
+// The backward's three launches (see ssd_scan_tc_bwd); m: the maps of x,
+// dy, B and C.
+template <bool kLd>
+cudaError_t bwd_k(const void* a, const void* states, const void* cb,
+                  const void* dhT, void* dstates, void* dx, void* da,
+                  void* db, void* dc, const Io& io, const CUtensorMap* m,
+                  const Shape& p, cudaStream_t s) {
   static bool st_set = false, dx_set = false, dbc_set = false;
+  cudaError_t e =
+      set_smem(ssd_tc_bwd_state_kernel<kLd>, StateSmem::bytes, st_set);
   if (e == cudaSuccess)
-    e = set_smem(ssd_tc_bwd_state_kernel, StateSmem::bytes, st_set);
+    e = set_smem(ssd_tc_bwd_dx_kernel<kLd>, DxSmem::bytes, dx_set);
   if (e == cudaSuccess)
-    e = set_smem(ssd_tc_bwd_dx_kernel, DxSmem::bytes, dx_set);
-  if (e == cudaSuccess)
-    e = set_smem(ssd_tc_bwd_dbc_kernel, DbcSmem::bytes, dbc_set);
+    e = set_smem(ssd_tc_bwd_dbc_kernel<kLd>, DbcSmem::bytes, dbc_set);
   if (e != cudaSuccess) return e;
   const float* af = static_cast<const float*>(a);
   const float* sf = static_cast<const float*>(states);
-  ssd_tc_bwd_state_kernel<<<dim3(p.H, p.B), kT, StateSmem::bytes, s>>>(
-      p, tdy, tcm, af, static_cast<const float*>(dhT),
+  ssd_tc_bwd_state_kernel<kLd><<<dim3(p.H, p.B), kT, StateSmem::bytes, s>>>(
+      p, m[1], m[3], io, af, static_cast<const float*>(dhT),
       static_cast<float*>(dstates));
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  ssd_tc_bwd_dx_kernel<<<dim3(p.nc, p.H, p.B), kT, DxSmem::bytes, s>>>(
-      p, tx, tdy, tb, tcm, af, static_cast<const float*>(cb), sf,
+  ssd_tc_bwd_dx_kernel<kLd><<<dim3(p.nc, p.H, p.B), kT, DxSmem::bytes, s>>>(
+      p, m[0], m[1], m[2], m[3], io, af, static_cast<const float*>(cb), sf,
       static_cast<const float*>(dstates), static_cast<bf16*>(dx),
       static_cast<float*>(da));
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  ssd_tc_bwd_dbc_kernel<<<dim3(p.nc, 2 * p.G, p.B), kT, DbcSmem::bytes, s>>>(
-      p, tx, tdy, tb, tcm, af, sf, static_cast<const float*>(dstates),
-      static_cast<bf16*>(db), static_cast<bf16*>(dc));
+  ssd_tc_bwd_dbc_kernel<kLd>
+      <<<dim3(p.nc, 2 * p.G, p.B), kT, DbcSmem::bytes, s>>>(
+          p, m[0], m[1], m[2], m[3], io, af, sf,
+          static_cast<const float*>(dstates), static_cast<bf16*>(db),
+          static_cast<bf16*>(dc));
   return cudaGetLastError();
+}
+
+cudaError_t bwd(const void* x, const void* a, const void* b, const void* c,
+                const void* states, const void* cb, const void* dy,
+                const void* dhT, void* dstates, void* dx, void* da, void* db,
+                void* dc, const Shape& p, cudaStream_t s) {
+  bool ld = false;
+  const Io io = make_io(p, x, dy, b, c, nullptr, dx, db, dc, ld);
+  CUtensorMap m[4];
+  const void* t[4] = {x, dy, b, c};
+  const int cols[4] = {p.P, p.P, p.N, p.N}, d1[4] = {p.H, p.H, p.G, p.G};
+  const cudaError_t e = maps(ld, p, m, t, cols, d1, 4);
+  if (e != cudaSuccess) return e;
+  return ld ? bwd_k<true>(a, states, cb, dhT, dstates, dx, da, db, dc, io, m,
+                          p, s)
+            : bwd_k<false>(a, states, cb, dhT, dstates, dx, da, db, dc, io,
+                           m, p, s);
 }
 
 }  // namespace tc
@@ -3002,56 +2620,28 @@ cudaError_t bwd(const void* x, const void* a, const void* b, const void* c,
 
 }  // namespace
 
-// The FMA route: bf16 x (B, S, H, P), b, c (B, S, G, N) of any widths N <=
-// 128, P <= 64 (the tensor-core route takes those that are multiples of
-// 16); a (B, S, H) f32; y like x; hT (B, H, N, P) f32; states (B, H, nc,
-// N, P) f32 with nc = ceil(S / L), or null when no gradient is wanted. L
-// = chunk rows (1..64). All contiguous on the device. Returns a
-// cudaError_t (0 = ok).
-extern "C" int ssd_scan_fwd(const void* x, const void* a, const void* b,
-                            const void* c, void* y, void* hT, void* states,
-                            int B, int S, int H, int G, int N, int P, int L,
-                            void* stream) {
-  const Shape p{B, S, H, G, N, P, L, L > 0 ? (S + L - 1) / L : 0};
-  if (!valid(p)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(fwd<bf16>(x, a, b, c, y, hT, states, p,
-                                    static_cast<cudaStream_t>(stream)));
-}
-
-// The gradients of ssd_scan_fwd: dy like x, dhT (B, H, N, P) f32 or null
-// (zero); `states` from the forward; dstates (B, H, nc, N, P) f32 scratch;
-// dx like x, da like a, db and dc like b. Two launches.
-extern "C" int ssd_scan_bwd(const void* x, const void* a, const void* b,
-                            const void* c, const void* states,
-                            const void* dy, const void* dhT, void* dstates,
-                            void* dx, void* da, void* db, void* dc, int B,
-                            int S, int H, int G, int N, int P, int L,
-                            void* stream) {
-  const Shape p{B, S, H, G, N, P, L, L > 0 ? (S + L - 1) / L : 0};
-  if (!valid(p)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(bwd<bf16>(x, a, b, c, states, dy, dhT, dstates,
-                                    dx, da, db, dc, p,
-                                    static_cast<cudaStream_t>(stream)));
-}
-
 extern "C" const char* ssd_scan_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The tensor-core route: bf16 x, b, c with N and P multiples of 16 (N <=
-// 128, P <= 64), 16-byte aligned, chunk rows L <= 128. Shapes as for
-// ssd_scan_fwd, but `states` (or null when no gradient is wanted) holds
-// each chunk's start state as a zero-padded 128 x 64 tile in fragment
-// order, (B, H, nc, 128 * 64) f32, and cb (B, nc, G, 128 * 128) f32
-// receives C B^T of every chunk and group, also in fragment order (the
-// backward reads both). Two launches.
+// The tensor-core kernels (the wrapper's routes "tc" and "tc_edge"): bf16
+// x (B, S, H, P), b, c (B, S, G, N) of any widths N <= 128, P <= 64 and
+// any alignment (TMA loads where N and P are multiples of 8 and x, b, c
+// 16-byte aligned, else the edge loads); a (B, S, H) f32; y like x; hT
+// (B, H, N, P) f32; chunk rows L <= 128, nc = ceil(S / L). `states` (or
+// null when no gradient is wanted) holds each chunk's start state as a
+// zero-padded 128 x 64 tile in fragment order, (B, H, nc, 128 * 64) f32,
+// and cb (B, nc, G, 128 * 128) f32 receives C B^T of every chunk and
+// group, also in fragment order (the backward reads both; both 16-byte
+// aligned). All contiguous on the device. Two launches. Returns a
+// cudaError_t (0 = ok).
 extern "C" int ssd_scan_tc_fwd(const void* x, const void* a, const void* b,
                                const void* c, void* y, void* hT,
                                void* states, void* cb, int B, int S, int H,
                                int G, int N, int P, int L, void* stream) {
   const tc::Shape p{B, S, H, G, N, P, L, L > 0 ? (S + L - 1) / L : 0};
-  const void* ptrs[] = {x, b, c, y, states, cb};
-  if (!tc::valid(p, ptrs, 6)) return static_cast<int>(cudaErrorInvalidValue);
+  const void* f32[] = {states, cb};
+  if (!tc::valid(p, f32, 2)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(tc::fwd(x, a, b, c, y, hT, states, cb, p,
                                   static_cast<cudaStream_t>(stream)));
 }
@@ -3067,8 +2657,8 @@ extern "C" int ssd_scan_tc_bwd(const void* x, const void* a, const void* b,
                                int H, int G, int N, int P, int L,
                                void* stream) {
   const tc::Shape p{B, S, H, G, N, P, L, L > 0 ? (S + L - 1) / L : 0};
-  const void* ptrs[] = {x, b, c, states, cb, dy, dstates, dx, db, dc};
-  if (!tc::valid(p, ptrs, 10) || states == nullptr)
+  const void* f32[] = {states, cb, dstates};
+  if (!tc::valid(p, f32, 3) || states == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(tc::bwd(x, a, b, c, states, cb, dy, dhT, dstates,
                                   dx, da, db, dc, p,

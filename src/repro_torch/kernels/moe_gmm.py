@@ -24,8 +24,14 @@ before launch from the dtype, the widths and the pointers' alignment):
   * ``"tf32x3"``: f32: wgmma on TF32 operands split into big and small
     halves (3xTF32), which holds f32's 1e-4 (16-byte loads where D and F
     are multiples of 4 and the pointers aligned, else element by element);
-  * ``"fma"``: bf16 of other widths or unaligned pointers: CUDA-core FMA
-    tiles.
+  * ``"wgmma_edge"``: bf16 of any other widths or alignment (rows that
+    are not whole 16-byte multiples, which TMA cannot take, or unaligned
+    pointers), forward and backward at any C: the ``"wgmma"`` kernels'
+    products on 128 x 128 tiles, the producer warpgroup loading B and
+    each consumer warpgroup its own half of A, two threads a row, as the
+    16-byte granules that cover it, shifted into the swizzled panels in
+    registers, zero past the edge; the tiles stored from registers with
+    masks.
 
 A CPU tensor takes the plain version (:func:`moe_gmm_plain`) under
 autograd. A CUDA tensor launches a kernel on the current stream or
@@ -35,16 +41,11 @@ raises: there is no fallback. It goes through the custom op
 takes the VJP of the oracle, i.e. the same two grouped GEMMs). A meta
 tensor (the dry run's) takes the same ops, which there only allocate
 their outputs; each op has a FLOP formula (2·Z·C·D·F) for
-``FlopCounterMode``. The backward kernels:
-
-  * f32, and bf16 of the ``"wgmma"`` widths: two kernels that read x, w
-    and g as stored, with no copy: dx[z] = g[z] @ w[e]^T, and dw[e] = the
-    sum over groups of x[z]^T @ g[z], summed in registers in a fixed
-    order (the bits repeat from run to run);
-  * bf16 of other widths: the forward kernel on transposed copies,
-    dx = moe_gmm(g, w^T) with w^T (P, F, D) contiguous, and dw in one
-    call with Z = P on x^T laid out (P, D, groups*C) and g laid out
-    (P, groups*C, F).
+``FlopCounterMode``. The backward is two kernels of the forward's route
+(``"wgmma"`` for bf16 at any C, or ``"wgmma_edge"``; ``"tf32x3"`` for
+f32) that read x, w and g as stored, with no copy: dx[z] = g[z] @
+w[e]^T, and dw[e] = the sum over groups of x[z]^T @ g[z], summed in
+registers in a fixed order (the bits repeat from run to run).
 
 ``launches`` counts forward kernel launches, ``bwd_launches`` backward
 ones and ``route_launches`` both by route, and nothing else.
@@ -65,13 +66,13 @@ __all__ = ["moe_gmm", "moe_gmm_plain", "moe_gmm_bwd", "route", "launches",
 
 launches = 0
 bwd_launches = 0
-route_launches = {"wgmma": 0, "wgmma_decode": 0, "tf32x3": 0, "fma": 0}
+route_launches = {"wgmma": 0, "wgmma_decode": 0, "tf32x3": 0,
+                  "wgmma_edge": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-_BWD_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-_MAX_Z = 65535            # gridDim.z of the FMA kernel
+# pointers a, b, out; Z C D F period dtype edge; the stream
+_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, expert_period: int | None):
@@ -111,85 +112,60 @@ def route(dtype: torch.dtype, C: int, D: int, F: int, aligned: bool,
           backward: bool = False) -> str:
     """The kernels a CUDA call takes, from the dtype, the widths and
     whether every pointer it reads or writes is 16-byte aligned (as
-    ``csrc/moe_gmm.cu`` chooses them): ``"tf32x3"`` (f32), ``"wgmma"``
+    ``csrc/moe_gmm.cu`` takes them): ``"tf32x3"`` (f32), ``"wgmma"``
     (bf16, D and F multiples of 8, aligned, C > 32 or a backward),
-    ``"wgmma_decode"`` (the same at C <= 32) or ``"fma"`` (bf16
+    ``"wgmma_decode"`` (the same at C <= 32) or ``"wgmma_edge"`` (bf16
     otherwise)."""
     if dtype == torch.float32:
         return "tf32x3"
     if D % 8 == 0 and F % 8 == 0 and aligned:
         return "wgmma" if backward or C > 32 else "wgmma_decode"
-    return "fma"
+    return "wgmma_edge"
 
 
 def _aligned(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+def _run(symbol, kind, a, b, out, Z, C, D, F, period):
+    """One launch of a C entry point into ``out`` on the route ``kind``
+    (counted by route only)."""
+    route_launches[kind] += 1
+    launch = _build.kernel_function("moe_gmm", symbol, _ARGTYPES)
+    with _build.on_device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), Z, C, D, F,
+               period, _DTYPE_CODES[a.dtype], int(kind == "wgmma_edge"),
+               stream)
+    return out
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor, period: int) -> torch.Tensor:
-    """One kernel launch on contiguous CUDA tensors (counted by route
+    """One forward launch on contiguous CUDA tensors (counted by route
     only)."""
     Z, C, D = x.shape
     F = w.shape[2]
     out = torch.empty((Z, C, F), dtype=x.dtype, device=x.device)
-    route_launches[route(x.dtype, C, D, F, _aligned(x, w, out))] += 1
-    launch = _build.kernel_function("moe_gmm", "moe_gmm_launch", _ARGTYPES)
-    with _build.on_device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), Z, C, D, F,
-               period, _DTYPE_CODES[x.dtype], stream)
-    return out
-
-
-def _in_place(x, w, g) -> str | None:
-    """The route of the backward kernels that read x, w and g as stored,
-    where they take these tensors (``"tf32x3"`` for f32, ``"wgmma"`` for
-    bf16 of those widths), else None."""
-    kind = route(x.dtype, x.shape[1], x.shape[2], w.shape[2],
-                 _aligned(x, w, g), backward=True)
-    return kind if kind in ("wgmma", "tf32x3") else None
-
-
-def _launch_bwd(symbol, a, b, out, Z, C, D, F, period):
-    """One launch of a backward kernel into ``out`` (uncounted)."""
-    launch = _build.kernel_function("moe_gmm", symbol, _BWD_ARGTYPES)
-    with _build.on_device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), Z, C, D, F,
-               period, _DTYPE_CODES[a.dtype], stream)
-    return out
+    kind = route(x.dtype, C, D, F, _aligned(x, w, out))
+    return _run("moe_gmm_launch", kind, x, w, out, Z, C, D, F, period)
 
 
 def moe_gmm_bwd(x, w, g, period, need_dx=True, need_dw=True):
     """The gradients (dx, dw) of ``moe_gmm(x, w, period)`` for the output
-    gradient g, by two kernel launches on contiguous CUDA tensors (None
-    for a gradient not asked for)."""
+    gradient g, by two kernel launches on contiguous CUDA tensors that
+    read x, w and g as stored (None for a gradient not asked for)."""
     global bwd_launches
     Z, C, D = x.shape
     F = w.shape[2]
+    kind = route(x.dtype, C, D, F, _aligned(x, w, g), backward=True)
     dx = dw = None
-    kind = _in_place(x, w, g)
-    if kind:
-        if need_dx:
-            dx = _launch_bwd("moe_gmm_dx_launch", g, w, torch.empty_like(x),
-                             Z, C, D, F, period)
-            bwd_launches += 1
-            route_launches[kind] += 1
-        if need_dw:
-            dw = _launch_bwd("moe_gmm_dw_launch", x, g, torch.empty_like(w),
-                             Z, C, D, F, period)
-            bwd_launches += 1
-            route_launches[kind] += 1
-        return dx, dw
     if need_dx:
-        dx = _launch(g, w.transpose(1, 2).contiguous(), period)
+        dx = _run("moe_gmm_dx_launch", kind, g, w, torch.empty_like(x), Z,
+                  C, D, F, period)
         bwd_launches += 1
     if need_dw:
-        G = Z // period
-        xt = x.reshape(G, period, C, D).permute(1, 3, 0, 2)
-        gt = g.reshape(G, period, C, F).permute(1, 0, 2, 3)
-        dw = _launch(xt.reshape(period, D, G * C).contiguous(),
-                     gt.reshape(period, G * C, F).contiguous(), period)
+        dw = _run("moe_gmm_dw_launch", kind, x, g, torch.empty_like(w), Z,
+                  C, D, F, period)
         bwd_launches += 1
     return dx, dw
 
@@ -276,7 +252,4 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"moe_gmm runs on cuda or cpu, not {x.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("moe_gmm needs contiguous x and w")
-    if x.shape[0] > _MAX_Z:
-        raise ValueError(f"Z={x.shape[0]} exceeds the kernel's grid limit "
-                         f"{_MAX_Z}")
     return _op(x, w, period)

@@ -28,9 +28,14 @@ alignment, chosen before launch):
   launches as ``"tc"``. It saves the state at every chunk's start and
   the final one, C B^T and B C^T, and y (its backward takes da from
   dy . y and x . dx); two backward runs give the same bits.
-* ``"fma"``: bf16 of other widths or unaligned tensors (on no path): the
-  first design's CUDA-core f32 FMA kernels, in chunks of
-  ``min(chunk, 64)`` rows; one forward launch and two backward launches.
+* ``"tc_edge"``: bf16 of any other N <= 128 and P <= 64, or tensors not
+  16-byte aligned (on no path): the ``"tc"`` kernels, chunks, saved
+  tensors and launches, with the products over N and P rounded up to 16
+  on exact zeros. Where N and P are multiples of 8 and the tensors
+  aligned, TMA's bounds zero the columns past them; elsewhere every thread
+  of a block loads the tiles by ``cp.async`` in the widest pieces the
+  rows allow (element loads for rows only 2-byte aligned), and y, dx, db
+  and dc leave through stores masked at N and P.
 
 A CPU tensor takes the plain version (:func:`ssd_scan_plain`, the oracle
 ``ssd_chunked_ref``) under autograd. A CUDA tensor launches the kernels or
@@ -66,23 +71,22 @@ bwd_launches = 0
 MAX_STATE = 128
 MAX_HEAD_DIM = 64
 MAX_CHUNK = 128                     # the tensor-core route's tile rows
-FMA_CHUNK = 64                      # the FMA route's
 TF32_CHUNK = 64                     # the 3xTF32 route's
 TF32_STATE = 64 * 128               # a 3xTF32 state: h^T padded, floats
 # kernel launches of one forward and one backward call, by route
-LAUNCHES = {"tc": (2, 3), "tf32x3": (2, 3), "fma": (1, 2)}
+LAUNCHES = {"tc": (2, 3), "tc_edge": (2, 3), "tf32x3": (2, 3)}
 route_launches = {kind: 0 for kind in LAUNCHES}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SHAPE = [_I] * 7 + [_P]            # B S H G N P L, stream
 # the C entry points by route: forward and backward, and their arguments
-_ENTRY = {"tc": (("ssd_scan_tc_fwd", [_P] * 8 + _SHAPE),
-                 ("ssd_scan_tc_bwd", [_P] * 13 + _SHAPE)),
+# ("tc_edge" runs the "tc" kernels, which take any width and alignment)
+_TC = (("ssd_scan_tc_fwd", [_P] * 8 + _SHAPE),
+       ("ssd_scan_tc_bwd", [_P] * 13 + _SHAPE))
+_ENTRY = {"tc": _TC, "tc_edge": _TC,
           "tf32x3": (("ssd_scan_tf32_fwd", [_P] * 8 + _SHAPE),
-                     ("ssd_scan_tf32_bwd", [_P] * 14 + _SHAPE)),
-          "fma": (("ssd_scan_fwd", [_P] * 7 + _SHAPE),
-                  ("ssd_scan_bwd", [_P] * 12 + _SHAPE))}
+                     ("ssd_scan_tf32_bwd", [_P] * 14 + _SHAPE))}
 
 
 def _check(x, a, b, c):
@@ -110,12 +114,12 @@ def kernel_chunk(chunk: int) -> int:
     return min(chunk, MAX_CHUNK)
 
 
-def route(x, b) -> str:
+def route(x, b, c=None) -> str:
     """The kernels a CUDA call takes: ``"tf32x3"`` for f32 (any width),
     ``"tc"`` for bf16 with N and P multiples of 16 and 16-byte aligned
-    tensors, else ``"fma"``. A meta tensor counts as aligned where its
-    offset into its storage is, as every block of the CUDA allocator
-    is."""
+    tensors (x, b and, where given, c), else ``"tc_edge"``. A meta tensor
+    counts as aligned where its offset into its storage is, as every block
+    of the CUDA allocator is."""
     def aligned(t):
         if t.device.type == "cuda":
             return t.data_ptr() % 16 == 0
@@ -123,15 +127,15 @@ def route(x, b) -> str:
     if x.dtype == torch.float32:
         return "tf32x3"
     N, P = b.shape[3], x.shape[3]
-    return "tc" if (N % 16 == 0 and P % 16 == 0 and aligned(x)
-                    and aligned(b)) else "fma"
+    tiles = N % 16 == 0 and P % 16 == 0
+    return "tc" if tiles and all(aligned(t) for t in (x, b, c)
+                                 if t is not None) else "tc_edge"
 
 
 def kernel_rows(chunk: int, kind: str) -> int:
     """The rows of one chunk in the kernels of route ``kind``."""
     L = kernel_chunk(chunk)
-    return {"tc": L, "tf32x3": min(L, TF32_CHUNK),
-            "fma": min(L, FMA_CHUNK)}[kind]
+    return min(L, TF32_CHUNK) if kind == "tf32x3" else L
 
 
 def ssd_scan_plain(x, a, b, c, chunk: int = 128):
@@ -153,7 +157,7 @@ def _shape_args(x, b, L):
 def _fwd_outputs(x, b, chunk: int, keep: bool):
     """What the forward allocates: y, the final state, the chunk states
     (0 rows unless ``keep``) and C B^T of every chunk and group (with B
-    C^T on the 3xTF32 route; 0 rows on the FMA route)."""
+    C^T on the 3xTF32 route); the bf16 routes allocate alike."""
     kind = route(x, b)
     L = kernel_rows(chunk, kind)
     B, S, H, P = x.shape
@@ -163,48 +167,40 @@ def _fwd_outputs(x, b, chunk: int, keep: bool):
     y = torch.empty_like(x)
     hT = torch.empty((B, H, N, P), **f32)
     # the tensor-core kernels keep each state as a zero-padded tile in
-    # their fragment order: 128 x 64 (h) on "tc", 64 x 128 (h^T) on
+    # their fragment order: 128 x 64 (h) in bf16, 64 x 128 (h^T) on
     # "tf32x3", whose states end with the final one
     Bk = B if keep else 0
-    if kind == "tc":
-        states = torch.empty((Bk, H, nc, MAX_STATE * MAX_HEAD_DIM), **f32)
-        cb = torch.empty((B, nc, G, MAX_CHUNK, MAX_CHUNK), **f32)
-    elif kind == "tf32x3":
+    if kind == "tf32x3":
         states = torch.empty((Bk, H, nc + 1, TF32_STATE), **f32)
         cb = torch.empty((B, nc, G, 2, TF32_CHUNK, TF32_CHUNK), **f32)
     else:
-        states = torch.empty((Bk, H, nc, N, P), **f32)
-        cb = torch.empty((0, nc, G, MAX_CHUNK, MAX_CHUNK), **f32)
+        states = torch.empty((Bk, H, nc, MAX_STATE * MAX_HEAD_DIM), **f32)
+        cb = torch.empty((B, nc, G, MAX_CHUNK, MAX_CHUNK), **f32)
     return y, hT, states, cb
 
 
 def ssd_scan_fwd(x, a, b, c, chunk: int, keep: bool):
     """The forward kernels on contiguous CUDA tensors, at the rows of
-    ``kernel_rows(chunk, route(x, b))``: (y, final state, saved), saved
+    ``kernel_rows(chunk, route(x, b, c))``: (y, final state, saved), saved
     being what the backward reads (None unless ``keep``): the state at
-    each chunk's start, f32, C B^T of every chunk and group on the
-    tensor-core routes (with B C^T on "tf32x3"), and y on "tf32x3". The
-    FMA route keeps the states as (B, H, nc, N, P); the tensor-core
-    routes keep them, and C B^T, in their kernels' own fragment order (see
-    the CUDA source)."""
+    each chunk's start, f32, C B^T of every chunk and group (with B C^T on
+    "tf32x3"), and y on "tf32x3", the states and C B^T in the kernels'
+    own fragment order (see the CUDA source)."""
     y, hT, states, cb = _fwd(x, a, b, c, chunk, keep)
     if not keep:
         return y, hT, None
-    return y, hT, (states, cb if cb.numel() else None,
-                   y if route(x, b) == "tf32x3" else None)
+    return y, hT, (states, cb, y if route(x, b) == "tf32x3" else None)
 
 
 def _fwd(x, a, b, c, chunk: int, keep: bool):
     """The launches of :func:`ssd_scan_fwd`, returning everything
     :func:`_fwd_outputs` allocated."""
     global fwd_launches
-    kind = route(x, b)
+    kind = route(x, b, c)
     L = kernel_rows(chunk, kind)
     y, hT, states, cb = _fwd_outputs(x, b, chunk, keep)
     ptrs = [t.data_ptr() for t in (x, a, b, c, y, hT)]
-    ptrs.append(states.data_ptr() if keep else None)
-    if kind != "fma":
-        ptrs.append(cb.data_ptr())
+    ptrs += [states.data_ptr() if keep else None, cb.data_ptr()]
     launch = _build.kernel_function("ssd_scan", *_ENTRY[kind][0])
     with _build.on_device(x.device):
         launch(*ptrs, *_shape_args(x, b, L))
@@ -229,15 +225,13 @@ def _bwd_outputs(x, a, b, c, states):
 
 def _bwd(x, a, b, c, states, cb, y, dy, dhT, chunk):
     global bwd_launches
-    kind = route(x, b)
+    kind = route(x, b, c)
     L = kernel_rows(chunk, kind)
     dx, da, db, dc, dstates = _bwd_outputs(x, a, b, c, states)
     ptrs = [t.data_ptr() for t in (x, a, b, c)]
     if kind == "tf32x3":
         ptrs.append(y.data_ptr())
-    ptrs.append(states.data_ptr())
-    if kind != "fma":
-        ptrs.append(cb.data_ptr())
+    ptrs += [states.data_ptr(), cb.data_ptr()]
     ptrs += [dy.data_ptr(), None if dhT is None else dhT.data_ptr()]
     ptrs += [t.data_ptr() for t in (dstates, dx, da, db, dc)]
     launch = _build.kernel_function("ssd_scan", *_ENTRY[kind][1])
@@ -274,8 +268,7 @@ def _bwd_op(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             y: Optional[torch.Tensor] = None
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                        torch.Tensor, torch.Tensor]:
-    return _bwd(x, a, b, c, states, cb if cb.numel() else None, y, dy, dhT,
-                chunk)
+    return _bwd(x, a, b, c, states, cb, y, dy, dhT, chunk)
 
 
 @_bwd_op.register_fake
@@ -317,13 +310,10 @@ def ssd_flops(B, S, H, P, G, N, L) -> tuple[int, int]:
             per * (2 * tri * (2 * P + 2 * N) + 8 * L * N * P))
 
 
-def _op_flops(x, b, chunk, backward: bool, x_dtype, aligned=True):
+def _op_flops(x, b, chunk, backward: bool, x_dtype):
     B, S, H, P = x
     G, N = b[2], b[3]
-    if x_dtype == torch.float32:
-        kind = "tf32x3"
-    else:
-        kind = "tc" if N % 16 == 0 and P % 16 == 0 and aligned else "fma"
+    kind = "tf32x3" if x_dtype == torch.float32 else "tc"   # bf16: 128 rows
     return ssd_flops(B, S, H, P, G, N, kernel_rows(chunk, kind))[backward]
 
 

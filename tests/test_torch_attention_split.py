@@ -62,7 +62,7 @@ def _seen(Sq, Skv, causal, window, off):
     return hi > lo
 
 
-@settings(max_examples=25, deadline=None)
+@settings(max_examples=25, deadline=None, derandomize=True)
 @given(B=st.integers(1, 2), Sq=st.integers(1, 24), L=st.integers(1, 8),
        n=st.integers(1, 5), Hkv=st.integers(1, 3), group=st.integers(1, 3),
        D=st.sampled_from([8, 16]), causal=st.sampled_from([True, False]),
@@ -82,7 +82,8 @@ def test_block_merge_equals_whole_attention(B, Sq, L, n, Hkv, group, D,
     assert np.isneginf(lse.numpy()[..., ~seen]).all()
     assert (out.numpy()[:, ~seen] == 0).all()
     np.testing.assert_allclose(lse.numpy()[..., seen],
-                               want_lse.numpy()[..., seen], rtol=1e-5)
+                               want_lse.numpy()[..., seen], rtol=1e-5,
+                               atol=1e-5)
     # the whole lse is the logsumexp of the visible scores
     s = np.einsum("bqhd,bkhd->bhqk", qn, np.repeat(kn, group, axis=2)) \
         * D ** -0.5
@@ -105,7 +106,7 @@ def test_block_merge_equals_whole_attention(B, Sq, L, n, Hkv, group, D,
                                    rtol=OUT_TOL, atol=OUT_TOL)
 
 
-@settings(max_examples=15, deadline=None)
+@settings(max_examples=15, deadline=None, derandomize=True)
 @given(Sq=st.integers(1, 20), L=st.integers(1, 6), n=st.integers(2, 4),
        Hkv=st.integers(1, 2), group=st.integers(1, 3),
        causal=st.sampled_from([True, False]),

@@ -198,13 +198,24 @@ def test_moe_gmm_forward_kernel_on_card(dtype):
                                rtol=tol, atol=tol)
 
 
-def _gmm_inputs(Z, C, D, F, P, dtype, seed=0):
+def _offset(t, off):
+    """t's values in a contiguous tensor whose data starts ``off``
+    elements into its storage (off 0: t itself)."""
+    if not off:
+        return t
+    flat = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    view = flat[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _gmm_inputs(Z, C, D, F, P, dtype, seed=0, off=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((Z, C, D), generator=g, device="cuda").to(dtype)
     w = (torch.randn((P, D, F), generator=g, device="cuda") / D ** 0.5
          ).to(dtype)
     gy = torch.randn((Z, C, F), generator=g, device="cuda").to(dtype)
-    return x, w, gy
+    return tuple(_offset(t, off) for t in (x, w, gy))
 
 
 @pytest.mark.cuda
@@ -256,6 +267,7 @@ def test_moe_gmm_forward_tile_edges_on_card(dtype, C):
     (4, 33, 64, 36, 2),
     (2, 129, 128, 132, 1),
     (3, 33, 50, 70, 3),            # rows not whole 16-byte chunks
+    (4, 100, 51, 77, 2),           # rows only 2-byte aligned
 ])
 def test_moe_gmm_backward_shapes_on_card(dtype, Z, C, D, F, P):
     """dx and dw against the plain version's autograd; two launches."""
@@ -285,25 +297,77 @@ def test_moe_gmm_backward_repeats_bits(dtype):
         assert torch.equal(a, b)
 
 
+# bf16 calls of the edge route ("wgmma_edge"): rows in 4-byte pieces (D
+# 50, F 70), rows only 2-byte aligned (D 51, F 77), the training shapes'
+# odd widths at a small C (x rows in 8-byte pieces, w rows in 4-byte
+# ones, and the reverse), C at and around the 128-row tile and below the
+# decode route's 32, and aligned widths with every tensor one element off
+# 16-byte alignment (2-byte pieces); a second tile of the odd train
+# widths at C 132 and 260, and 2-byte rows in x alone (F 80) or w alone
+# (D 56)
+GMM_EDGE = [
+    (3, 33, 50, 70, 3, 0),
+    (4, 100, 51, 77, 2, 0),
+    (4, 130, 1020, 510, 2, 0),
+    (4, 130, 510, 1020, 2, 0),
+    (4, 128, 264, 136, 2, 1),
+    (4, 129, 51, 77, 4, 0),
+    (6, 8, 51, 77, 3, 0),
+    (4, 100, 264, 200, 2, 1),
+    (4, 132, 1020, 510, 2, 0),
+    (4, 260, 510, 1020, 2, 0),
+    (4, 96, 51, 80, 2, 0),
+    (4, 96, 56, 77, 2, 0),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_moe_gmm_backward_makes_no_copy(dtype):
-    """A backward of aligned widths reads x, w and g as stored: the
-    profiler sees the two moe_gmm kernels and no other kernel."""
+@pytest.mark.parametrize("Z,C,D,F,P,off", GMM_EDGE)
+def test_moe_gmm_edge_route_on_card(Z, C, D, F, P, off):
+    """The edge route forward and backward against the plain version (one
+    forward and two backward launches, all on "wgmma_edge"); two backward
+    runs give the same bits."""
+    _card()
+    x, w, gy = _gmm_inputs(Z, C, D, F, P, torch.bfloat16, off=off)
+    assert gmm_mod.route(x.dtype, C, D, F, off == 0) == "wgmma_edge"
+    routed = gmm_mod.route_launches["wgmma_edge"]
+    got = gmm_mod.moe_gmm(x, w, P)
+    dx, dw = gmm_mod.moe_gmm_bwd(x, w, gy, P)
+    assert gmm_mod.route_launches["wgmma_edge"] == routed + 3
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    want = gmm_mod.moe_gmm_plain(xr, wr, P)
+    dwant = torch.autograd.grad(want, (xr, wr), gy)
+    for a, b in zip((got, dx, dw), (want.detach(),) + dwant):
+        torch.testing.assert_close(a.float(), b.float(), rtol=3e-2,
+                                   atol=3e-2)
+    for a, b in zip(gmm_mod.moe_gmm_bwd(x, w, gy, P), (dx, dw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (4, 100, 264, 200, 2)),
+    (torch.bfloat16, (4, 100, 264, 200, 2)),
+    (torch.bfloat16, (4, 130, 1020, 510, 2)),      # the edge route
+])
+def test_moe_gmm_backward_makes_no_copy(dtype, shape):
+    """A backward reads x, w and g as stored, at aligned and odd widths:
+    the profiler sees the two moe_gmm kernels and no other kernel."""
     from torch.profiler import ProfilerActivity, profile
     _card()
-    x, w, gy = _gmm_inputs(4, 100, 264, 200, 2, dtype)
-    gmm_mod.moe_gmm_bwd(x, w, gy, 2)        # build and load outside
+    x, w, gy = _gmm_inputs(*shape, dtype)
+    P = shape[4]
+    gmm_mod.moe_gmm_bwd(x, w, gy, P)        # build and load outside
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        gmm_mod.moe_gmm_bwd(x, w, gy, 2)
+        gmm_mod.moe_gmm_bwd(x, w, gy, P)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(names) == 2 and all("moe_gmm" in n for n in names), names
 
 
-def _ssd_inputs(B, S, H, P, G, N, dtype, a_scale=0.3, seed=0):
+def _ssd_inputs(B, S, H, P, G, N, dtype, a_scale=0.3, seed=0, off=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn((B, S, H, P), generator=g, device="cuda") * 0.5
          ).to(dtype)
@@ -312,7 +376,7 @@ def _ssd_inputs(B, S, H, P, G, N, dtype, a_scale=0.3, seed=0):
          ).to(dtype)
     c = (torch.randn((B, S, G, N), generator=g, device="cuda") * 0.3
          ).to(dtype)
-    return x, a, b, c
+    return tuple(_offset(t, off) for t in (x, a, b, c))
 
 
 @pytest.mark.cuda
@@ -328,6 +392,13 @@ def _ssd_inputs(B, S, H, P, G, N, dtype, a_scale=0.3, seed=0):
     (128, 4, 64, 1, 128, 128),
     (129, 4, 64, 1, 128, 128),
     (512, 8, 64, 2, 128, 128),
+    # bf16's "tc_edge": N and P multiples of 8 (TMA's bounds zero the
+    # padding), rows in 4- and 8-byte pieces (P 50, N 100), rows only
+    # 2-byte aligned (P 49, N 77) at a partial last chunk and two groups
+    (300, 4, 56, 1, 120, 128),
+    (260, 4, 50, 1, 100, 128),
+    (300, 4, 49, 2, 77, 128),
+    (130, 3, 24, 3, 40, 32),
 ])
 def test_ssd_scan_kernel_on_card(dtype, S, H, P, G, N, chunk):
     """Forward and backward kernels against the plain version's autograd
@@ -341,7 +412,7 @@ def test_ssd_scan_kernel_on_card(dtype, S, H, P, G, N, chunk):
     ts = [t.clone().requires_grad_() for t in (x, a, b, c)]
     kind = ssd_mod.route(x, b)
     assert kind == ("tf32x3" if dtype == torch.float32 else
-                    "tc" if N % 16 == 0 and P % 16 == 0 else "fma")
+                    "tc" if N % 16 == 0 and P % 16 == 0 else "tc_edge")
     before = (ssd_mod.fwd_launches, ssd_mod.bwd_launches)
     routed = ssd_mod.route_launches[kind]
     y, h = ops.ssd_scan(*ts, chunk=chunk)
@@ -384,6 +455,40 @@ def test_ssd_scan_backward_repeats_bits(dtype):
     second = ssd_mod.ssd_scan_bwd(x, a, b, c, saved, gy, gh, 128)
     for u, v in zip(first, second):
         assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,N,off", [(64, 128, 1), (50, 100, 1),
+                                     (56, 120, 0)])
+def test_ssd_scan_edge_route_on_card(P, N, off):
+    """bf16 "tc_edge" with every input ``off`` elements into its storage
+    (2-byte pieces), or at N and P off a multiple of 16: forward and
+    backward against the plain version, two forward and three backward
+    launches, and two backward runs give the same bits."""
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    _card()
+    x, a, b, c = _ssd_inputs(2, 300, 4, P, 1, N, torch.bfloat16, off=off)
+    assert ssd_mod.route(x, b, c) == "tc_edge"
+    g = torch.Generator(device="cuda").manual_seed(3)
+    gy = _offset(torch.randn((2, 300, 4, P), generator=g,
+                             device="cuda").to(torch.bfloat16), off)
+    gh = torch.randn((2, 4, N, P), generator=g, device="cuda")
+    routed = ssd_mod.route_launches["tc_edge"]
+    y, h, saved = ssd_mod.ssd_scan_fwd(x, a, b, c, 128, True)
+    got = ssd_mod.ssd_scan_bwd(x, a, b, c, saved, gy, gh, 128)
+    assert ssd_mod.route_launches["tc_edge"] == routed + 5
+    again = ssd_mod.ssd_scan_bwd(x, a, b, c, saved, gy, gh, 128)
+    for u, v in zip(got, again):
+        assert torch.equal(u, v)
+    rs = [t.float().requires_grad_() for t in (x, a, b, c)]
+    ry, rh = ssd_mod.ssd_scan_plain(*rs, chunk=128)
+    want = torch.autograd.grad((ry * gy.float()).sum() + (rh * gh).sum(), rs)
+    torch.testing.assert_close(y.float(), ry, rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(h, rh, rtol=3e-2, atol=3e-2)
+    for a_, b_ in zip(got, want):
+        scale = max(float(b_.abs().max()), 1.0)
+        torch.testing.assert_close(a_.float(), b_, rtol=3e-2,
+                                   atol=3e-2 * scale)
 
 
 @pytest.mark.cuda

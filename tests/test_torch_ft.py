@@ -180,6 +180,27 @@ def test_elastic_phase_stub_run_is_the_schedule():
     assert [p[1] for p in got["plans"]] == [(2, 8), (2, 8)]
 
 
+@pytest.mark.parametrize("slow", [0, 5, 6])
+def test_elastic_stub_run_on_measured_times(slow):
+    """Check (a) of [elastic] on the card feeds the stub run the measured
+    step times: one step three times slower moves the straggler's flagging
+    (step 8 for a slow first step or replay, step 5 for a slow step 5),
+    JAX's Supervisor moves it the same, and the event kinds and executed
+    steps stay the unit-time run's."""
+    times = [0.66] * 12
+    times[slow] = 2.0
+    got = chip_smoke.elastic_stub_run(Supervisor, topology, times=times)
+    js = chip_smoke.elastic_stub_run(JSupervisor, jtopology, times=times)
+    unit = chip_smoke.elastic_stub_run(Supervisor, topology)
+    assert got["events"] == js["events"]
+    flagged = [s for s, e in got["events"] if e.startswith("stragglers=")]
+    assert flagged == [{0: 8, 5: 5, 6: 8}[slow]]
+    assert sorted(e for _, e in got["events"]) == sorted(
+        e for _, e in unit["events"])
+    assert got["executed"] == unit["executed"]
+    assert got["plans"] == unit["plans"] and got["final"] == unit["final"]
+
+
 def test_evicted_straggler_stops_beating_and_goes_missing():
     """The example's schedule: host 3 is flagged, evicted with a remesh,
     and its beats stop, so the monitor reports it missing, as JAX's."""

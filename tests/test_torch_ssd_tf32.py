@@ -236,7 +236,9 @@ def test_route_rows_and_launches():
     assert ssd_mod.kernel_rows(128, "tf32x3") == 64
     assert ssd_mod.kernel_rows(16, "tf32x3") == 16
     assert ssd_mod.kernel_rows(128, "tc") == 128
+    assert ssd_mod.kernel_rows(128, "tc_edge") == 128
     assert ssd_mod.LAUNCHES["tf32x3"] == (2, 3)
+    assert ssd_mod.LAUNCHES["tc_edge"] == ssd_mod.LAUNCHES["tc"] == (2, 3)
     assert set(ssd_mod.route_launches) == set(ssd_mod.LAUNCHES)
 
 
@@ -260,7 +262,8 @@ def test_every_f32_scan_takes_3xtf32():
     """mamba2 and jamba at full and reduced width, every chip_smoke.py
     SSD case and the card tests' shapes, aligned and not: f32 takes the
     3xTF32 kernels; bf16 keeps "tc" where N and P are multiples of 16 and
-    the tensors aligned, else "fma"."""
+    the tensors aligned, else "tc_edge" (the same kernels with the edge
+    loads and masked stores)."""
     shapes = {(P, G, N) for P, G, N, _ in _ssd_path_shapes()}
     assert (64, 1, 128) in shapes and (16, 1, 16) in shapes
     shapes |= {(case[4], case[5], case[6]) for case in chip_smoke.SSD_CASES}
@@ -273,4 +276,4 @@ def test_every_f32_scan_takes_3xtf32():
             assert ssd_mod.route(x, b) == "tf32x3"
             x, b = _tensors(8, 2 * G, P, G, N, torch.bfloat16, offset)
             tiles = N % 16 == 0 and P % 16 == 0 and offset == 0
-            assert ssd_mod.route(x, b) == ("tc" if tiles else "fma")
+            assert ssd_mod.route(x, b) == ("tc" if tiles else "tc_edge")

@@ -256,7 +256,8 @@ def test_every_f32_moe_gmm_takes_3xtf32():
     """Each MoE arch's expert products (d_model x moe_d_ff and back), full
     width and reduced, forward and backward, every chip_smoke.py moe_gmm
     case, and widths that are not whole 16-byte chunks or unaligned
-    pointers take 3xTF32 in f32; only bf16 keeps FMA tiles for those."""
+    pointers take 3xTF32 in f32; bf16 takes the edge loads of the wgmma
+    route for those, forward and backward, at any C."""
     shapes = {(cfg.d_model, cfg.moe_d_ff) for cfg in _path_configs()
               if cfg.moe_num_experts}
     assert (64, 32) in shapes and (1024, 512) in shapes
@@ -273,8 +274,14 @@ def test_every_f32_moe_gmm_takes_3xtf32():
     assert gmm_mod.route(torch.bfloat16, 32, 48, 72, True) == "wgmma_decode"
     assert gmm_mod.route(torch.bfloat16, 32, 48, 72, True,
                          backward=True) == "wgmma"
-    assert gmm_mod.route(torch.bfloat16, 64, 44, 72, True) == "fma"
-    assert gmm_mod.route(torch.bfloat16, 64, 48, 72, False) == "fma"
+    assert gmm_mod.route(torch.bfloat16, 64, 44, 72, True) == "wgmma_edge"
+    assert gmm_mod.route(torch.bfloat16, 64, 48, 72, False) == "wgmma_edge"
+    for C in (1, 32, 1280):
+        for backward in (False, True):
+            assert gmm_mod.route(torch.bfloat16, C, 1020, 510, True,
+                                 backward) == "wgmma_edge"
+            assert gmm_mod.route(torch.bfloat16, C, 1024, 512, False,
+                                 backward) == "wgmma_edge"
 
 
 def test_f32_order_alone_misses_moe_gmm_tolerance_at_dw_depth():
