@@ -156,7 +156,20 @@ imports nothing of JAX or of the JAX package. It
     record beside its measured ms/step (no floor may exceed it), and of
     qwen3-14b's and llama4-scout's ``prefill_32k`` at mesh (16, 16),
     whose records one dry-run process makes on the host;
-20. prints the ``kernels`` JSON line (the [mesh] and [elastic] runs'
+20. [sim], after the kernel phases: the NANOS simulator's kernel
+    (``csrc/sim.cu``, one thread a cell): its replicas of numpy's
+    MT19937 and shuffle and of CPython's set against the originals,
+    ``tests/data/sim_golden.json``'s 25 keys exactly (again in forced
+    waves and at the other number of cells a warp), then the paper's
+    figure grid on sunfire_x4600 at full width as one batch (fft and
+    sort at 2^15 with cutoff 4, strassen medium; bf/cilk/wf in the
+    baseline and NUMA contexts and dfwspt/dfwsrpt/dfwshier in NUMA at
+    2-16 threads, 32 seeds; a straggler and a preempt grid of all six at
+    16 threads, 4 seeds; 5328 cells, launches counted), 8 of its cells
+    bit for bit against the plain version on the host, the grid's kernel
+    time, cells/s, events/s, waves and peak memory, the paper's claims
+    on its means, and the grid again at 1, 4, 8 and 32 cells a warp;
+21. prints the ``kernels`` JSON line (the [mesh] and [elastic] runs'
     launches included) and, last, the device JSON line.
 
 Any failure raises and exits non-zero before the last line is printed.
@@ -417,6 +430,47 @@ LOGIT_REL_L2_TOL = 0.15
 ELASTIC = dict(num_hosts=4, checkpoint_every=4, topology=(2, 4, 4),
                mesh_shape=(4, 8), model_axis_size=8, failure={6: [5, 6]},
                straggler=3, straggler_from=5, slowdown=3.0)
+
+
+# [sim]: the NANOS simulator's figure grid on sunfire_x4600, as
+# benchmarks/bots_repro.py runs it: fft(2^15, cutoff 4), sort(2^15,
+# cutoff 4) and strassen medium, SIM_SEEDS Monte-Carlo seeds a cell, the
+# thread axis, baseline Nanos ("base": linear binding, spill:K@0, runtime
+# data on node 0, migration 0.15) vs the paper's NUMA model ("numa":
+# priority binding, spill:K); bf/cilk/wf in both contexts, the study's
+# dfwspt/dfwsrpt/dfwshier (with wf) in "numa"; and one straggler and one
+# preempt grid of all six schedulers at 16 threads, SIM_FAULT_SEEDS
+# seeds. All of it one batch: one launch of the kernel (or a few waves).
+SIM_WORKLOADS = ("fft", "sort", "strassen")
+SIM_SPILL = {"fft": 2, "sort": 3, "strassen": 2}   # bots_repro.SPILL
+SIM_MIGRATION = 0.15
+SIM_THREADS = (2, 4, 6, 8, 12, 16)
+SIM_SEEDS, SIM_FAULT_SEEDS = 32, 4
+SIM_ALLOC = ("bf", "cilk", "wf")
+SIM_STUDY = ("dfwspt", "dfwsrpt", "dfwshier")
+SIM_FAULTS = ("straggler:0.5", "preempt:2")
+# the grid's cells held bit for bit against the plain version on the
+# host: every scheduler, both contexts, both fault kinds
+# (workload, scheduler, context, threads, seed, faults)
+SIM_HELD = (("fft", "bf", "base", 16, 0, "none"),
+            ("sort", "cilk", "numa", 8, 1, "none"),
+            ("strassen", "wf", "base", 12, 2, "none"),
+            ("fft", "dfwspt", "numa", 16, 3, "none"),
+            ("sort", "dfwsrpt", "numa", 6, 4, "none"),
+            ("strassen", "dfwshier", "numa", 16, 5, "none"),
+            ("fft", "wf", "numa", 16, 1, "straggler:0.5"),
+            ("strassen", "cilk", "numa", 16, 2, "preempt:2"))
+# double operations an event costs at most (the penalty, cost and time
+# updates), at the H100's FP64 rate outside the tensor cores (data sheet)
+SIM_OPS_PER_STEP = 24
+FP64_FLOPS = 34e12
+# the launch shape the golden keys run once more at (cells a warp; every
+# lane a cell), against kernels/sim.py's CELLS_PER_WARP: the same bits
+SIM_GOLDEN_CELLS_A_WARP = 32
+# bytes a cell must write once besides the batch's distinct inputs (read
+# once, whatever number of cells share them): its per-task state
+# (pending and exec_node int32, phase uint8) and its 13 outputs
+SIM_STATE_BYTES, SIM_OUT_BYTES = 9, 8 * 13
 
 
 def elastic_times(step: int, t: float, sched: dict = ELASTIC) -> list[float]:
@@ -3123,7 +3177,9 @@ def examples_phase() -> dict:
     elastic_failover's events equal the stub run of its schedule;
     train_lm's phase 2 resumes from phase 1's checkpoint (under TMPDIR)
     and ends on a finite loss; serve_batch prints three architectures'
-    prefill and decode; quickstart's stealing lowers the drop fraction.
+    prefill and decode; quickstart's NUMA-aware context beats the
+    baseline in its simulator steps and its stealing lowers the drop
+    fraction.
     Returns each example's seconds."""
     import contextlib
     import tempfile
@@ -3166,13 +3222,16 @@ def examples_phase() -> dict:
                              "three architectures")
     got, _ = run("quickstart", quickstart.main, [])
     if not got["drop_stealing"] < got["drop_vanilla"] \
-            or not math.isfinite(got["loss"]):
+            or not math.isfinite(got["loss"]) \
+            or not got["sim"]["numa"] > got["sim"]["baseline"]:
         raise AssertionError(f"[examples] quickstart: {got}")
     log(f"[examples] elastic_failover events equal the stub run's "
         f"({len(events)} events, {len(losses)} executed steps, loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}); train_lm resumed at step "
         f"20, final loss {loss:.4f}; serve_batch served "
-        f"{', '.join(serve_batch.ARCHS)}; quickstart drop "
+        f"{', '.join(serve_batch.ARCHS)}; quickstart FFT@16 speedup "
+        f"{got['sim']['baseline']:.2f}x -> {got['sim']['numa']:.2f}x "
+        f"NUMA-aware (simulator kernel), drop "
         f"{got['drop_vanilla']:.4f} -> {got['drop_stealing']:.4f} with "
         f"stealing, loss {got['loss']:.4f}; seconds "
         + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
@@ -3454,6 +3513,291 @@ def mesh_phase(gmm, fa, rms) -> dict:
         dist.destroy_process_group()
 
 
+def sim_workloads() -> dict:
+    from repro_torch.core.sim import bots
+    return {"fft": bots.fft(n=1 << 15, cutoff=4),
+            "sort": bots.sort(n=1 << 15, cutoff=4),
+            "strassen": bots.make("strassen", "medium")}
+
+
+def sim_variants(k: int) -> dict:
+    """bots_repro.variants_k: baseline Nanos vs the paper's NUMA model."""
+    return {"base": dict(binding="linear", placement=f"spill:{k}@0",
+                         runtime_data=0, migration_rate=SIM_MIGRATION),
+            "numa": dict(binding="paper", placement=f"spill:{k}")}
+
+
+def sim_grid(machine, wls: dict):
+    """The [sim] figure grid (SIM_* above) as one Grid: each workload's
+    three Machine.grid calls (its spill differs) fused by Grid.concat."""
+    from repro_torch.core.sim import Grid
+    grids = []
+    for name in SIM_WORKLOADS:
+        wl, k = {name: wls[name]}, SIM_SPILL[name]
+        v = sim_variants(k)
+        serial = {name: machine.serial_time(wls[name],
+                                            placement=f"spill:{k}@0")}
+        grids.append(machine.grid(
+            workloads=wl, schedulers=SIM_ALLOC, threads=SIM_THREADS,
+            contexts=v, seeds=SIM_SEEDS, serial_reference=serial))
+        grids.append(machine.grid(
+            workloads=wl, schedulers=SIM_STUDY, threads=SIM_THREADS,
+            contexts={"numa": v["numa"]}, seeds=SIM_SEEDS,
+            serial_reference=serial))
+        grids.append(machine.grid(
+            workloads=wl, schedulers=SIM_ALLOC + SIM_STUDY, threads=16,
+            contexts={"numa": v["numa"]}, seeds=SIM_FAULT_SEEDS,
+            faults=SIM_FAULTS, serial_reference=serial))
+    return Grid.concat(grids)
+
+
+def sim_bound(input_bytes: int, ctx_cells) -> tuple:
+    """(bound ms, what bounds it) of a batch whose distinct inputs (the
+    packed tables, plans and parameters: ``kernels.sim.last_run``'s
+    ``input_bytes``) are read once, and whose cells, given as (tasks,
+    steps), each write their task state and outputs once (bytes) and do
+    at most SIM_OPS_PER_STEP double operations an event."""
+    nbytes = input_bytes + sum(SIM_STATE_BYTES * n + SIM_OUT_BYTES
+                               for n, _ in ctx_cells)
+    ops = sum(SIM_OPS_PER_STEP * steps for _, steps in ctx_cells)
+    return roof(nbytes, ops, FP64_FLOPS)
+
+
+def sim_same(what: str, got, want) -> None:
+    """Raise unless two SimResults agree in every metric and aggregate."""
+    fields = ("makespan", "serial_time", "speedup", "tasks", "steals",
+              "failed_probes", "remote_work_fraction", "queue_wait",
+              "reclaimed", "reexec", "fault_lost", "steal_hops",
+              "node_tasks", "node_remote")
+    bad = [f for f in fields if getattr(got, f) != getattr(want, f)]
+    if bad:
+        raise AssertionError(f"[sim] {what}: {bad} differ: "
+                             + "; ".join(f"{f} {getattr(got, f)!r} vs "
+                                         f"{getattr(want, f)!r}"
+                                         for f in bad))
+
+
+def sim_selftests(sim) -> None:
+    """The kernel's replicas on the card against numpy's RandomState
+    (raw draws and shuffles) and CPython's set (add/pop sequences)."""
+    import random
+
+    import numpy as np
+    for seed in (0, 7, 12345):
+        got = sim.mt_selftest(seed, 3000, "cuda")
+        want = np.random.RandomState(seed).randint(0, 2 ** 32, size=3000,
+                                                   dtype=np.uint32)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"[sim] MT19937 seed {seed} differs")
+    for n in (2, 5, 15):
+        got = sim.shuffle_selftest(3, n, 300, "cuda")
+        rng = np.random.RandomState(3)
+        for r in range(300):
+            g = list(range(n))
+            rng.shuffle(g)
+            if list(got[r]) != g:
+                raise AssertionError(f"[sim] shuffle n {n} rep {r} differs")
+    rnd = random.Random(123)
+    for case in range(150):
+        T = rnd.choice([2, 3, 8, 16, 64, 300])
+        ops, want, live = [], [], set()
+        for _ in range(rnd.randrange(5, 300)):
+            if live and rnd.random() < 0.45:
+                ops.append(-1)
+                want.append(live.pop())
+            else:
+                v = rnd.randrange(T)
+                ops.append(v)
+                live.add(v)
+        if sim.set_selftest(ops, T, "cuda") != want:
+            raise AssertionError(f"[sim] set case {case} (T {T}) differs")
+    log("[sim] self-tests on the card: MT19937 (3 seeds x 3000 draws) "
+        "equal to numpy's RandomState, shuffles (n 2, 5, 15 x 300) equal "
+        "to RandomState.shuffle, 150 add/pop sequences equal to CPython's "
+        "set")
+
+
+def sim_golden(sim) -> None:
+    """tests/data/sim_golden.json's 25 keys through the kernel: every
+    recorded metric exactly; once more in waves of a few cells each, and
+    with one cell a warp, the same bits."""
+    from repro_torch.core import placement, topology
+    from repro_torch.core.sim import SweepPlan, bots
+    gold = json.loads((Path(__file__).resolve().parent / "tests" / "data"
+                       / "sim_golden.json").read_text())
+    topos = {"sunfire": topology.sunfire_x4600(),
+             "tpu2x4": topology.tpu_pod_2d(2, 4)}
+    wls = {"fft_small": bots.fft(n=1 << 10, cutoff=8),
+           "sparselu_small": bots.sparselu(n=8)}
+    plan, keys = SweepPlan(), []
+    for tn, topo in topos.items():
+        for wn, wl in wls.items():
+            for sched in ("bf", "cilk", "wf", "dfwspt", "dfwsrpt",
+                          "dfwshier"):
+                plan.add(topo, list(range(8)), wl, sched, seed=7)
+                keys.append(f"{tn}/{wn}/{sched}")
+    sf = topos["sunfire"]
+    plan.add(sf, list(range(16)), wls["fft_small"], "wf", seed=3,
+             root_data_nodes=placement.first_touch_spill(sf, 0, 2),
+             runtime_data_node=0, migration_rate=0.15)
+    keys.append("sunfire/fft_small/wf+baseline-numa")
+    if sorted(keys) != sorted(gold):
+        raise AssertionError("[sim] golden keys differ from the fixture's")
+    res = plan.run(device="cuda")
+    for r, key in zip(res, keys):
+        for m, want in gold[key].items():
+            if getattr(r, m) != want:
+                raise AssertionError(f"[sim] golden {key} {m}: "
+                                     f"{getattr(r, m)!r} vs {want!r}")
+    waves, cpw = sim.MAX_WAVE_BYTES, sim.CELLS_PER_WARP
+    try:
+        sim.MAX_WAVE_BYTES = 3 * sim.workspace_bytes(511, 16)
+        again = plan.run(device="cuda")
+        n_waves = sim.last_run["waves"]
+        sim.MAX_WAVE_BYTES = waves
+        sim.CELLS_PER_WARP = SIM_GOLDEN_CELLS_A_WARP
+        third = plan.run(device="cuda")
+    finally:
+        sim.MAX_WAVE_BYTES, sim.CELLS_PER_WARP = waves, cpw
+    for a, b, c, key in zip(res, again, third, keys):
+        sim_same(f"golden {key} in waves", b, a)
+        sim_same(f"golden {key} at {SIM_GOLDEN_CELLS_A_WARP} cells a "
+                 "warp", c, a)
+    log(f"[sim] golden: all {len(keys)} keys of tests/data/sim_golden.json "
+        f"equal on the card ({sum(len(v) for v in gold.values())} metrics); "
+        f"the same bits in {n_waves} waves and at "
+        f"{SIM_GOLDEN_CELLS_A_WARP} cells a warp")
+
+
+def sim_phase(sim) -> dict:
+    """[sim]: the self-tests, the golden keys, then the figure grid on
+    the card in one batch (the main path, launches counted), 8 of its
+    cells held bit for bit against the plain version on the host, and
+    the kernel timed on those 8 cells beside the plain version."""
+    from repro_torch.core import topology
+    from repro_torch.core.sim import GridKey, Machine, run_sweep
+    t_phase = time.perf_counter()
+    log(f"[sim] {card_line()}")
+    sim_selftests(sim)
+    t_self = time.perf_counter() - t_phase
+    sim_golden(sim)
+    t_golden = time.perf_counter() - t_phase - t_self
+
+    wls = sim_workloads()
+    machine = Machine(topology.sunfire_x4600(), device="cuda")
+    t0 = time.perf_counter()
+    grid = sim_grid(machine, wls)
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sim.launches = 0                         # the main path starts here
+    t0 = time.perf_counter()
+    res = grid.run()
+    wall_s = time.perf_counter() - t0
+    launches = sim.launches                  # ... and ends here
+    run = dict(sim.last_run)
+    peak = torch.cuda.max_memory_allocated()
+    if launches == 0 or len(res) != len(grid):
+        raise AssertionError(f"[sim] the grid launched {launches} times "
+                             f"for {len(res)} of {len(grid)} cells")
+    tasks = {name: wl.root.count() for name, wl in wls.items()}
+    for k, r in res.items():
+        if not (r.engine == "cuda" and r.tasks == tasks[k.workload]
+                and math.isfinite(r.makespan) and r.makespan > 0
+                and 0 < r.speedup <= k.threads + 0.5):
+            raise AssertionError(f"[sim] grid cell {k}: {r}")
+    # the paper's claims the grid must show (as tests/test_sim.py holds
+    # the JAX package): at 16 threads NUMA-aware wf beats baseline wf on
+    # the data-intensive benchmarks, and bf stops scaling on fft
+    means = {}
+    for k, r in res.items():
+        key = (k.workload, k.scheduler, k.context, k.threads, k.faults)
+        means.setdefault(key, []).append(r.speedup)
+    means = {k: sum(v) / len(v) for k, v in means.items()}
+    for name in SIM_WORKLOADS:
+        b, n = means[(name, "wf", "base", 16, "none")], \
+            means[(name, "wf", "numa", 16, "none")]
+        if not n > b:
+            raise AssertionError(f"[sim] {name}: numa wf {n:.3f}x not above "
+                                 f"base wf {b:.3f}x at 16 threads")
+    if not means[("fft", "bf", "base", 16, "none")] < \
+            1.35 * means[("fft", "bf", "base", 6, "none")]:
+        raise AssertionError("[sim] fft: bf keeps scaling from 6 to 16")
+
+    # 8 cells bit for bit against the plain version on the host
+    index = {k: i for i, k in enumerate(grid.keys)}
+    held = [index[GridKey(*h)] for h in SIM_HELD]
+    cfgs = [grid.plan.configs[i] for i in held]
+    t0 = time.perf_counter()
+    plain = run_sweep(cfgs, device="cpu")
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = 0.0
+    for i, p in zip(held, plain):
+        got = res[grid.keys[i]]
+        sim_same(f"grid cell {grid.keys[i]} vs the plain version", got, p)
+        err = max([err] + [abs(getattr(got, f) - getattr(p, f)) for f in (
+            "makespan", "speedup", "remote_work_fraction", "queue_wait",
+            "fault_lost")] + [abs(a - b) for a, b in zip(got.node_remote,
+                                                         p.node_remote)])
+    # the kernel on the same 8 cells (not counted: a comparison)
+    ms = math.inf
+    for _ in range(3):
+        again = run_sweep(cfgs, device="cuda")
+        ms = min(ms, sim.last_run["kernel_ms"])
+    for i, a in zip(held, again):
+        sim_same(f"grid cell {grid.keys[i]} run again", a,
+                 res[grid.keys[i]])
+    steps8, inputs8 = sim.last_run["steps"], sim.last_run["input_bytes"]
+    bound_ms, bound_by = sim_bound(
+        inputs8, [(res[grid.keys[i]].tasks, steps8 / len(held))
+                  for i in held])
+    grid_bound, grid_by = sim_bound(
+        run["input_bytes"],
+        [(r.tasks, run["steps"] / len(res)) for r in res.values()])
+    grid_ms = run["kernel_ms"]
+    log(f"[sim] grid: {len(res)} cells ({', '.join(SIM_WORKLOADS)}; "
+        f"{len(SIM_THREADS)} thread counts; {SIM_SEEDS} seeds, "
+        f"{SIM_FAULT_SEEDS} for the fault grids) in {launches} launch(es) "
+        f"= {run['waves']} wave(s), {run['cells_per_warp']} cells a warp; "
+        f"kernel {grid_ms:.1f} ms (CUDA events), {len(res) / grid_ms * 1e3:.0f} "
+        f"cells/s, {run['steps']} events = "
+        f"{run['steps'] / grid_ms * 1e3:.3e} events/s; wall {wall_s:.2f} s: "
+        f"packing {run['pack_s']:.2f} s, on the device (copies, the launch "
+        f"and the wait) {run['device_s']:.2f} s, unpacking "
+        f"{run['unpack_s']:.2f} s, the rest (contexts, serial references, "
+        f"results) {wall_s - run['pack_s'] - run['device_s'] - run['unpack_s']:.2f} "
+        f"s; grid built in {build_s:.2f} s; workspaces {run['workspace_bytes'] / 2**30:.2f} "
+        f"GiB, inputs {run['input_bytes'] / 2**20:.1f} MiB, peak device "
+        f"memory {peak / 2**30:.2f} GiB; bound {grid_bound:.4f} ms "
+        f"({grid_by}-bound, as accounting: the inputs read once, "
+        f"{SIM_STATE_BYTES} B a task and {SIM_OUT_BYTES} B a cell written "
+        f"once), the kernel {grid_ms / grid_bound:.0f}x it: each cell is "
+        f"one serial event chain, which the bytes do not see")
+    log(f"[sim] 8 cells ({'; '.join('/'.join(map(str, h)) for h in SIM_HELD)}) "
+        f"equal to the plain version on the host bit for bit: kernel "
+        f"{ms:.1f} ms, plain version {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}-bound; inputs "
+        f"{inputs8 / 2**20:.2f} MiB)")
+    for name in SIM_WORKLOADS:
+        row = ", ".join(
+            f"{sch}/{ctx} {means[(name, sch, ctx, 16, 'none')]:.2f}x"
+            for sch, ctx in (("bf", "base"), ("bf", "numa"),
+                             ("wf", "base"), ("wf", "numa"),
+                             ("dfwspt", "numa"), ("dfwsrpt", "numa"),
+                             ("dfwshier", "numa")))
+        log(f"[sim] {name} mean speedup at 16 threads over "
+            f"{SIM_SEEDS} seeds: {row}")
+    log(f"[sim] seconds: self-tests {t_self:.1f}, golden {t_golden:.1f}, "
+        f"the whole phase {time.perf_counter() - t_phase:.1f}")
+    log(f"[sim] {card_line()}")
+    return dict(launches=launches, rep=dict(
+        shape=f"8 grid cells, {sum(res[grid.keys[i]].tasks for i in held)} "
+              "tasks", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+        grid_ms=grid_ms, grid_cells=len(res), grid_waves=run["waves"],
+        grid_bound_ms=grid_bound))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3462,6 +3806,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm
     from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import sim as simk
     from repro_torch.kernels import ssd_scan as ssd
 
     t_all = time.perf_counter()
@@ -3487,6 +3832,9 @@ def main() -> int:
         rms_res = rmsnorm_phase(rms)
         ssd_res = ssd_phase(ssd)
     log(f"[time] kernel phase done at {time.perf_counter()-t_all:.1f} s")
+    sim_res = sim_phase(simk)
+    torch.cuda.empty_cache()
+    log(f"[time] sim phase done at {time.perf_counter()-t_all:.1f} s")
 
     _reset(gmm, fa, rms)
     serve_launches = serve_phase(gmm)      # counts its own run's moe_gmm
@@ -3619,6 +3967,8 @@ def main() -> int:
               "src/repro/kernels/ssd_scan.py:75",
               mamba_counts["ssd_bwd"] + jamba_counts["ssd_bwd"],
               ssd_res[SSD_REPORT]["bwd"]),
+        entry("sim_run_batch", "sim.cu", "src/repro/core/sim/_csim.c:743",
+              sim_res["launches"], sim_res["rep"]),
     ]
     log(f"[done] moe_gmm launches: serve {serve_launches} + train "
         f"{counts['moe_gmm']} + jamba {jamba_counts['moe_gmm']} forward, "
@@ -3635,7 +3985,11 @@ def main() -> int:
         f"rmsnorm is on no path (no layer calls it), held above on its "
         f"own; ssd_scan {mamba_counts['ssd_fwd']} forward, "
         f"{mamba_counts['ssd_bwd']} backward launches in the mamba2 train "
-        f"run; total {time.perf_counter()-t_all:.1f} s")
+        f"run; sim_run_batch {sim_res['launches']} launch(es) for the "
+        f"[sim] figure grid's {sim_res['rep']['grid_cells']} cells (its "
+        f"ms, plain_ms and bound_ms are of the 8 cells held against the "
+        f"plain version; grid_ms is the grid's); total "
+        f"{time.perf_counter()-t_all:.1f} s")
     for line in dry:                        # the dry run's five checks
         log(line)
     log(f"[done] [mesh] launches (DTensor run): {mesh_counts}")

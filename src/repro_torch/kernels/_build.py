@@ -8,8 +8,12 @@ use into its own shared library,
 
 under ``kernels/build/`` (listed in ``.gitignore``), keyed by a hash of
 the sources (with every ``csrc/*.cuh`` header) and the flags, then loaded
-with ``ctypes``. The libraries link against the CUDA runtime alone: the
-flash kernels' TMA maps come from ``cuTensorMapEncodeTiled``, a libcuda
+with ``ctypes``. A source may add flags of its own (``_SOURCE_FLAGS``):
+``sim.cu`` is built with ``--fmad=false``, since the simulator must match
+the C engine's uncontracted double arithmetic bit for bit; every other
+source takes the common flags alone. The libraries link against the CUDA
+runtime alone: the flash kernels' TMA maps come from
+``cuTensorMapEncodeTiled``, a libcuda
 function, reached through ``cudaGetDriverEntryPoint`` (no ``-lcuda``), and
 no source includes CUTLASS. Nothing is built when a module is imported.
 ``build`` starts one ``nvcc`` per source, all together, and waits for
@@ -29,12 +33,14 @@ import threading
 from pathlib import Path
 
 __all__ = ["SOURCES", "build", "kernel_function", "on_device",
-           "build_logs"]
+           "build_logs", "nvcc_command"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent / "build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags one source adds to the common ones
+_SOURCE_FLAGS = {"sim": ("--fmad=false",)}
 
 SOURCES = tuple(sorted(p.stem for p in _CSRC.glob("*.cu")))
 
@@ -59,8 +65,18 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _flags(name: str) -> tuple:
+    return _NVCC_FLAGS + _SOURCE_FLAGS.get(name, ())
+
+
+def nvcc_command(name: str, out, nvcc: str = "nvcc") -> list:
+    """The ``nvcc`` command line that builds ``csrc/<name>.cu`` into
+    ``out``."""
+    return [nvcc, *_flags(name), "-o", str(out), str(_CSRC / f"{name}.cu")]
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     h.update((_CSRC / f"{name}.cu").read_bytes())
     for header in sorted(_CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
@@ -81,7 +97,7 @@ def build(names=SOURCES) -> None:
     for name in pending:
         out = _target(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        cmd = nvcc_command(name, tmp, nvcc)
         procs.append((name, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

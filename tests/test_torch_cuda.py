@@ -1,6 +1,7 @@
 """The port's kernels on the card: each kernel (forward and backward)
 against its plain version, with its launch counter; the dense layer slot
-in bf16 against float32, and a checkpoint round trip of a card model.
+in bf16 against float32, a checkpoint round trip of a card model, and
+the simulator's kernel on the golden fixture's 25 keys.
 Marked ``cuda``;
 they skip on a host without a CUDA device. This file imports no JAX, so
 it runs where only PyTorch is installed:
@@ -586,3 +587,43 @@ def test_checkpoint_round_trip_of_a_card_model(tmp_path):
         assert torch.equal(st2["m"][k], v), k
     for k, v in st["v"].items():
         assert st2["v"][k].is_cuda and torch.equal(st2["v"][k], v), k
+
+
+@pytest.mark.cuda
+def test_sim_kernel_matches_golden_on_card():
+    """tests/data/sim_golden.json's 25 keys through the simulator's kernel
+    (one launch for the batch): every recorded metric exactly, and the
+    kernel counted its launch."""
+    import json
+    import os
+
+    from repro_torch.core import placement, topology
+    from repro_torch.core.sim import SweepPlan, bots
+    from repro_torch.kernels import sim
+    _card()
+    gold = json.load(open(os.path.join(os.path.dirname(__file__), "data",
+                                       "sim_golden.json")))
+    topos = {"sunfire": topology.sunfire_x4600(),
+             "tpu2x4": topology.tpu_pod_2d(2, 4)}
+    wls = {"fft_small": bots.fft(n=1 << 10, cutoff=8),
+           "sparselu_small": bots.sparselu(n=8)}
+    plan, keys = SweepPlan(), []
+    for tn, topo in topos.items():
+        for wn, wl in wls.items():
+            for sched in ("bf", "cilk", "wf", "dfwspt", "dfwsrpt",
+                          "dfwshier"):
+                plan.add(topo, list(range(8)), wl, sched, seed=7)
+                keys.append(f"{tn}/{wn}/{sched}")
+    sf = topos["sunfire"]
+    plan.add(sf, list(range(16)), wls["fft_small"], "wf", seed=3,
+             root_data_nodes=placement.first_touch_spill(sf, 0, 2),
+             runtime_data_node=0, migration_rate=0.15)
+    keys.append("sunfire/fft_small/wf+baseline-numa")
+    assert sorted(keys) == sorted(gold)
+    before = sim.launches
+    res = plan.run(device="cuda")
+    assert sim.launches == before + 1
+    for r, key in zip(res, keys):
+        assert r.engine == "cuda"
+        for m, want in gold[key].items():
+            assert getattr(r, m) == want, (key, m)

@@ -4,12 +4,16 @@
 loss falls; ``train_lm`` at 4 steps resumes phase 2 from phase 1's
 checkpoint (in ``tmp_path``); ``serve_batch`` serves its three
 architectures; the quickstart's drop fractions equal the JAX package's
-``route`` on the same numpy logits, and stealing lowers them. About 30 s
-in one process, ~2 GB at most (``train_lm``'s 135M-parameter model)."""
+``route`` on the same numpy logits, and stealing lowers them, and its
+simulator steps 1-4 print what ``examples/quickstart.py --sim-only``
+prints, line for line. About 30 s in one process, ~2 GB at most
+(``train_lm``'s 135M-parameter model)."""
 
 from __future__ import annotations
 
+import importlib.util
 import math
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -88,6 +92,7 @@ def test_serve_batch_serves_three_architectures(capsys):
 
 def test_quickstart_drop_fractions_match_jax(capsys):
     got = quickstart.main(["--device", "cpu"])
+    assert got["sim"]["numa"] > got["sim"]["baseline"]
     logits = jnp.asarray(quickstart.moe_logits())
     E = quickstart.EXPERTS
     table = jsteal_table(jtopology.tpu_pod_2d(4, 4), np.arange(E), "dfwspt")
@@ -98,3 +103,23 @@ def test_quickstart_drop_fractions_match_jax(capsys):
     assert got["drop_stealing"] < got["drop_vanilla"]
     assert math.isfinite(got["loss"])
     assert "with nearest-first stealing" in capsys.readouterr().out
+
+
+def test_quickstart_sim_steps_print_what_the_jax_quickstart_prints(capsys):
+    got = quickstart.main(["--device", "cpu", "--sim-only"])
+    ours = capsys.readouterr().out.splitlines()
+    path = Path(__file__).resolve().parents[1] / "examples" / "quickstart.py"
+    spec = importlib.util.spec_from_file_location("jax_quickstart", path)
+    jq = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jq)
+    jq.main(["--sim-only"])
+    theirs = capsys.readouterr().out.splitlines()
+    assert ours == theirs
+    assert len(ours) == 6 and ours[3].startswith("FFT@16: baseline wf ")
+    sim = got["sim"]
+    assert f"{sim['baseline']:.2f}x" in ours[3]
+    assert f"{sim['numa']:.2f}x" in ours[3]
+    assert sim["numa"] > sim["baseline"]
+    assert len(sim["grid"]) == 6
+    assert all(f"{s}@{t}={v:.2f}x" in ours[4]
+               for (s, t), v in sim["grid"].items())

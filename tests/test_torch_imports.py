@@ -1,5 +1,6 @@
-"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``."""
+"""Import hygiene of the port: ``repro_torch`` (the simulator under
+``core/sim`` included) and ``chip_smoke.py`` import neither JAX nor
+anything of the JAX package ``repro``."""
 
 import ast
 import os
@@ -36,6 +37,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                          check=True).stdout
     loaded = __import__("json").loads(out.splitlines()[-1])
     assert "repro_torch.models.model" in loaded
+    for m in ("repro_torch.core.stealing", "repro_torch.core.sim.machine",
+              "repro_torch.core.sim._engine_py", "repro_torch.kernels.sim"):
+        assert m in loaded, m
     assert [m for m in loaded if _forbidden(m)] == []
 
 
