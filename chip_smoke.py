@@ -169,7 +169,21 @@ imports nothing of JAX or of the JAX package. It
     bit for bit against the plain version on the host, the grid's kernel
     time, cells/s, events/s, waves and peak memory, the paper's claims
     on its means, and the grid again at 1, 4, 8 and 32 cells a warp;
-21. prints the ``kernels`` JSON line (the [mesh] and [elastic] runs'
+21. [sim_durable], after [sim]: the simulator's traced and durable
+    path. The traced sweep behind the analysis layer (fft/sort/strassen
+    at [sim]'s scale under wf/dfwspt/dfwsrpt/dfwshier at 2-16 threads,
+    the allocation study's bf/cilk/wf cells, nqueens/floorplan/sparselu
+    medium; seeds 0 and 1; 162 cells) through the traced instantiation of
+    ``csrc/sim.cu``, journaled with ``resume=`` under ``TMPDIR``: every
+    result equal to the untraced grid's, the events' counts and
+    histograms equal to the metrics, 4 cells' traces equal to the plain
+    version's event for event; a rerun that launches nothing and gives
+    the same results and sidecar traces, and a journal torn mid-line
+    that reruns one cell. Then the paper-scale FFT (1 769 471 tasks) from
+    the port's compile cache (cold and warm opens timed) at 16 threads
+    untraced and traced, one cell held against the plain version, and a
+    timeout that stops it while the medium cells it runs beside finish;
+22. prints the ``kernels`` JSON line (the [mesh] and [elastic] runs'
     launches included) and, last, the device JSON line.
 
 Any failure raises and exits non-zero before the last line is printed.
@@ -186,6 +200,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -467,10 +482,39 @@ FP64_FLOPS = 34e12
 # the launch shape the golden keys run once more at (cells a warp; every
 # lane a cell), against kernels/sim.py's CELLS_PER_WARP: the same bits
 SIM_GOLDEN_CELLS_A_WARP = 32
+# the [sim] grid's kernel ms before sim.cu had its traced and timed
+# instantiations (NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6), printed
+# beside this run's
+SIM_GRID_MS_BEFORE_TRACE = 547.3
 # bytes a cell must write once besides the batch's distinct inputs (read
 # once, whatever number of cells share them): its per-task state
 # (pending and exec_node int32, phase uint8) and its 13 outputs
 SIM_STATE_BYTES, SIM_OUT_BYTES = 9, 8 * 13
+
+# [sim_durable]: benchmarks/bots_repro.py's forensics_plan (the traced
+# sweep the analysis layer reads), as the port runs it: the scheduler
+# study on fft/sort/strassen at [sim]'s scale, the allocation study's
+# bf/cilk (both contexts) and wf/base cells at the top thread count, and
+# nqueens/floorplan/sparselu medium under bf/cilk/wf in both contexts
+DURABLE_STUDY = ("wf", "dfwspt", "dfwsrpt", "dfwshier")
+DURABLE_THREADS = (2, 4, 8, 16)
+DURABLE_SEEDS = (0, 1)
+DURABLE_SMALL = ("nqueens", "floorplan", "sparselu")
+DURABLE_SPILL = {"fft": 2, "sort": 3, "strassen": 2, "nqueens": 1,
+                 "floorplan": 1, "sparselu": 2}      # bots_repro.SPILL
+# the cells whose traces are held against the plain version's, event for
+# event: (workload, scheduler, context, threads, seed)
+DURABLE_HELD = (("fft", "dfwsrpt", "numa", 8, 1),
+                ("strassen", "wf", "base", 16, 0),
+                ("nqueens", "cilk", "numa", 16, 1),
+                ("sparselu", "bf", "base", 16, 0))
+# the paper-scale FFT (bots.make("fft", "paper")) at 16 threads, seed 0,
+# and its cell held against the plain version
+PAPER_SCHEDS = ("wf", "dfwspt")
+PAPER_HELD = ("fft-paper", "wf", "numa", 16, 0)
+# the timeout stops the paper-scale cell at this share of its untimed
+# kernel time; the medium cells beside it must finish well inside it
+PAPER_TIMEOUT_SHARE = 0.1
 
 
 def elastic_times(step: int, t: float, sched: dict = ELASTIC) -> list[float]:
@@ -3551,14 +3595,16 @@ def sim_grid(machine, wls: dict):
     return Grid.concat(grids)
 
 
-def sim_bound(input_bytes: int, ctx_cells) -> tuple:
+def sim_bound(input_bytes: int, ctx_cells, trace_bytes: int = 0) -> tuple:
     """(bound ms, what bounds it) of a batch whose distinct inputs (the
     packed tables, plans and parameters: ``kernels.sim.last_run``'s
     ``input_bytes``) are read once, and whose cells, given as (tasks,
     steps), each write their task state and outputs once (bytes) and do
-    at most SIM_OPS_PER_STEP double operations an event."""
-    nbytes = input_bytes + sum(SIM_STATE_BYTES * n + SIM_OUT_BYTES
-                               for n, _ in ctx_cells)
+    at most SIM_OPS_PER_STEP double operations an event; a traced batch
+    also writes its ``trace_bytes`` of events once (56 / 40 / 32 B an
+    exec / steal / migration event)."""
+    nbytes = input_bytes + trace_bytes + sum(
+        SIM_STATE_BYTES * n + SIM_OUT_BYTES for n, _ in ctx_cells)
     ops = sum(SIM_OPS_PER_STEP * steps for _, steps in ctx_cells)
     return roof(nbytes, ops, FP64_FLOPS)
 
@@ -3773,6 +3819,11 @@ def sim_phase(sim) -> dict:
         f"{SIM_STATE_BYTES} B a task and {SIM_OUT_BYTES} B a cell written "
         f"once), the kernel {grid_ms / grid_bound:.0f}x it: each cell is "
         f"one serial event chain, which the bytes do not see")
+    regs = sim_registers().get("untraced/untimed", ("?", "?", "?"))
+    log(f"[sim] the grid's kernel {grid_ms:.1f} ms beside "
+        f"{SIM_GRID_MS_BEFORE_TRACE} ms before sim.cu had its traced and "
+        f"timed instantiations; this untraced one: {regs[0]} registers, "
+        f"spill stores {regs[1]} B, loads {regs[2]} B")
     log(f"[sim] 8 cells ({'; '.join('/'.join(map(str, h)) for h in SIM_HELD)}) "
         f"equal to the plain version on the host bit for bit: kernel "
         f"{ms:.1f} ms, plain version {plain_ms:.1f} ms, bound "
@@ -3798,6 +3849,336 @@ def sim_phase(sim) -> dict:
         grid_bound_ms=grid_bound))
 
 
+def sim_registers() -> dict:
+    """{kernel instantiation: (registers, spill store bytes, spill load
+    bytes)} of ``csrc/sim.cu`` from its ``-Xptxas -v`` log, which the
+    build keeps beside the library (so a checkout that built it in an
+    earlier run reads the same); an instantiation is named by its
+    template flags, "untraced"/"traced" and "untimed"/"timed"."""
+    import re
+    from repro_torch.kernels import _build
+    _build.build(["sim"])
+    out, name = {}, None
+    for line in _build.build_logs["sim"].splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            flags = re.search(r"sim_batch_kernelILb([01])ELb([01])E", m[1])
+            name = None if flags is None else (
+                ("traced" if flags[1] == "1" else "untraced") + "/"
+                + ("timed" if flags[2] == "1" else "untimed"))
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(name, [0, 0, 0])[1:] = [int(m[1]), int(m[2])]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, [0, 0, 0])[0] = int(m[1])
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def durable_grid(machine, wls: dict, serial: dict):
+    """[sim_durable]'s forensics grid (DURABLE_* above) on ``machine``."""
+    from repro_torch.core.sim import Grid
+    grids, top = [], DURABLE_THREADS[-1]
+    for name in SIM_WORKLOADS:
+        v = sim_variants(DURABLE_SPILL[name])
+        kw = dict(workloads={name: wls[name]}, seeds=DURABLE_SEEDS,
+                  serial_reference=serial[name])
+        grids.append(machine.grid(schedulers=DURABLE_STUDY,
+                                  threads=DURABLE_THREADS,
+                                  contexts={"numa": v["numa"]}, **kw))
+        grids.append(machine.grid(schedulers=("bf", "cilk"), threads=top,
+                                  contexts=v, **kw))
+        grids.append(machine.grid(schedulers=("wf",), threads=top,
+                                  contexts={"base": v["base"]}, **kw))
+    for name in DURABLE_SMALL:
+        grids.append(machine.grid(
+            workloads={name: wls[name]}, schedulers=SIM_ALLOC, threads=top,
+            contexts=sim_variants(DURABLE_SPILL[name]), seeds=DURABLE_SEEDS,
+            serial_reference=serial[name]))
+    return Grid.concat(grids)
+
+
+def trace_agrees(what: str, r) -> None:
+    """Raise unless a traced result's events agree with its metrics:
+    one exec event a task, one steal event a steal, the steal events'
+    hop histogram and the exec events' node counts equal to the
+    aggregates, every interval inside the makespan."""
+    import numpy as np
+    tr = r.trace
+    hops = np.bincount(tr.st_dist, minlength=len(r.steal_hops))
+    nodes = np.bincount(tr.ex_node, minlength=len(r.node_tasks))
+    bad = [name for name, ok in (
+        ("exec events", tr.n_exec == r.tasks),
+        ("steal events", tr.n_steal == r.steals),
+        ("steal_hops", tuple(int(x) for x in hops) == r.steal_hops),
+        ("node_tasks", tuple(int(x) for x in nodes) == r.node_tasks),
+        ("tasks once", np.array_equal(np.sort(tr.ex_task),
+                                      np.arange(r.tasks))),
+        ("intervals", bool((tr.ex_end <= r.makespan).all()
+                           and (tr.ex_start <= tr.ex_end).all())))
+        if not ok]
+    if bad:
+        raise AssertionError(f"[sim_durable] {what}: the trace disagrees "
+                             f"with the metrics in {bad} ({tr!r}, {r})")
+
+
+def sim_durable_phase(sim) -> dict:
+    """[sim_durable]: the traced and durable path on the card (see the
+    module docstring, item 21)."""
+    import warnings
+
+    import numpy as np
+    from repro_torch.core import topology
+    from repro_torch.core.sim import (CellError, CellTimeout, GridKey,
+                                      Machine, ResultStore, SimParams,
+                                      bots, cell_key, compile_cache, policy,
+                                      run_sweep)
+    t_phase = time.perf_counter()
+    log(f"[sim_durable] {card_line()}")
+    regs = sim_registers()
+    log("[sim_durable] ptxas (csrc/sim.cu, --fmad=false): " + "; ".join(
+        f"{k} {r} registers, spill stores {st} B, loads {ld} B"
+        for k, (r, st, ld) in sorted(regs.items())))
+    if regs.get("untraced/untimed", (0, 1, 1))[1:] != (0, 0):
+        raise AssertionError("[sim_durable] the untraced instantiation "
+                             f"spills or is missing: {regs}")
+    topo = topology.sunfire_x4600()
+    plain_m = Machine(topo, device="cpu")
+    card = Machine(topo, device="cuda")
+    traced = Machine(topo, SimParams(trace=True), device="cuda")
+    wls = sim_workloads()
+    for name in DURABLE_SMALL:
+        wls[name] = bots.make(name, "medium")
+    serial = {name: plain_m.serial_time(
+        wl, placement=f"spill:{DURABLE_SPILL[name]}@0")
+        for name, wl in wls.items()}
+    grid = durable_grid(card, wls, serial)
+    tgrid = durable_grid(traced, wls, serial)
+    want = grid.run()
+    untraced_run = dict(sim.last_run)
+    tmp = tempfile.mkdtemp(prefix="sim_durable_")
+    journal = os.path.join(tmp, "forensics.jsonl")
+
+    # the main path: the traced grid journaled, its launches counted
+    sim.launches = 0
+    for k in sim.route_launches:
+        sim.route_launches[k] = 0
+    t0 = time.perf_counter()
+    got = tgrid.run(resume=journal)
+    wall_s = time.perf_counter() - t0
+    launches = dict(sim.route_launches)
+    run = dict(sim.last_run)
+    if launches["traced"] == 0 or launches["untraced"] != 0 \
+            or len(got) != len(tgrid):
+        raise AssertionError(f"[sim_durable] the traced grid launched "
+                             f"{launches} for {len(got)} cells")
+    events = 0
+    for k, r in got.items():
+        sim_same(f"traced cell {k} vs untraced", r, want[k])
+        if r.engine != "cuda":
+            raise AssertionError(f"[sim_durable] {k} ran on {r.engine}")
+        trace_agrees(str(k), r)
+        events += r.trace.n_exec + r.trace.n_steal + r.trace.n_mig
+
+    # 4 cells' traces against the plain version's, event for event
+    index = {k: i for i, k in enumerate(tgrid.keys)}
+    held = [index[GridKey(*h, "none")] for h in DURABLE_HELD]
+    cfgs = [tgrid.plan.configs[i] for i in held]
+    t0 = time.perf_counter()
+    plain = run_sweep(cfgs, device="cpu")
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for i, p in zip(held, plain):
+        r = got[tgrid.keys[i]]
+        sim_same(f"traced cell {tgrid.keys[i]} vs the plain version", r, p)
+        if not r.trace == p.trace:
+            raise AssertionError(f"[sim_durable] {tgrid.keys[i]}: the "
+                                 "trace differs from the plain version's")
+    ms = math.inf
+    for _ in range(3):               # the kernel on the held cells alone
+        again = run_sweep(cfgs, device="cuda")
+        ms = min(ms, sim.last_run["kernel_ms"])
+    held_bytes = sum(r.trace.nbytes() for r in again)
+    bound_ms, bound_by = sim_bound(
+        sim.last_run["input_bytes"],
+        [(r.tasks, sim.last_run["steps"] / len(again)) for r in again],
+        held_bytes)
+    grid_bytes = sum(r.trace.nbytes() for r in got.values())
+    grid_bound, _ = sim_bound(
+        run["input_bytes"],
+        [(r.tasks, run["steps"] / len(got)) for r in got.values()],
+        grid_bytes)
+
+    # the journal: a rerun launches nothing, a torn line reruns one cell
+    keys = {k: cell_key(c.to_context(), c.workload,
+                        policy.get_spec(c.scheduler), c.seed,
+                        c.serial_reference)
+            for k, c in zip(tgrid.keys, tgrid.plan.configs)}
+    before = sim.launches
+    t0 = time.perf_counter()
+    replay = tgrid.run(resume=journal)
+    replay_s = time.perf_counter() - t0
+    if sim.launches != before:
+        raise AssertionError("[sim_durable] the warm journal launched "
+                             f"{sim.launches - before} times")
+    store = ResultStore(journal)
+    t0 = time.perf_counter()
+    for k, r in replay.items():
+        sim_same(f"replayed cell {k}", r, got[k])
+        if not store.get_trace(keys[k]) == got[k].trace:
+            raise AssertionError(f"[sim_durable] {k}: the sidecar trace "
+                                 "differs")
+    sidecar_s = time.perf_counter() - t0
+    store.close()
+    raw = Path(journal).read_bytes()
+    Path(journal).write_bytes(raw[:-40])          # tear the last line
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torn = tgrid.run(resume=journal)
+    if sim.last_run.get("cells") != 1 or sim.launches != before + 1 \
+            or not any("torn" in str(w.message) for w in caught):
+        raise AssertionError(f"[sim_durable] the torn journal reran "
+                             f"{sim.last_run.get('cells')} cells in "
+                             f"{sim.launches - before} launches")
+    for k, r in torn.items():
+        sim_same(f"cell {k} after the torn journal", r, got[k])
+    journal_mb = sum(f.stat().st_size for f in Path(tmp).rglob("*")
+                     if f.is_file()) / 2**20
+    log(f"[sim_durable] forensics grid: {len(got)} cells, traced in "
+        f"{launches['traced']} launch(es) ({run['waves']} wave(s)); kernel "
+        f"{run['kernel_ms']:.1f} ms traced vs {untraced_run['kernel_ms']:.1f} "
+        f"ms untraced ({run['kernel_ms'] / untraced_run['kernel_ms']:.2f}x; "
+        f"CUDA events); {events} events = {grid_bytes / 2**20:.1f} MiB of "
+        f"trace (columns sized {run['trace_cap_bytes'] / 2**20:.1f} MiB), "
+        f"{events / run['kernel_ms'] * 1e3:.3e} events/s in the kernel; "
+        f"bound {grid_bound:.4f} ms (the untraced bytes plus the trace "
+        f"written once); wall {wall_s:.2f} s: packing {run['pack_s']:.2f} "
+        f"s, on the device {run['device_s']:.2f} s (the events' gather "
+        f"and copy-off after the launch {run['trace_copy_s']:.2f} s of "
+        f"it), unpacking "
+        f"{run['unpack_s']:.2f} s, the rest (contexts, results, the journal "
+        f"and its sidecars, {journal_mb:.1f} MiB on disk) "
+        f"{wall_s - run['pack_s'] - run['device_s'] - run['unpack_s']:.2f} "
+        f"s; every result equal to the "
+        f"untraced grid's, every trace's counts and histograms equal to "
+        f"the metrics")
+    held_names = "; ".join("/".join(map(str, h)) for h in DURABLE_HELD)
+    log(f"[sim_durable] {len(held)} cells ({held_names}) traced equal to "
+        f"the plain version event for event: kernel {ms:.1f} ms, plain "
+        f"version {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.4f} ms ({held_bytes / 2**20:.2f} MiB of events)")
+    log(f"[sim_durable] journal: the rerun launched nothing ({replay_s:.2f} "
+        f"s) and gave the same {len(replay)} results; sidecar traces equal "
+        f"({sidecar_s:.2f} s to read); a journal torn mid-line reran 1 "
+        "cell, the same bits")
+
+    # the paper-scale FFT from the compile cache
+    root = os.path.join(tmp, "compile-cache")
+    old_root = os.environ.get(compile_cache.ENV_VAR)
+    os.environ[compile_cache.ENV_VAR] = root
+    compile_cache.reset_cache()
+    try:
+        t0 = time.perf_counter()
+        bots.make("fft", "paper")
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wl = bots.make("fft", "paper")
+        warm_s = time.perf_counter() - t0
+        hits = compile_cache.get_cache().hit_count("tables")
+        if wl.root is not None or hits != 1 or \
+                not isinstance(wl.table.work_pre, np.memmap):
+            raise AssertionError("[sim_durable] the paper table did not come "
+                                 "from the compile cache")
+        pserial = plain_m.serial_time(wl, placement="spill:2@0")
+        name = PAPER_HELD[0]
+        v = sim_variants(2)
+        pgrid = card.grid(workloads={name: wl}, schedulers=PAPER_SCHEDS,
+                          threads=16, contexts=v, seeds=(0,),
+                          serial_reference={name: pserial})
+        tpgrid = traced.grid(workloads={name: wl}, schedulers=PAPER_SCHEDS,
+                             threads=16, contexts=v, seeds=(0,),
+                             serial_reference={name: pserial})
+        pwant = pgrid.run()
+        paper_ms = sim.last_run["kernel_ms"]
+        pgot = tpgrid.run()
+        paper_traced_ms = sim.last_run["kernel_ms"]
+        paper_bytes = sum(r.trace.nbytes() for r in pgot.values())
+        for k, r in pgot.items():
+            sim_same(f"paper cell {k} traced vs untraced", r, pwant[k])
+            trace_agrees(f"paper cell {k}", r)
+        i = pgrid.keys.index(GridKey(*PAPER_HELD, "none"))
+        t0 = time.perf_counter()
+        (pplain,) = run_sweep([tpgrid.plan.configs[i]], device="cpu")
+        pplain_s = time.perf_counter() - t0
+        r = pgot[pgrid.keys[i]]
+        sim_same(f"paper cell {pgrid.keys[i]} vs the plain version", r,
+                 pplain)
+        if not r.trace == pplain.trace:
+            raise AssertionError("[sim_durable] the paper cell's trace "
+                                 "differs from the plain version's")
+        log(f"[sim_durable] paper-scale fft ({r.tasks} tasks): table from "
+            f"the compile cache, cold {cold_s:.2f} s (build and store), "
+            f"warm {warm_s * 1e3:.1f} ms (memory-mapped); {len(pgot)} cells "
+            f"({', '.join(PAPER_SCHEDS)} x base/numa, 16 threads): kernel "
+            f"{paper_ms:.1f} ms untraced, {paper_traced_ms:.1f} ms traced "
+            f"({paper_traced_ms / paper_ms:.2f}x), "
+            f"{paper_bytes / 2**20:.1f} MiB of events; "
+            f"{'/'.join(map(str, PAPER_HELD))} equal to the plain version "
+            f"bit for bit and event for event ({pplain_s:.1f} s on the "
+            f"host, traced)")
+
+        # the timeout: long for the medium cells, short for the paper one
+        mix = list(pgrid.plan.configs[i:i + 1])
+        small = [c for c, k in zip(grid.plan.configs, grid.keys)
+                 if k.workload in DURABLE_SMALL and k.seed == 0]
+        mix += small
+        run_sweep(small, device="cuda")
+        small_ms = sim.last_run["kernel_ms"]
+        timeout = PAPER_TIMEOUT_SHARE * paper_ms / 1e3
+        if not small_ms / 1e3 < timeout / 10:
+            raise AssertionError(f"[sim_durable] the medium cells take "
+                                 f"{small_ms:.1f} ms, not far below the "
+                                 f"{timeout:.3f} s timeout")
+        t0 = time.perf_counter()
+        timed = run_sweep(mix, strict=False, timeout=timeout, device="cuda")
+        timed_s = time.perf_counter() - t0
+        err = timed[0]
+        if not (isinstance(err, CellError)
+                and isinstance(err.error, CellTimeout)
+                and err.engine == "cuda"):
+            raise AssertionError(f"[sim_durable] the paper cell under a "
+                                 f"{timeout:.3f} s timeout gave {err!r}")
+        for c, r in zip(small, timed[1:]):
+            k = grid.keys[grid.plan.configs.index(c)]
+            sim_same(f"timed cell {k}", r, want[k])
+        log(f"[sim_durable] timeout {timeout:.3f} s ({PAPER_TIMEOUT_SHARE} "
+            f"of the paper cell's {paper_ms:.0f} ms): the paper cell became "
+            f"{err!r}; the {len(small)} medium cells beside it "
+            f"({small_ms:.1f} ms untimed) equal their untimed results; "
+            f"{timed_s:.2f} s")
+    finally:
+        if old_root is None:
+            os.environ.pop(compile_cache.ENV_VAR, None)
+        else:
+            os.environ[compile_cache.ENV_VAR] = old_root
+        compile_cache.reset_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[sim_durable] the whole phase {time.perf_counter() - t_phase:.1f} "
+        "s")
+    log(f"[sim_durable] {card_line()}")
+    return dict(launches=launches["traced"], rep=dict(
+        shape=f"{len(held)} forensics cells traced, "
+              f"{sum(r.tasks for r in again)} tasks", max_abs_err=0.0,
+        ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+        bound_by=bound_by, grid_ms=run["kernel_ms"],
+        grid_untraced_ms=untraced_run["kernel_ms"], grid_cells=len(got),
+        grid_bound_ms=grid_bound, trace_bytes=grid_bytes,
+        paper_ms=paper_ms, paper_traced_ms=paper_traced_ms))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3810,6 +4191,12 @@ def main() -> int:
     from repro_torch.kernels import ssd_scan as ssd
 
     t_all = time.perf_counter()
+    # the simulator's compile cache lives under TMPDIR for this run only
+    # (the default root is in the user's home)
+    from repro_torch.core.sim import compile_cache
+    cache_dir = tempfile.mkdtemp(prefix="sim_compile_cache_")
+    os.environ.setdefault(compile_cache.ENV_VAR, cache_dir)
+    compile_cache.reset_cache()
     log(card_line())
     log(f"[card] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; python {sys.version.split()[0]}")
@@ -3835,6 +4222,9 @@ def main() -> int:
     sim_res = sim_phase(simk)
     torch.cuda.empty_cache()
     log(f"[time] sim phase done at {time.perf_counter()-t_all:.1f} s")
+    durable_res = sim_durable_phase(simk)
+    torch.cuda.empty_cache()
+    log(f"[time] sim_durable phase done at {time.perf_counter()-t_all:.1f} s")
 
     _reset(gmm, fa, rms)
     serve_launches = serve_phase(gmm)      # counts its own run's moe_gmm
@@ -3969,6 +4359,9 @@ def main() -> int:
               ssd_res[SSD_REPORT]["bwd"]),
         entry("sim_run_batch", "sim.cu", "src/repro/core/sim/_csim.c:743",
               sim_res["launches"], sim_res["rep"]),
+        entry("sim_run_batch_traced", "sim.cu",
+              "src/repro/core/sim/_csim.c:617",
+              durable_res["launches"], durable_res["rep"]),
     ]
     log(f"[done] moe_gmm launches: serve {serve_launches} + train "
         f"{counts['moe_gmm']} + jamba {jamba_counts['moe_gmm']} forward, "
@@ -3988,7 +4381,11 @@ def main() -> int:
         f"run; sim_run_batch {sim_res['launches']} launch(es) for the "
         f"[sim] figure grid's {sim_res['rep']['grid_cells']} cells (its "
         f"ms, plain_ms and bound_ms are of the 8 cells held against the "
-        f"plain version; grid_ms is the grid's); total "
+        f"plain version; grid_ms is the grid's); sim_run_batch_traced "
+        f"{durable_res['launches']} launch(es) for [sim_durable]'s traced "
+        f"forensics grid of {durable_res['rep']['grid_cells']} cells (ms, "
+        f"plain_ms and bound_ms of its 4 cells held against the plain "
+        f"version); total "
         f"{time.perf_counter()-t_all:.1f} s")
     for line in dry:                        # the dry run's five checks
         log(line)
@@ -3999,6 +4396,7 @@ def main() -> int:
         log(line)
     log(card_line())                        # again, beside the results
     log(json.dumps({"kernels": kernels}))
+    shutil.rmtree(cache_dir, ignore_errors=True)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

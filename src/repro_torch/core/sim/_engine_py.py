@@ -27,6 +27,15 @@ compile time from a dedicated stream, so the engine's own
 A step-count watchdog (``ctx["max_steps"]``) converts a hung event loop
 into a diagnosable ``status=1`` return; ``status=2`` reports a drained
 loop that completed fewer tasks than the table holds (stranded work).
+A wall-clock ``timeout`` is checked every :data:`DEADLINE_EVERY` events
+(the first included), as the card's kernel checks its ``%globaltimer``,
+and a cell past it raises :class:`~.sweep.CellTimeout`. The loop makes
+no call that could wedge, so the check needs no worker process: the
+port has no fork pool and no ``WorkerDied``.
+
+Under ``ctx["trace"]`` the loop records exec, steal and migration
+events at the JAX package's three points (:mod:`.trace`), extending
+flat row-major lists and columnizing once at the end.
 
 This is what the host runs (``device="cpu"``) and what the card's
 kernel, ``csrc/sim.cu`` (a transcription of the JAX package's C engine,
@@ -37,12 +46,17 @@ Nothing calls it when the simulation runs on a CUDA device.
 from __future__ import annotations
 
 import heapq
+import time
 from collections import deque
 
-__all__ = ["run", "run_batch"]
+__all__ = ["run", "run_batch", "DEADLINE_EVERY"]
+
+# events between two reads of the clock under a timeout (a power of two;
+# the kernel's kDeadlineEvery)
+DEADLINE_EVERY = 4096
 
 
-def run(ctx) -> dict:
+def run(ctx, timeout: "float | None" = None) -> dict:
     heappush = heapq.heappush
     heappop = heapq.heappop
     tbl = ctx["table"]
@@ -152,6 +166,19 @@ def run(ctx) -> dict:
     steal_hops = [0] * (ctx.get("max_hop", 0) + 1)
     node_tasks = [0] * NN
     node_remote = [0.0] * NN
+    # event tracing: extend flat row-major lists in the hot loop,
+    # columnize once at the end (TraceBuffer.from_flat) — an order of
+    # magnitude cheaper per event than indexed array stores
+    tracing = bool(ctx.get("trace"))
+    ex_ev: list = []
+    st_ev: list = []
+    mg_ev: list = []
+    ex_append, st_append, mg_append = \
+        ex_ev.extend, st_ev.extend, mg_ev.extend
+    # None or <= 0: no deadline (runtime.resolve_timeout's reading)
+    deadline = None if timeout is None or timeout <= 0 \
+        else time.monotonic() + timeout
+    clock_mask = DEADLINE_EVERY - 1
 
     def go_offline(now, th, task, cidx):
         # Thread `th` hits offline window `cidx` at `now`, carrying
@@ -195,6 +222,10 @@ def run(ctx) -> dict:
             status = 1
             last_t = t
             break
+        if deadline is not None and steps & clock_mask == 1 \
+                and time.monotonic() >= deadline:
+            from .sweep import CellTimeout
+            raise CellTimeout(timeout, "plain")
         if have_faults:
             c = wcur[th]
             lim = wlim[th]
@@ -252,6 +283,8 @@ def run(ctx) -> dict:
                             # the probe cost, which models queue metadata)
                             d = nd_l[core_node_l[ct]][core_node_l[cores[v]]]
                             steal_hops[d] += 1
+                            if tracing:
+                                st_append((t, th, v, task, d))
                             break
                         failed += 1
                     if task < 0:
@@ -276,8 +309,11 @@ def run(ctx) -> dict:
 
         # ---- run `task` on thread th at time t ----
         if migration_rate > 0.0 and rng.random_sample() < migration_rate:
+            oldc = cores[th]
             cores[th] = int(rng.randint(num_cores_m))
             t += cache_refill
+            if tracing:
+                mg_append((t, th, oldc, cores[th]))
         core = cores[th]
         n = core_node_l[core]
         exec_node[task] = n
@@ -313,6 +349,10 @@ def run(ctx) -> dict:
         total_exec += cost
         node_tasks[n] += 1
         node_remote[n] += w * pen
+        if tracing:
+            ex_append((task, th, core, n,
+                       len(local[th]) if depth_first else len(shared),
+                       t, t + cost))
         t += cost
         executed += 1
 
@@ -434,20 +474,25 @@ def run(ctx) -> dict:
                executed=executed, steps=steps, status=status, last_t=last_t,
                steal_hops=steal_hops, node_tasks=node_tasks,
                node_remote=node_remote)
+    if tracing:
+        from .trace import TraceBuffer
+        out["trace"] = TraceBuffer.from_flat(ex_ev, st_ev, mg_ev)
     return out
 
 
-def run_batch(ctxs) -> list:
+def run_batch(ctxs, timeout: "float | None" = None) -> list:
     """Run many prepared contexts one after another on the host.
 
     Returns one entry per context: the result dict, or the exception the
     cell raised (callers map these to ``CellError``), so one bad cell
-    cannot stop the batch.
+    cannot stop the batch. ``timeout`` is each cell's own wall-clock
+    budget, counted from the moment that cell starts (None or <= 0:
+    none).
     """
     out = []
     for ctx in ctxs:
         try:
-            out.append(run(ctx))
+            out.append(run(ctx, timeout))
         except Exception as e:       # noqa: BLE001 — isolate the cell
             out.append(e)
     return out

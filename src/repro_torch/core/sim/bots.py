@@ -361,13 +361,42 @@ PAPER_BUILDERS = {
 }
 
 
+def workload_cache_key(name: str, scale: str) -> str:
+    """Content-addressed key of one ``make(name, scale)`` product.
+
+    Builder identity = the instance coordinates plus a hash of the
+    builder sources (this module *and* the table layout it compiles
+    into): editing either changes the key, so stale cached tables miss
+    instead of shadowing new code.
+    """
+    from . import bots as _self, compile_cache, table
+    return compile_cache.digest_key(
+        "workload", name, scale,
+        compile_cache.source_fingerprint(_self, table))
+
+
 def make(name: str, scale: str = "medium") -> Workload:
     """Scaled instances. 'medium'/'large' mirror the paper's input sets;
     'paper' builds flat tables at BOTS-like task counts (≥1M tasks) for
-    the data-intensive benchmarks. Built afresh on every call: the port
-    keeps no on-disk cache of tables.
+    the data-intensive benchmarks.
+
+    Compiled tables persist in the :mod:`~.compile_cache`: a warm
+    machine re-opens a paper-scale table as a read-only memory map in
+    milliseconds instead of re-running the builder for seconds. A cache
+    hit returns a table-only workload (``root is None``) — the engines
+    and every ``make`` call site consume only the table.
     """
-    return _build(name, scale)
+    from .compile_cache import get_cache
+    cache = get_cache()
+    key = workload_cache_key(name, scale) if cache is not None else None
+    if cache is not None:
+        wl = cache.get_workload(key)
+        if wl is not None:
+            return wl
+    wl = _build(name, scale)
+    if cache is not None:
+        cache.put_workload(key, wl)
+    return wl
 
 
 def _build(name: str, scale: str) -> Workload:

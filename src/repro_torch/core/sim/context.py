@@ -129,8 +129,24 @@ class BindingSpec:
         key = (self, num_threads, seed if self.kind == "paper" else 0)
         cores = cache.get(key)
         if cores is None:
+            # the paper binding's priority allocation is the one
+            # non-trivial lowering — persist it across processes keyed
+            # by (topology fingerprint, spec, T, seed)
+            pcache = pkey = None
+            if self.kind == "paper":
+                from .compile_cache import digest_key, get_cache
+                pcache = get_cache()
+                if pcache is not None:
+                    pkey = digest_key("binding", topo.fingerprint(),
+                                      repr(self), num_threads, seed)
+                    stored = pcache.get_int_tuple("contexts", pkey)
+                    if stored is not None and len(stored) == num_threads:
+                        cache[key] = stored
+                        return stored
             cores = self._lower_uncached(topo, num_threads, seed)
             cache[key] = cores
+            if pcache is not None:
+                pcache.put_int_tuple("contexts", pkey, cores)
         return cores
 
     def _lower_uncached(self, topo: Topology, T: int, seed: int) -> tuple:
@@ -231,10 +247,22 @@ class PlacementSpec:
         key = (self, start)
         nodes = cache.get(key)
         if nodes is None:
+            from .compile_cache import digest_key, get_cache
+            pcache = get_cache()
+            pkey = None
+            if pcache is not None:
+                pkey = digest_key("placement", topo.fingerprint(),
+                                  repr(self), start)
+                stored = pcache.get_int_tuple("contexts", pkey)
+                if stored is not None and len(stored) == self.spill_nodes:
+                    cache[key] = stored
+                    return stored
             pr = priorities(topo) if self.ties == "priority" else None
             nodes = tuple(first_touch_spill(topo, start, self.spill_nodes,
                                             pr))
             cache[key] = nodes
+            if pcache is not None:
+                pcache.put_int_tuple("contexts", pkey, nodes)
         return nodes
 
 
@@ -397,6 +425,37 @@ class ExecContext:
     def label(self) -> str:
         """Compact display identity, e.g. ``paper/spill:2``."""
         return f"{self.binding.name}/{self.placement.name}"
+
+    def fingerprint(self) -> str:
+        """Stable content digest of everything this context makes the
+        engines observe: the topology fingerprint, the *lowered*
+        core/node tuples (so ``binding="paper"`` and an explicit core
+        list that lowers identically share one identity), the
+        runtime-data/migration knobs, the fault model fields, and the
+        cost-model constants from ``params``. Execution knobs that
+        cannot change a result (``SimParams.workers``,
+        ``SimParams.trace`` — tracing is purely observational) are
+        excluded. The persistent result store keys cells on this; the
+        digest equals the JAX package's for the same context, so a
+        journal written by either package resumes in the other. Cached
+        (the context is frozen and shared across sweep cells).
+        """
+        fp = self.__dict__.get("_fingerprint")
+        if fp is None:
+            import hashlib
+            pfields = tuple(
+                (f.name, getattr(self.params, f.name))
+                for f in dataclasses.fields(self.params)
+                if f.name not in ("workers", "trace"))
+            material = (self.topo.fingerprint(), self.thread_cores,
+                        self.root_data_nodes, self.runtime_data_node,
+                        self.migration_rate,
+                        tuple(dataclasses.astuple(f) for f in self.faults),
+                        pfields)
+            fp = hashlib.blake2b(repr(material).encode(),
+                                 digest_size=16).hexdigest()
+            object.__setattr__(self, "_fingerprint", fp)
+        return fp
 
     @classmethod
     def compile(cls, topo: Topology, params, threads: Optional[int] = None,

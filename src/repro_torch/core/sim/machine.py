@@ -74,12 +74,16 @@ def _sched_name(scheduler) -> str:
 class Grid:
     """A compiled figure grid: a batched :class:`SweepPlan` plus the
     :class:`GridKey` of every cell, in plan order, and the device it
-    runs on (its machine's)."""
+    runs on (its machine's). ``store`` (set at construction via
+    ``Machine.grid(..., store=)`` or per run) makes every run durable —
+    see :meth:`run`."""
 
-    def __init__(self, plan: SweepPlan, keys: list, device=None):
+    def __init__(self, plan: SweepPlan, keys: list, device=None,
+                 store=None):
         self.plan = plan
         self.keys = keys
         self.device = device
+        self.store = store
 
     def __len__(self) -> int:
         return len(self.keys)
@@ -89,15 +93,20 @@ class Grid:
         """Fuse several grids into one batch (single engine call) —
         e.g. per-workload grids whose placements differ (``spill:K``
         with K per benchmark) but that belong to one paper figure.
-        The merged grid runs on the first grid's device."""
+        The merged grid runs on the first grid's device and keeps the
+        first non-None ``store``."""
         merged = Grid(SweepPlan(), [], grids[0].device if grids else None)
         for g in grids:
             merged.plan.configs.extend(g.plan.configs)
             merged.keys.extend(g.keys)
+            if merged.store is None:
+                merged.store = g.store
         return merged
 
     def run(self, strict: bool = True, workers: "int | None" = None,
-            *, retry=None) -> "dict[GridKey, SimResult]":
+            *, store=None, resume: "str | None" = None,
+            timeout: "float | None" = None,
+            retry=None) -> "dict[GridKey, SimResult]":
         """Run the whole grid in one batched engine call.
 
         Returns ``{GridKey: SimResult}`` in cell order — bit-identical,
@@ -105,8 +114,17 @@ class Grid:
         :func:`~.sweep.run_sweep`; ``workers`` changes nothing in the
         port). Under ``strict=False`` a failing cell maps to a
         :class:`~.sweep.CellError` instead of aborting the batch.
-        ``retry`` (a :class:`~.sweep.RetryPolicy`) re-attempts transient
-        failures on the same device.
+
+        Durable execution: ``store`` (a :class:`~.store.ResultStore`
+        or journal path; default: the grid's own) journals every
+        completed cell and replays already-journaled ones, so
+        ``resume="campaign.jsonl"`` — sugar for ``store=`` — picks an
+        interrupted campaign back up bit-identically, re-simulating
+        only the incomplete cells. ``timeout`` (per-cell wall-clock
+        seconds) stops a cell that overruns as a
+        :class:`~.sweep.CellTimeout`, and ``retry`` (a
+        :class:`~.sweep.RetryPolicy`) re-attempts transient failures on
+        the same device; see :func:`~.sweep.run_sweep`.
         """
         if len(set(self.keys)) != len(self.keys):
             seen: set = set()
@@ -115,12 +133,21 @@ class Grid:
                 f"grid has duplicate cells (e.g. {dup}); the result dict "
                 "would silently drop them — dedupe schedulers/seeds or "
                 "the grids passed to Grid.concat")
+        if resume is not None:
+            if store is not None:
+                raise ValueError("pass either store= or resume=, not both")
+            store = resume
+        if store is None:
+            store = self.store
         return dict(zip(self.keys,
                         self.plan.run(strict=strict, workers=workers,
+                                      store=store, timeout=timeout,
                                       retry=retry, device=self.device)))
 
     def run_stats(self, strict: bool = True,
-                  workers: "int | None" = None, *,
+                  workers: "int | None" = None, *, store=None,
+                  resume: "str | None" = None,
+                  timeout: "float | None" = None,
                   retry=None) -> "dict[GridKey, CellStats]":
         """Run the grid and fold the Monte-Carlo seed axis into stats.
 
@@ -129,9 +156,10 @@ class Grid:
         raw per-seed results in ``.results``), keyed by the cell's
         :class:`GridKey` with ``seed=None``. Under ``strict=False``
         failed replicas land in ``.errors`` and the stats cover the
-        survivors.
+        survivors. Durability knobs as in :meth:`run`.
         """
-        res = self.run(strict=strict, workers=workers, retry=retry)
+        res = self.run(strict=strict, workers=workers, store=store,
+                       resume=resume, timeout=timeout, retry=retry)
         groups: "dict[GridKey, list]" = {}
         for k, r in res.items():
             groups.setdefault(k._replace(seed=None), []).append(r)
@@ -156,6 +184,17 @@ class Machine:
         return (f"Machine({self.topo.name}: {self.topo.num_cores} cores / "
                 f"{self.topo.num_nodes} nodes on {self.device}, "
                 f"{len(self._contexts)} cached contexts)")
+
+    @property
+    def compile_cache(self):
+        """The process-wide persistent compile cache handle (or None).
+
+        Every machine — and every grid cell run through one — shares
+        this handle, so its ``stats()`` aggregate table/serial/context
+        hits across a whole campaign.
+        """
+        from .compile_cache import get_cache
+        return get_cache()
 
     # ------------------------------------------------------------------
     def context(self, threads: Optional[int] = None, *,
@@ -211,18 +250,27 @@ class Machine:
     def run(self, workload: Workload, scheduler, *, seed: int = 0,
             context: Optional[ExecContext] = None,
             serial_reference: Optional[float] = None,
-            **context_kwargs) -> SimResult:
+            store=None, **context_kwargs) -> SimResult:
         """Simulate ``workload`` under ``scheduler`` on this machine's
         device.
 
         Pass a pre-compiled ``context=`` or any :meth:`context` keywords
         (``threads=16, binding="paper", placement="spill:2"``) inline.
+        With ``store=`` (a :class:`~.store.ResultStore` or journal
+        path) the cell goes through the durable sweep path: an
+        already-journaled result is replayed without simulating, a
+        fresh one is committed before returning.
         """
         if context is None:
             context = self.context(**context_kwargs)
         elif context_kwargs:
             raise ValueError("pass either context= or context keywords, "
                              f"not both: {sorted(context_kwargs)}")
+        if store is not None:
+            plan = SweepPlan()
+            plan.add_context(context, workload, scheduler, seed=seed,
+                             serial_reference=serial_reference)
+            return plan.run(store=store, device=self.device)[0]
         return run_context(context, workload, scheduler, seed,
                            serial_reference, self.device)
 
@@ -240,7 +288,7 @@ class Machine:
              bindings=("paper",), placements=("first_touch",),
              contexts=None, seeds=(0,), runtime_data="local",
              migration_rate: float = 0.0, faults=None,
-             serial_reference=None) -> Grid:
+             serial_reference=None, store=None) -> Grid:
         """Expand a cartesian product into one batched :class:`Grid`.
 
         Args:
@@ -273,6 +321,10 @@ class Machine:
           serial_reference: speedup denominator — ``None`` (per-cell
             default), one float for every cell, or ``{workload name:
             float}`` (the paper's one-serial-per-benchmark convention).
+          store: a :class:`~.store.ResultStore` (or journal path) every
+            run of the returned grid journals to / replays from — the
+            durable-sweep default for this grid (``Grid.run`` can still
+            override per call).
 
         Validation is aggregated: every invalid cell in the expansion —
         unknown scheduler, bad binding/placement, malformed fault — is
@@ -373,4 +425,4 @@ class Machine:
             raise ValueError(
                 f"{len(errors)} invalid grid cell(s):\n  "
                 + "\n  ".join(uniq))
-        return Grid(plan, keys, self.device)
+        return Grid(plan, keys, self.device, store=store)

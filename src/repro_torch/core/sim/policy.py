@@ -208,14 +208,31 @@ def compile_victim_plan(spec: SchedulerSpec, topo: Topology,
     The cache lives on the (frozen, immutable) topology object, keyed by
     the victim policy and the exact core binding — a benchmark sweep
     re-uses one plan across every (workload, seed, placement) config
-    that shares a binding.
+    that shares a binding — and in the persistent :mod:`.compile_cache`.
     """
     cores = tuple(int(c) for c in thread_cores)
     cache = lazy_cache(topo, "_victim_plan_cache")
     key = (spec.victim, cores)
     plan = cache.get(key)
     if plan is None:
-        plan = VictimPlan(len(cores), _victim_groups(spec.victim, topo, cores))
+        # persist the raw nesting across processes keyed by (topology
+        # fingerprint, victim policy, binding); VictimPlan's derived
+        # forms (py_groups/static_order/flat) recompute deterministically
+        from .compile_cache import digest_key, get_cache
+        pcache = get_cache()
+        pkey = None
+        groups = None
+        if pcache is not None:
+            pkey = digest_key("victim_plan", topo.fingerprint(),
+                              spec.victim, cores)
+            groups = pcache.get_victim_groups(pkey)
+            if groups is not None and len(groups) != len(cores):
+                groups = None
+        if groups is None:
+            groups = _victim_groups(spec.victim, topo, cores)
+            if pcache is not None:
+                pcache.put_victim_groups(pkey, groups)
+        plan = VictimPlan(len(cores), groups)
         cache[key] = plan
     return plan
 

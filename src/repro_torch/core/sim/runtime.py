@@ -62,15 +62,19 @@ Engine architecture (this module is the public API; own copy of
   :mod:`.sweep`: a ``SweepPlan`` shares every compiled artifact across
   configs and the card runs the whole batch in one kernel launch (or a
   few waves, where device memory asks for them).
-
-Not in the port yet: event tracing (``SimParams(trace=True)`` raises),
-the durable result store, the on-disk compile cache and per-cell
-wall-clock timeouts.
+* ``SimParams(trace=True)`` records every committed execution, steal
+  and migration (:mod:`.trace`); on the card it launches the kernel's
+  traced instantiation, whose untraced twin carries no per-event
+  bookkeeping. Compiled tables, serial references, context lowerings
+  and victim plans persist across processes in :mod:`.compile_cache`;
+  :mod:`.store` journals sweep results, and :func:`resolve_timeout`
+  gives each cell a wall-clock deadline.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -85,7 +89,8 @@ from .table import TaskTable, compile_tree
 __all__ = [
     "TaskSpec", "Workload", "SimParams", "SimResult", "SimStalled",
     "simulate", "run_context", "serial_time", "run_cells",
-    "SCHEDULERS", "SchedulerSpec", "TaskTable", "ensure_table",
+    "resolve_timeout", "SCHEDULERS", "SchedulerSpec", "TaskTable",
+    "ensure_table",
 ]
 
 
@@ -209,7 +214,10 @@ class SimParams:
     # kernel launch (one thread per cell) on the card and serially on
     # the host, so this changes nothing; kept so the field set matches.
     workers: int = 0
-    # full event trace: not in the port yet — True raises at run time.
+    # record a full event trace (see trace.TraceBuffer) on SimResult.trace.
+    # Purely observational: metrics are bit-identical traced vs untraced
+    # (the card's untraced instantiation carries no per-event
+    # bookkeeping), and both engines record the same events.
     trace: bool = False
 
 
@@ -237,6 +245,10 @@ class SimResult:
     # which engine actually ran ('cuda' or 'plain'); excluded from
     # equality so cross-engine parity checks compare metrics only.
     engine: str = dataclasses.field(default="", compare=False)
+    # full event trace (a trace.TraceBuffer) when SimParams(trace=True);
+    # observational, so excluded from equality like ``engine``.
+    trace: "object | None" = dataclasses.field(default=None, compare=False,
+                                               repr=False)
 
 
 def _root_data_setup(topo: Topology, core: int, root_data_nodes):
@@ -276,8 +288,11 @@ def serial_time(topo: Topology, workload: Workload, core: int,
     The traversal runs over the compiled task table in the same stack
     order as the original tree walk (bit-identical sum), and the result
     is cached on the table per (distance, µ, λ) key — benchmark scripts
-    call this with identical arguments hundreds of times. It runs on the
-    host: one walk a workload, as the JAX package's does.
+    call this with identical arguments hundreds of times — *and* in the
+    persistent :mod:`~.compile_cache` keyed by (table fingerprint,
+    topology fingerprint, root distance, µ, λ), so the full serial walk
+    runs once per machine (JSON round-trips the float exactly). It runs
+    on the host: one walk a workload, as the JAX package's does.
     """
     p = params or SimParams()
     _, root_dist = _root_data_setup(topo, core, root_data_nodes)
@@ -287,6 +302,19 @@ def serial_time(topo: Topology, workload: Workload, core: int,
     cached = tbl._serial_cache.get(key)
     if cached is not None:
         return cached
+    # consult the persistent cache *before* tbl.lists() — materializing
+    # the list views of a paper-scale table costs ~1 s by itself
+    from .compile_cache import digest_key, get_cache
+    pcache = get_cache()
+    pkey = None
+    if pcache is not None:
+        pkey = digest_key("serial", tbl.fingerprint(), topo.fingerprint(),
+                          d_root, float(workload.mem_intensity),
+                          float(p.hop_lambda))
+        stored = pcache.get_serial(pkey)
+        if stored is not None:
+            tbl._serial_cache[key] = stored
+            return stored
     mu_lam = workload.mem_intensity * p.hop_lambda
     coef = [(mu_lam * fr) * d_root for fr in tbl.cls_f_root.tolist()]
     wp_l, wpo_l, fc_l, nc_l, fpw_l, npw_l, _, cls_l = tbl.lists()
@@ -306,7 +334,33 @@ def serial_time(topo: Topology, workload: Workload, core: int,
             base = fpw_l[i]
             extend(range(base, base + kp))
     tbl._serial_cache[key] = total
+    if pcache is not None:
+        pcache.put_serial(pkey, total)
     return total
+
+
+def resolve_timeout(timeout: "float | None" = None) -> "float | None":
+    """Resolve the per-cell wall-clock timeout (seconds, or None).
+
+    Precedence: explicit ``timeout`` argument > the ``REPRO_SIM_TIMEOUT``
+    env var > None (no deadline). ``0`` or negative disables. Each cell's
+    clock starts when that cell starts: on the card when its thread
+    begins the cell (``%globaltimer``), on the host when the plain
+    version takes it up. Both check the deadline every few thousand
+    events and stop the cell with a :class:`~.sweep.CellTimeout`; its
+    siblings run on untouched.
+    """
+    if timeout is not None:
+        return float(timeout) if timeout > 0 else None
+    env = os.environ.get("REPRO_SIM_TIMEOUT")
+    if env is not None and env.strip():
+        try:
+            t = float(env)
+        except ValueError:
+            raise ValueError(
+                f"REPRO_SIM_TIMEOUT={env!r}: expected seconds") from None
+        return t if t > 0 else None
+    return None
 
 
 def _prepare_ctx(ectx: ExecContext,
@@ -321,9 +375,6 @@ def _prepare_ctx(ectx: ExecContext,
     """
     topo = ectx.topo
     p = ectx.params
-    if getattr(p, "trace", False):
-        raise NotImplementedError(
-            "SimParams(trace=True): event tracing is not in the port yet")
     cores = [int(c) for c in ectx.thread_cores]
     tbl = ensure_table(workload)
     root_data_nodes, root_dist = _root_data_setup(topo, cores[0],
@@ -361,8 +412,9 @@ def _prepare_ctx(ectx: ExecContext,
         ms = 10_000 + 1_000 * len(cores) + 50 * (tbl.n + nw)
     ctx["max_steps"] = int(ms)
     ctx["scheduler_name"] = spec.name
-    # hop-histogram width (max hop distance + 1) of the always-on
-    # aggregates
+    # trace capture flag + hop-histogram width (max hop distance + 1);
+    # the always-on aggregates need the width even when tracing is off.
+    ctx["trace"] = bool(getattr(p, "trace", False))
     ctx["max_hop"] = int(ctx["node_dist_flat"].max())
     # Fresh per-config stream, seeded exactly as the seed engine did.
     # Victim-plan compilation consumes no draws, so the engine always
@@ -381,6 +433,13 @@ def _finish_result(ctx: dict, out: dict, serial: float,
                          out.get("executed", 0), ctx["table"].n)
     makespan = out["makespan"]
     rf = out["remote"] / max(out["total_exec"], 1e-12)
+    tr = out.get("trace")
+    if tr is not None:
+        tr.meta.update(
+            scheduler=ctx.get("scheduler_name", "?"), seed=int(ctx["seed"]),
+            engine=engine, threads=int(ctx["T"]),
+            num_nodes=int(ctx["num_nodes"]), num_cores=int(ctx["num_cores"]),
+            tasks=int(ctx["table"].n), makespan=float(makespan))
     return SimResult(
         makespan=makespan,
         serial_time=serial,
@@ -397,10 +456,11 @@ def _finish_result(ctx: dict, out: dict, serial: float,
         node_tasks=tuple(int(x) for x in out.get("node_tasks", ())),
         node_remote=tuple(float(x) for x in out.get("node_remote", ())),
         engine=engine,
+        trace=tr,
     )
 
 
-def run_cells(ctxs: list, device) -> tuple:
+def run_cells(ctxs: list, device, timeout: "float | None" = None) -> tuple:
     """Run prepared contexts on ``device``: one entry per context, the
     raw result dict or the exception that cell raised.
 
@@ -408,18 +468,20 @@ def run_cells(ctxs: list, device) -> tuple:
     (:func:`repro_torch.kernels.sim.run_batch`, which launches or
     raises: a build or launch failure propagates, no cell falls back to
     the host); ``cpu`` runs the plain version, one cell after another.
+    ``timeout`` (seconds, or None) is each cell's wall-clock deadline: a
+    cell that passes it gets a :class:`~.sweep.CellTimeout` in its slot.
     Returns ``(results, engine)``.
     """
     import torch
     dev = torch.device(device)
     if dev.type == "cuda":
         from ...kernels import sim as sim_kernel
-        return sim_kernel.run_batch(ctxs, dev), "cuda"
+        return sim_kernel.run_batch(ctxs, dev, timeout=timeout), "cuda"
     if dev.type != "cpu":
         raise ValueError(f"the simulator runs on 'cuda' or 'cpu', not "
                          f"{dev.type!r}")
     from . import _engine_py
-    return _engine_py.run_batch(ctxs), "plain"
+    return _engine_py.run_batch(ctxs, timeout=timeout), "plain"
 
 
 def run_context(ectx: ExecContext,

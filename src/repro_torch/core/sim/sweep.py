@@ -37,14 +37,19 @@ or, declaratively (one call per paper figure)::
     Machine(topo).grid(workloads=[wl], schedulers=("wf", "dfwsrpt"),
                        threads=(2, 4, 8, 16), placements=("spill:2",))
 
-Not in the port yet: the durable result store (``store=``) and per-cell
-wall-clock timeouts (``timeout=``); both raise when asked for.
+Durable sweeps: ``store=`` journals every completed cell and replays
+journaled ones without preparing a context or launching (:mod:`.store`);
+``timeout=`` gives each cell a wall-clock deadline, checked inside the
+cell on the card and on the host alike. The JAX package runs a timed
+batch on a fork pool of killable workers and has ``WorkerDied``; the
+port has no worker processes, so it has neither.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Optional, Sequence
 
@@ -53,10 +58,31 @@ import numpy as np
 from . import policy
 from .context import ExecContext
 from .runtime import (SimParams, SimResult, SimStalled, Workload,
-                      _finish_result, _prepare_ctx, run_cells, serial_time)
+                      _finish_result, _prepare_ctx, resolve_timeout,
+                      run_cells, serial_time)
 
-__all__ = ["SweepConfig", "SweepPlan", "CellError", "RetryPolicy",
-           "run_sweep", "Stat", "CellStats", "aggregate"]
+__all__ = ["SweepConfig", "SweepPlan", "CellError", "CellTimeout",
+           "RetryPolicy", "run_sweep", "Stat", "CellStats", "aggregate"]
+
+
+class CellTimeout(RuntimeError):
+    """A cell exceeded its wall-clock budget and was stopped.
+
+    Recorded in the cell's slot (a :class:`CellError` under
+    ``strict=False``) — this is the *wall-clock* complement of the step
+    watchdog: the watchdog catches a sim-logic stall inside a running
+    loop, the timeout a loop that makes steps too slowly to ever trip
+    it. The cell itself checks its deadline (every few thousand events:
+    ``%globaltimer`` on the card, ``time.monotonic`` on the host) and
+    stops; the other cells of the batch run on untouched.
+    """
+
+    def __init__(self, timeout: float, engine: str):
+        self.timeout = timeout
+        self.engine = engine
+        super().__init__(
+            f"cell exceeded the {timeout:g}s wall-clock timeout on the "
+            f"{engine!r} engine; the cell stopped at its deadline")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,8 +91,9 @@ class RetryPolicy:
 
     A failed cell gets up to ``retries`` re-attempts beyond the first,
     with ``backoff * 2**k`` seconds of sleep before retry round ``k``
-    (capped at ``max_backoff``). A retry runs on the same device as the
-    first attempt: the port has no ``degrade`` ladder, so a cell that
+    (capped at ``max_backoff``); a :class:`CellTimeout` counts as
+    transient, as in the JAX package. A retry runs on the same device as
+    the first attempt: the port has no ``degrade`` ladder, so a cell that
     failed on the card is never re-run by the plain version on the
     host. Deterministic failures (:class:`~.runtime.SimStalled`, bad
     configs, engine exceptions like ``ValueError``) are never retried —
@@ -78,7 +105,7 @@ class RetryPolicy:
 
 
 # Failure types worth re-attempting: environmental, not deterministic.
-_TRANSIENT = (MemoryError, OSError)
+_TRANSIENT = (MemoryError, OSError, CellTimeout)
 
 
 @dataclasses.dataclass
@@ -294,27 +321,41 @@ def run_sweep(plan: "SweepPlan | Sequence[SweepConfig]",
     ``strict=True`` (default) the first failure raises, with the cell
     label attached (``SimStalled.cell`` for stalls).
 
-    ``retry``: a :class:`RetryPolicy`; transient failures (memory
-    pressure) are re-attempted with capped exponential backoff on the
-    same device. ``store`` and ``timeout`` (the JAX package's durable
-    journal and per-cell wall-clock limits) are not in the port yet and
-    raise when given.
+    Durable execution (all opt-in, golden paths untouched):
+
+    * ``store`` — a :class:`~.store.ResultStore` (or a journal path):
+      cells whose :func:`~.store.cell_key` is already journaled are
+      *replayed* from the store — no context preparation, no launch —
+      and every newly completed cell is committed as its result is
+      unpacked. A fully warm store answers the whole sweep without
+      touching the device. Only successes are journaled; failures are
+      re-attempted on the next run. A traced result's events go to the
+      store's sidecar ``.npz`` (``ResultStore.get_trace``).
+    * ``timeout`` — per-cell wall-clock seconds (default: the
+      ``REPRO_SIM_TIMEOUT`` env var; see
+      :func:`~.runtime.resolve_timeout`). A cell that overruns stops
+      itself and is recorded as a :class:`CellTimeout`; its siblings
+      run on untouched. The JAX package kills a fork worker instead;
+      the port's cells run in the kernel or in this process, so the
+      cell checks its own deadline.
+    * ``retry`` — a :class:`RetryPolicy`: transient failures (memory
+      pressure, a timeout) are re-attempted with capped exponential
+      backoff on the same device. Deterministic failures never retry.
     """
-    if store is not None:
-        raise NotImplementedError("store=: the durable result store is not "
-                                  "in the port yet")
-    if timeout is not None:
-        raise NotImplementedError("timeout=: per-cell wall-clock timeouts "
-                                  "are not in the port yet")
     from ... import default_device
-    dev = default_device(device)
     configs = list(plan.configs if isinstance(plan, SweepPlan) else plan)
     if not configs:
         return []
+    if store is not None and not hasattr(store, "get"):
+        from .store import ResultStore
+        store = ResultStore(os.fspath(store))
+    timeout = resolve_timeout(timeout)
     n = len(configs)
     results: "list[SimResult | CellError | None]" = [None] * n
 
-    # Pass 1: resolve config → context and serial reference.
+    # Pass 1: resolve config → context and serial reference, satisfy
+    # store hits, collect the cells that actually need simulating. No
+    # device is touched until a miss demands one.
     pending: list = []           # per-cell mutable descriptor dicts
     for i, cfg in enumerate(configs):
         try:
@@ -328,13 +369,24 @@ def run_sweep(plan: "SweepPlan | Sequence[SweepConfig]",
                 serial = serial_time(ectx.topo, cfg.workload,
                                      ectx.thread_cores[0],
                                      ectx.root_data_nodes, ectx.params)
+            key = None
+            if store is not None:
+                from .store import cell_key
+                key = cell_key(ectx, cfg.workload, spec, cfg.seed, serial)
+                hit = store.get(key)
+                if hit is not None:
+                    results[i] = hit
+                    continue
         except Exception as e:
             if strict:
                 raise
             results[i] = CellError(_cell_label(cfg, i), i, e)
             continue
         pending.append(dict(i=i, cfg=cfg, spec=spec, ectx=ectx,
-                            serial=serial, attempts=[]))
+                            serial=serial, key=key, attempts=[]))
+    if not pending:
+        return results           # fully warm store: nothing ran
+    dev = default_device(device)
     max_attempts = 1 + (retry.retries if retry is not None else 0)
 
     def record_failure(cell, err, eng):
@@ -376,7 +428,7 @@ def run_sweep(plan: "SweepPlan | Sequence[SweepConfig]",
             ctxs.append(ctx)
         if not ctxs:
             continue
-        outs, eng = run_cells(ctxs, dev)
+        outs, eng = run_cells(ctxs, dev, timeout)
         for cell, ctx, out in zip(ready, ctxs, outs):
             if isinstance(out, Exception):
                 nxt = record_failure(cell, out, eng)
@@ -391,6 +443,8 @@ def run_sweep(plan: "SweepPlan | Sequence[SweepConfig]",
                 nxt = record_failure(cell, e, eng)
                 assert nxt is None
                 continue
+            if store is not None:
+                store.put(cell["key"], res)
             results[cell["i"]] = res
     return results
 

@@ -6,7 +6,8 @@ use into its own shared library,
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
-under ``kernels/build/`` (listed in ``.gitignore``), keyed by a hash of
+under ``kernels/build/`` (listed in ``.gitignore``, the compiler's
+output beside it as ``lib<name>-<hash>.log``), keyed by a hash of
 the sources (with every ``csrc/*.cuh`` header) and the flags, then loaded
 with ``ctypes``. A source may add flags of its own (``_SOURCE_FLAGS``):
 ``sim.cu`` is built with ``--fmad=false``, since the simulator must match
@@ -44,8 +45,9 @@ _SOURCE_FLAGS = {"sim": ("--fmad=false",)}
 
 SOURCES = tuple(sorted(p.stem for p in _CSRC.glob("*.cu")))
 
-# compiler output of each source built by this process (ptxas registers,
-# shared memory and spills, from -Xptxas -v)
+# compiler output of each built source (ptxas registers, shared memory and
+# spills, from -Xptxas -v), kept beside its library and read back by
+# every build() that finds the library built
 build_logs: dict[str, str] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 _functions: dict[tuple[str, str], object] = {}
@@ -83,12 +85,20 @@ def _target(name: str) -> Path:
     return _BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _log(name: str) -> Path:
+    return _target(name).with_suffix(".log")
+
+
 def build(names=SOURCES) -> None:
-    """Compile every named source that is not built yet, in parallel."""
+    """Compile every named source that is not built yet, in parallel, and
+    fill ``build_logs`` for every named source."""
     unknown = sorted(set(names) - set(SOURCES))
     if unknown:
         raise ValueError(f"no CUDA source for {unknown}; have {SOURCES}")
-    pending = [n for n in names if not _target(n).exists()]
+    pending = [n for n in names
+               if not (_target(n).exists() and _log(n).exists())]
+    for name in set(names) - set(pending):
+        build_logs[name] = _log(name).read_text()
     if not pending:
         return
     nvcc = _nvcc()
@@ -108,6 +118,10 @@ def build(names=SOURCES) -> None:
         if proc.returncode:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
         else:
+            # the log first: a library on disk always has its log
+            tmp_log = tmp.with_suffix(".log")
+            tmp_log.write_text(log)
+            os.replace(tmp_log, _log(name))
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA build failed: " + "\n".join(failed))

@@ -60,13 +60,37 @@
 // kernel runs hundreds of times above it, because the chains, not the
 // bytes, decide the time. PERF.md has both.
 //
+// Two flags make four instantiations of the loop (template parameters of
+// `sim_cell`, as _csim.c:617-632 includes _csim_core.h twice):
+//   * kTraced — the counterpart of _csim.c's `sim_run_traced`: the cell
+//     writes every committed execution, successful steal and thread
+//     migration (core/sim/trace.py has the semantics) into its own slice
+//     of flat device columns, in commit order. The slices are sized on the
+//     host from bounds the loop cannot pass (exec <= n, steals <= pushes
+//     onto a deque <= n - 1 + W, migrations <= attempts <= n + W, W the
+//     fault plan's windows: each window takes a thread offline once), so
+//     nothing grows in the kernel and no event is dropped; a cell that
+//     would still pass its slice stops with kTraceOverflow (never a
+//     truncated trace). The untraced instantiation keeps no per-event
+//     bookkeeping at all: every recording site is `if constexpr`.
+//   * kTimed — a per-cell wall-clock deadline: the thread reads
+//     %globaltimer when *its* cell starts (cells start at different times:
+//     not every cell of a batch is resident at once) and every
+//     kDeadlineEvery events, the first included; past the deadline the
+//     cell stops with kTimedOut and its siblings run on.
+// The main path's untraced, untimed instantiation is the loop as it was.
+//
 // Built as host C++ (no __CUDACC__), the same loop runs on the CPU
-// through `sim_run_batch_host` and the `*_selftest_host` entries: the
-// tests compile it that way to hold the transcription to the plain
-// version where there is no card.
+// through `sim_run_batch_host` (every instantiation, as sim_run_batch
+// chooses one) and the `*_selftest_host` entries: the tests compile it
+// that way to hold the transcription to the plain version where there is
+// no card.
 
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <chrono>
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -99,6 +123,9 @@ enum Desc {
   kNodeRemote,                         // aggd
   kWs,                                 // workspace byte offset
   kWsBytes,                            // workspace bytes given
+  kExOff, kExCap,                      // trace columns: the cell's slice
+  kStOff, kStCap,                      //   (offset, capacity) of each
+  kMgOff, kMgCap,                      //   event family, in events
   kDescLen
 };
 
@@ -106,6 +133,55 @@ enum Desc {
 constexpr int64_t kHeapOverflow = -2;
 constexpr int64_t kSetOverflow = -3;
 constexpr int64_t kWorkspaceShort = -4;
+constexpr int64_t kTraceOverflow = -5;
+constexpr int64_t kTimedOut = -6;
+
+// events between two reads of the clock (core/sim/_engine_py.py
+// DEADLINE_EVERY)
+constexpr int64_t kDeadlineEvery = 4096;
+
+// The trace columns of a wave (traced instantiation): per event family
+// one int64 block and one double block, column-major with the family's
+// total capacity as stride (exec: task, thread, core, node, qlen | start,
+// end; steal: thief, victim, task, dist | time; migration: thread, from,
+// to | time), and 3 counts per cell slot.
+struct TraceCols {
+  int64_t* ex_i;
+  double* ex_d;
+  int64_t* st_i;
+  double* st_d;
+  int64_t* mg_i;
+  double* mg_d;
+  int64_t ex_len, st_len, mg_len;
+  int64_t* counts;
+};
+
+// One cell's slice of them.
+struct TraceSlot {
+  int64_t* ei;
+  double* ed;
+  int64_t ecap, es;
+  int64_t* si;
+  double* sd;
+  int64_t scap, ss;
+  int64_t* mi;
+  double* md;
+  int64_t mcap, ms;
+  int64_t* counts;
+};
+
+// nanoseconds on a clock that only moves forward
+SIM_DEV uint64_t clock_ns() {
+#ifdef __CUDA_ARCH__
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+#else
+  return (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+#endif
+}
 
 // --------------------------------------------------------------------
 // MT19937 — numpy legacy RandomState bitstream replica (_csim.c:47-108)
@@ -484,9 +560,11 @@ SIM_DEV int go_offline(FaultEnv* env, double now, int64_t th, int64_t task,
 }
 
 // --------------------------------------------------------------------
-// One cell: the untraced loop of _csim_core.h, line for line
+// One cell: the loop of _csim_core.h, line for line (see the top for the
+// two flags)
 // --------------------------------------------------------------------
 
+template <bool kTraced, bool kTimed>
 SIM_DEV int64_t sim_cell(const double* dpar, const int64_t* ipar,
                          const double* wp, const double* wpo,
                          const double* fr, const double* fp,
@@ -502,7 +580,15 @@ SIM_DEV int64_t sim_cell(const double* dpar, const int64_t* ipar,
                          const double* fwend, double* dout, int64_t* iout,
                          int64_t* agg_steal_hops, int64_t* agg_node_tasks,
                          double* agg_node_remote, uint8_t* ws,
-                         int64_t ws_bytes) {
+                         int64_t ws_bytes, const TraceSlot& tr,
+                         int64_t deadline_ns) {
+  uint64_t t_start = 0;
+  if constexpr (kTimed) t_start = clock_ns();
+  int64_t n_ex = 0, n_st = 0, n_mg = 0;
+  (void)n_ex;
+  (void)n_st;
+  (void)n_mg;
+  (void)t_start;
   const double hop_lambda = dpar[0], hop_lambda_steal = dpar[1];
   const double lock_time = dpar[2], deque_lock_time = dpar[3];
   const double steal_time = dpar[4], spawn_time = dpar[5];
@@ -602,6 +688,11 @@ SIM_DEV int64_t sim_cell(const double* dpar, const int64_t* ipar,
       last_t = t;
       break;
     }
+    if constexpr (kTimed) {
+      if ((steps & (kDeadlineEvery - 1)) == 1 &&
+          clock_ns() - t_start >= (uint64_t)deadline_ns)
+        return kTimedOut;
+    }
     if (has_faults) {
       int64_t c = wcur[th];
       const int64_t lim = fwoff[th + 1];
@@ -660,7 +751,17 @@ SIM_DEV int64_t sim_cell(const double* dpar, const int64_t* ipar,
               task = dq_pop_front(&dq, v);
               // hop distance thief core -> victim core (the stolen
               // task's data locality)
-              agg_steal_hops[node_dist[tn * NN + core_node[cores[v]]]]++;
+              const int64_t sd = node_dist[tn * NN + core_node[cores[v]]];
+              agg_steal_hops[sd]++;
+              if constexpr (kTraced) {
+                if (n_st >= tr.scap) return kTraceOverflow;
+                tr.sd[n_st] = t;
+                tr.si[n_st] = th;
+                tr.si[n_st + tr.ss] = v;
+                tr.si[n_st + 2 * tr.ss] = task;
+                tr.si[n_st + 3 * tr.ss] = sd;
+                n_st++;
+              }
               break;
             }
             failed++;
@@ -690,11 +791,21 @@ SIM_DEV int64_t sim_cell(const double* dpar, const int64_t* ipar,
 
     // ---- run `task` on thread th at time t ----
     if (migration_rate > 0.0 && rk_double(&rng) < migration_rate) {
+      const int64_t mig_from = cores[th];
+      (void)mig_from;
       // randint(1) is special-cased by numpy: no draw consumed
       cores[th] = (num_cores > 1)
                       ? (int64_t)rk_interval(&rng, (uint32_t)(num_cores - 1))
                       : 0;
       t += cache_refill;
+      if constexpr (kTraced) {
+        if (n_mg >= tr.mcap) return kTraceOverflow;
+        tr.md[n_mg] = t;
+        tr.mi[n_mg] = th;
+        tr.mi[n_mg + tr.ms] = mig_from;
+        tr.mi[n_mg + 2 * tr.ms] = cores[th];
+        n_mg++;
+      }
     }
     const int64_t core = cores[th];
     const int64_t n = core_node[core];
@@ -727,6 +838,18 @@ SIM_DEV int64_t sim_cell(const double* dpar, const int64_t* ipar,
     total_exec += cost;
     agg_node_tasks[n]++;
     agg_node_remote[n] += w * pen;
+    if constexpr (kTraced) {
+      // the commit point: queue depth sampled now, [t, t + cost)
+      if (n_ex >= tr.ecap) return kTraceOverflow;
+      tr.ei[n_ex] = task;
+      tr.ei[n_ex + tr.es] = th;
+      tr.ei[n_ex + 2 * tr.es] = core;
+      tr.ei[n_ex + 3 * tr.es] = n;
+      tr.ei[n_ex + 4 * tr.es] = depth_first ? dq.len[th] : dq.len[SH];
+      tr.ed[n_ex] = t;
+      tr.ed[n_ex + tr.es] = t + cost;
+      n_ex++;
+    }
     t += cost;
     executed++;
 
@@ -851,15 +974,38 @@ SIM_DEV int64_t sim_cell(const double* dpar, const int64_t* ipar,
   iout[4] = executed;
   iout[5] = steps;
   iout[6] = status;
+  if constexpr (kTraced) {
+    tr.counts[0] = n_ex;
+    tr.counts[1] = n_st;
+    tr.counts[2] = n_mg;
+  }
   return 0;
 }
 
 // One cell of a batch from its descriptor row.
+template <bool kTraced, bool kTimed>
 SIM_DEV void run_one(const int64_t* d, const double* dbuf, int64_t* ibuf,
                      uint8_t* ws, double* dout, int64_t* iout, int64_t* aggi,
-                     double* aggd, int64_t* rc) {
+                     double* aggd, int64_t* rc, const TraceCols& tc,
+                     int64_t deadline_ns) {
   const int64_t out = d[kOut];
-  rc[out] = sim_cell(
+  TraceSlot tr = {};
+  if constexpr (kTraced) {
+    tr.ei = tc.ex_i + d[kExOff];
+    tr.ed = tc.ex_d + d[kExOff];
+    tr.ecap = d[kExCap];
+    tr.es = tc.ex_len;
+    tr.si = tc.st_i + d[kStOff];
+    tr.sd = tc.st_d + d[kStOff];
+    tr.scap = d[kStCap];
+    tr.ss = tc.st_len;
+    tr.mi = tc.mg_i + d[kMgOff];
+    tr.md = tc.mg_d + d[kMgOff];
+    tr.mcap = d[kMgCap];
+    tr.ms = tc.mg_len;
+    tr.counts = tc.counts + 3 * out;
+  }
+  rc[out] = sim_cell<kTraced, kTimed>(
       dbuf + d[kDpar], ibuf + d[kIpar], dbuf + d[kWp], dbuf + d[kWpo],
       dbuf + d[kFr], dbuf + d[kFp], ibuf + d[kFc], ibuf + d[kNc],
       ibuf + d[kFpw], ibuf + d[kNpw], ibuf + d[kPar], ibuf + d[kCoreNode],
@@ -867,7 +1013,8 @@ SIM_DEV void run_one(const int64_t* d, const double* dbuf, int64_t* ibuf,
       ibuf + d[kGoff], ibuf + d[kUoff], ibuf + d[kVoff], ibuf + d[kVictims],
       dbuf + d[kFspeed], ibuf + d[kFwoff], dbuf + d[kFwstart],
       dbuf + d[kFwend], dout + 6 * out, iout + 7 * out, aggi + d[kHops],
-      aggi + d[kNodeTasks], aggd + d[kNodeRemote], ws + d[kWs], d[kWsBytes]);
+      aggi + d[kNodeTasks], aggd + d[kNodeRemote], ws + d[kWs], d[kWsBytes],
+      tr, deadline_ns);
 }
 
 // The self-tests' bodies (_csim.c:816-855), run by one thread.
@@ -914,16 +1061,19 @@ SIM_DEV int64_t set_body(int64_t nops, const int64_t* ops, int64_t max_key,
 
 // cells_per_warp cells share a warp: the block's threads are taken in
 // runs of 32 / cells_per_warp, the first of each run runs a cell.
+template <bool kTraced, bool kTimed>
 __global__ void sim_batch_kernel(int64_t n_cells, const int64_t* desc,
                                  const double* dbuf, int64_t* ibuf,
                                  uint8_t* ws, double* dout, int64_t* iout,
                                  int64_t* aggi, double* aggd, int64_t* rc,
-                                 int spread) {
+                                 int spread, TraceCols tc,
+                                 int64_t deadline_ns) {
   const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (g % spread) return;
   const int64_t k = g / spread;
   if (k >= n_cells) return;
-  run_one(desc + k * kDescLen, dbuf, ibuf, ws, dout, iout, aggi, aggd, rc);
+  run_one<kTraced, kTimed>(desc + k * kDescLen, dbuf, ibuf, ws, dout, iout,
+                           aggi, aggd, rc, tc, deadline_ns);
 }
 
 __global__ void mt_kernel(uint32_t seed, int64_t n, uint32_t* out,
@@ -943,6 +1093,24 @@ __global__ void set_kernel(int64_t nops, const int64_t* ops, int64_t max_key,
 
 #endif  // __CUDACC__
 
+// The trace columns from the wrappers' ten int64 arguments: the six
+// column pointers, the three family lengths and the counts pointer.
+TraceCols trace_cols(const int64_t* a) {
+  TraceCols tc = {};
+  if (!a) return tc;
+  tc.ex_i = reinterpret_cast<int64_t*>(a[0]);
+  tc.ex_d = reinterpret_cast<double*>(a[1]);
+  tc.st_i = reinterpret_cast<int64_t*>(a[2]);
+  tc.st_d = reinterpret_cast<double*>(a[3]);
+  tc.mg_i = reinterpret_cast<int64_t*>(a[4]);
+  tc.mg_d = reinterpret_cast<double*>(a[5]);
+  tc.ex_len = a[6];
+  tc.st_len = a[7];
+  tc.mg_len = a[8];
+  tc.counts = reinterpret_cast<int64_t*>(a[9]);
+  return tc;
+}
+
 }  // namespace
 
 // Bytes of one cell's workspace for n tasks on T threads.
@@ -957,18 +1125,42 @@ extern "C" int64_t sim_set_workspace_bytes(int64_t max_key) {
 
 #ifdef __CUDACC__
 
+namespace {
+
+template <bool kTraced, bool kTimed>
+void launch_batch(unsigned blocks, int threads, cudaStream_t s,
+                  int64_t n_cells, const void* desc, const void* dbuf,
+                  void* ibuf, void* ws, void* dout, void* iout, void* aggi,
+                  void* aggd, void* rc, int spread, const TraceCols& tc,
+                  int64_t deadline_ns) {
+  sim_batch_kernel<kTraced, kTimed><<<blocks, threads, 0, s>>>(
+      n_cells, static_cast<const int64_t*>(desc),
+      static_cast<const double*>(dbuf), static_cast<int64_t*>(ibuf),
+      static_cast<uint8_t*>(ws), static_cast<double*>(dout),
+      static_cast<int64_t*>(iout), static_cast<int64_t*>(aggi),
+      static_cast<double*>(aggd), static_cast<int64_t*>(rc), spread, tc,
+      deadline_ns);
+}
+
+}  // namespace
+
 // One wave of a batch: cells [0, n_cells) of `desc` (kDescLen int64
 // each), every pointer on the device, `ws` the wave's workspace
 // (`ws_bytes` of it, zeroed here). dout (6), iout (7) and rc (1) are
 // indexed by each cell's kOut slot. cells_per_warp in {1, 2, 4, ..., 32}.
+// `traced` launches the traced instantiation, writing into the columns
+// that `trace_args` (host memory, ten int64: see trace_cols) names; a
+// `deadline_ns` >= 0 launches the timed one (< 0: no deadline).
 // Returns a cudaError_t (0 = ok).
 extern "C" int sim_run_batch(int64_t n_cells, const void* desc,
                              const void* dbuf, void* ibuf, void* ws,
                              int64_t ws_bytes, void* dout, void* iout,
                              void* aggi, void* aggd, void* rc,
-                             int cells_per_warp, void* stream) {
+                             int cells_per_warp, int traced,
+                             int64_t deadline_ns, const int64_t* trace_args,
+                             void* stream) {
   if (n_cells <= 0 || cells_per_warp < 1 || cells_per_warp > 32 ||
-      32 % cells_per_warp)
+      32 % cells_per_warp || (traced && !trace_args))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(ws, 0, (size_t)ws_bytes, s);
@@ -976,13 +1168,25 @@ extern "C" int sim_run_batch(int64_t n_cells, const void* desc,
   const int spread = 32 / cells_per_warp;
   const int threads = 128;
   const int64_t total = n_cells * spread;
-  const int64_t blocks = (total + threads - 1) / threads;
-  sim_batch_kernel<<<(unsigned)blocks, threads, 0, s>>>(
-      n_cells, static_cast<const int64_t*>(desc),
-      static_cast<const double*>(dbuf), static_cast<int64_t*>(ibuf),
-      static_cast<uint8_t*>(ws), static_cast<double*>(dout),
-      static_cast<int64_t*>(iout), static_cast<int64_t*>(aggi),
-      static_cast<double*>(aggd), static_cast<int64_t*>(rc), spread);
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  const TraceCols tc = trace_cols(traced ? trace_args : nullptr);
+  const bool timed = deadline_ns >= 0;
+  if (traced && timed)
+    launch_batch<true, true>(blocks, threads, s, n_cells, desc, dbuf, ibuf,
+                             ws, dout, iout, aggi, aggd, rc, spread, tc,
+                             deadline_ns);
+  else if (traced)
+    launch_batch<true, false>(blocks, threads, s, n_cells, desc, dbuf, ibuf,
+                              ws, dout, iout, aggi, aggd, rc, spread, tc,
+                              deadline_ns);
+  else if (timed)
+    launch_batch<false, true>(blocks, threads, s, n_cells, desc, dbuf, ibuf,
+                              ws, dout, iout, aggi, aggd, rc, spread, tc,
+                              deadline_ns);
+  else
+    launch_batch<false, false>(blocks, threads, s, n_cells, desc, dbuf, ibuf,
+                               ws, dout, iout, aggi, aggd, rc, spread, tc,
+                               deadline_ns);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1024,12 +1228,45 @@ extern "C" const char* sim_error_string(int code) {
 
 #else  // host build: the same loop on the CPU, for the tests
 
+namespace {
+
+template <bool kTraced, bool kTimed>
+void host_batch(int64_t n_cells, const int64_t* desc, const double* dbuf,
+                int64_t* ibuf, uint8_t* ws, double* dout, int64_t* iout,
+                int64_t* aggi, double* aggd, int64_t* rc, const TraceCols& tc,
+                int64_t deadline_ns) {
+  for (int64_t k = 0; k < n_cells; k++)
+    run_one<kTraced, kTimed>(desc + k * kDescLen, dbuf, ibuf, ws, dout, iout,
+                             aggi, aggd, rc, tc, deadline_ns);
+}
+
+}  // namespace
+
+// One wave of a batch on the CPU, as sim_run_batch runs it on the card:
+// `ws` (`ws_bytes` of it) zeroed here, the cells one after another, the
+// instantiation chosen by `traced` and `deadline_ns` (< 0: no deadline),
+// the trace columns in host memory.
 extern "C" void sim_run_batch_host(int64_t n_cells, const int64_t* desc,
                                    const double* dbuf, int64_t* ibuf,
-                                   uint8_t* ws, double* dout, int64_t* iout,
-                                   int64_t* aggi, double* aggd, int64_t* rc) {
-  for (int64_t k = 0; k < n_cells; k++)
-    run_one(desc + k * kDescLen, dbuf, ibuf, ws, dout, iout, aggi, aggd, rc);
+                                   uint8_t* ws, int64_t ws_bytes,
+                                   double* dout, int64_t* iout,
+                                   int64_t* aggi, double* aggd, int64_t* rc,
+                                   int traced, int64_t deadline_ns,
+                                   const int64_t* trace_args) {
+  memset(ws, 0, (size_t)ws_bytes);
+  const TraceCols tc = trace_cols(traced ? trace_args : nullptr);
+  if (traced && deadline_ns >= 0)
+    host_batch<true, true>(n_cells, desc, dbuf, ibuf, ws, dout, iout, aggi,
+                           aggd, rc, tc, deadline_ns);
+  else if (traced)
+    host_batch<true, false>(n_cells, desc, dbuf, ibuf, ws, dout, iout, aggi,
+                            aggd, rc, tc, deadline_ns);
+  else if (deadline_ns >= 0)
+    host_batch<false, true>(n_cells, desc, dbuf, ibuf, ws, dout, iout, aggi,
+                            aggd, rc, tc, deadline_ns);
+  else
+    host_batch<false, false>(n_cells, desc, dbuf, ibuf, ws, dout, iout, aggi,
+                             aggd, rc, tc, deadline_ns);
 }
 
 extern "C" void sim_mt_selftest_host(uint32_t seed, int64_t n, uint32_t* out) {

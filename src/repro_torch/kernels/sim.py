@@ -29,42 +29,68 @@ core binding back into its context. A cell whose structures overflow
 keep their results; statuses 1 and 2 (watchdog, stranded work) are
 results that ``runtime._finish_result`` turns into ``SimStalled``.
 
+Traced cells (``ctx["trace"]``, from ``SimParams(trace=True)``) launch
+the traced instantiation of the loop (``route_launches["traced"]``; the
+rest ``"untraced"``). :func:`trace_caps` sizes each cell's slice of the
+flat trace columns from bounds its events cannot pass, the wave planner
+counts those bytes (56 / 40 / 32 B an exec / steal / migration event)
+beside the workspaces, and after each wave the cells' events are
+gathered on the card, copied off before the next wave, and wrapped per
+cell with ``TraceBuffer.from_arrays``. A ``timeout`` launches the timed
+instantiation: each cell reads ``%globaltimer`` when it starts and stops
+with a code past its deadline, which :func:`unpack` makes a
+``CellTimeout(timeout, engine="cuda")`` in that cell's slot.
+
 :func:`run_batch` takes a CUDA device only (``runtime.run_cells`` sends
 ``cpu`` to the plain version): it launches the kernel or raises, and
-nothing falls back to the host. ``launches`` counts kernel
-launches (one a wave) and nothing else; ``last_run`` keeps the last
-batch's waves, bytes and kernel time (CUDA events), and the host's
-seconds packing, on the device (copies, launches and the wait for
-them) and unpacking. The three self-tests
+nothing falls back to the host. ``launches`` counts kernel launches (one
+a wave) and nothing else, ``route_launches`` the same by instantiation;
+``last_run`` keeps the last batch's waves, bytes and kernel time (CUDA
+events), and the host's seconds packing, on the device (copies, launches
+and the wait for them) and unpacking. The three self-tests
 (:func:`mt_selftest`, :func:`shuffle_selftest`, :func:`set_selftest`)
 run the kernel's replicas of numpy's MT19937, its shuffle and CPython's
 set on the card. ``sim.cu`` also builds as host C++ (no ``__CUDACC__``):
-``tests/test_torch_sim_engine.py`` runs :func:`pack`'s buffers through
-that build on the CPU, where there is no card.
+:func:`build_host` compiles it and :func:`run_batch_host` runs a batch
+through that build on the CPU, by the same wave loop as the card's with
+numpy buffers in place of device ones, where there is no card (the tests
+hold it to the plain version and to the JAX package's engines that
+way).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
+import shutil
+import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 
 from . import _build
 
-__all__ = ["run_batch", "pack", "unpack", "workspace_bytes", "DESC",
-           "CELLS_PER_WARP", "MAX_WAVE_BYTES", "WAVE_SHARE", "launches",
-           "last_run", "mt_selftest",
-           "shuffle_selftest", "set_selftest", "RC_MEANING"]
+__all__ = ["run_batch", "pack", "unpack", "workspace_bytes", "trace_caps",
+           "DESC", "CELLS_PER_WARP", "MAX_WAVE_BYTES", "WAVE_SHARE",
+           "launches", "route_launches", "last_run", "mt_selftest",
+           "shuffle_selftest", "set_selftest", "RC_MEANING", "build_host",
+           "run_batch_host"]
 
 # the descriptor fields, in sim.cu's `enum Desc` order
 DESC = ("out", "dpar", "ipar", "wp", "wpo", "fr", "fp", "fc", "nc", "fpw",
         "npw", "par", "core_node", "node_dist", "root_dist", "cores", "goff",
         "uoff", "voff", "victims", "fspeed", "fwoff", "fwstart", "fwend",
-        "hops", "node_tasks", "node_remote", "ws", "ws_bytes")
+        "hops", "node_tasks", "node_remote", "ws", "ws_bytes", "ex_off",
+        "ex_cap", "st_off", "st_cap", "mg_off", "mg_cap")
 _D = {name: i for i, name in enumerate(DESC)}
+RC_TRACE_OVERFLOW, RC_TIMED_OUT = -5, -6
 RC_MEANING = {-2: "event heap overflow", -3: "parked-set overflow",
-              -4: "workspace shorter than the cell's layout"}
+              -4: "workspace shorter than the cell's layout",
+              RC_TRACE_OVERFLOW: "trace columns shorter than the cell's "
+                                 "events (nothing was truncated)"}
+# per event family (exec, steal, migration): int64 and double columns
+_TRACE_FAMILIES = (("ex", 5, 2), ("st", 4, 1), ("mg", 3, 1))
 
 # cells that share a warp (a power of two up to 32), chosen from the
 # figure grid's kernel times at 1, 2, 4, 8 and 32 (PERF.md §6): with
@@ -78,10 +104,12 @@ WAVE_SHARE = 0.5
 MAX_WAVE_BYTES = None
 
 launches = 0
+route_launches = {"untraced": 0, "traced": 0}
 last_run: dict = {}
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-_RUN_ARGTYPES = [_I64, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _I, _P]
+_RUN_ARGTYPES = [_I64, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _I, _I,
+                 _I64, _P, _P]
 
 
 # --------------------------------------------------------------------
@@ -115,6 +143,28 @@ def workspace_bytes(n: int, T: int) -> int:
     for p in parts:
         o = _align8(o + p)
     return o
+
+
+def trace_caps(ctx) -> "tuple[int, int, int]":
+    """Events one traced cell can record at most: (exec, steal,
+    migration). Every task commits once (exec <= n). A steal takes a task
+    off a deque, and a task enters one when spawned (the root never) or
+    when a fault window takes its thread offline with it in hand, which
+    happens at most once a window: steals <= n - 1 + W, none under a
+    shared queue. A migration draw comes with each execution attempt,
+    committed or aborted by a window: migrations <= n + W, none at rate
+    0. W is the fault plan's window count."""
+    n = int(ctx["table"].n)
+    fplan = ctx.get("fault_plan")
+    w = int(fplan.n_windows) if fplan is not None else 0
+    steal = 0 if ctx["queue_shared"] else max(n - 1, 0) + w
+    mig = n + w if ctx["migration_rate"] > 0.0 else 0
+    return n, steal, mig
+
+
+def _trace_bytes(caps) -> int:
+    from ..core.sim.trace import EVENT_BYTES
+    return sum(b * c for b, c in zip(EVENT_BYTES, caps))
 
 
 # --------------------------------------------------------------------
@@ -158,14 +208,19 @@ def _ipar(ctx) -> list:
             int(ctx.get("max_steps") or 0)]
 
 
-def pack(ctxs, max_wave_bytes: "int | None" = None) -> dict:
+def pack(ctxs, max_wave_bytes: "int | None" = None,
+         traced: bool = False) -> dict:
     """Lower prepared contexts into the kernel's buffers (numpy, host).
 
     Returns dict(desc (n, len(DESC)) int64 in launch order, dbuf, ibuf
     (its first ``n_cores`` entries every cell's ``cores``, in cell
     order), aggi, aggd, waves (launch-order [start, stop) ranges), wave
     workspace bytes, and per cell its cores offset and aggregate slices).
-    ``max_wave_bytes`` caps a wave's workspaces (default: no cap).
+    ``traced`` gives each cell a slice of the trace columns
+    (:func:`trace_caps`; offsets relative to its wave) and each wave its
+    column lengths in ``wave_trace`` (exec, steal, migration events).
+    ``max_wave_bytes`` caps a wave's workspace and trace bytes (default:
+    no cap).
     """
     n = len(ctxs)
     dbuf, ibuf = _Buf(np.float64), _Buf(np.int64)
@@ -224,40 +279,83 @@ def pack(ctxs, max_wave_bytes: "int | None" = None) -> dict:
         aggs.append((d[_D["hops"]], max_hop + 1, d[_D["node_tasks"]],
                      d[_D["node_remote"]], NN))
         d[_D["ws_bytes"]] = workspace_bytes(tbl.n, int(ctx["T"]))
+        caps = trace_caps(ctx) if traced else (0, 0, 0)
+        d[_D["ex_cap"]], d[_D["st_cap"]], d[_D["mg_cap"]] = caps
         rows.append(d)
 
     # launch order: by workload (first appearance), then thread count
     order = sorted(range(n), key=lambda i: (
         table_rank[id(ctxs[i]["table"])], int(ctxs[i]["T"]), i))
-    waves, wave_bytes, start, used = [], [], 0, 0
+    fam = ("ex", "st", "mg")
+    waves, wave_bytes, wave_trace, start, used = [], [], [], 0, 0
+    lens = [0, 0, 0]
     for k, i in enumerate(order):
-        b = rows[i][_D["ws_bytes"]]
-        if k > start and max_wave_bytes is not None \
-                and used + b > max_wave_bytes:
+        row = rows[i]
+        caps = [row[_D[f + "_cap"]] for f in fam]
+        b = row[_D["ws_bytes"]]
+        if k > start and max_wave_bytes is not None and \
+                used + b + _trace_bytes(lens) + _trace_bytes(caps) \
+                > max_wave_bytes:
             waves.append((start, k))
             wave_bytes.append(used)
-            start, used = k, 0
-        rows[i][_D["ws"]] = used
+            wave_trace.append(tuple(lens))
+            start, used, lens = k, 0, [0, 0, 0]
+        row[_D["ws"]] = used
         used += b
+        for j, f in enumerate(fam):
+            row[_D[f + "_off"]] = lens[j]
+            lens[j] += caps[j]
     waves.append((start, n))
     wave_bytes.append(used)
+    wave_trace.append(tuple(lens))
     desc = np.asarray([rows[i] for i in order], dtype=np.int64).reshape(
         n, len(DESC))
     return dict(desc=desc, dbuf=dbuf.array(), ibuf=ibuf.array(),
                 aggi=aggi.array(), aggd=aggd.array(), waves=waves,
-                wave_bytes=wave_bytes, n_cores=n_cores, cores_off=cores_off,
-                aggs=aggs)
+                wave_bytes=wave_bytes, wave_trace=wave_trace,
+                n_cores=n_cores, cores_off=cores_off, aggs=aggs)
+
+
+def _cell_columns(slots, offs, cnts, cols) -> dict:
+    """``{cell slot: {column name: array}}`` for cells whose events of
+    family j sit at ``offs[j][k]``, ``cnts[j][k]`` of them, in ``cols[j]``
+    (the family's int64 (k, L) and double (k', L) host arrays)."""
+    from ..core.sim.trace import EXEC_COLS, MIG_COLS, STEAL_COLS
+    # the kernel's column order within each family's two blocks
+    names = ((EXEC_COLS[:5], EXEC_COLS[5:]), (STEAL_COLS[1:], STEAL_COLS[:1]),
+             (MIG_COLS[1:], MIG_COLS[:1]))
+    out = {}
+    for k, slot in enumerate(slots):
+        arrays = {}
+        for j, (ints, dbls) in enumerate(cols):
+            o, c = int(offs[j][k]), int(cnts[j][k])
+            for (name, _), col in zip(names[j][0], ints):
+                arrays[name] = col[o:o + c]
+            for (name, _), col in zip(names[j][1], dbls):
+                arrays[name] = col[o:o + c]
+        out[int(slot)] = arrays
+    return out
 
 
 def unpack(ctxs, packed: dict, dout, iout, rc, aggi, aggd,
-           cores) -> list:
+           cores, traces: "dict | None" = None,
+           timeout: "float | None" = None) -> list:
     """The result dicts of a finished batch (numpy outputs, cell order);
     writes each cell's final core binding back into its context. A cell
     whose kernel run stopped with a negative code gets, in its slot, a
-    ``RuntimeError`` naming it (``run_sweep`` maps it to its cell)."""
+    ``RuntimeError`` naming it (``run_sweep`` maps it to its cell), or,
+    past its deadline, a ``CellTimeout(timeout, "cuda")``. ``traces``
+    maps a traced cell's slot to its event columns, which become the
+    result's ``TraceBuffer``."""
+    from ..core.sim.sweep import CellTimeout
+    from ..core.sim.trace import TraceBuffer
     out = []
     for i, ctx in enumerate(ctxs):
         code = int(rc[i])
+        if code == RC_TIMED_OUT:
+            out.append(CellTimeout(timeout if timeout is not None else 0.0,
+                                   "cuda"))
+            continue
         if code != 0:
             out.append(RuntimeError(
                 f"sim kernel: cell {i} of {len(ctxs)} "
@@ -280,6 +378,8 @@ def unpack(ctxs, packed: dict, dout, iout, rc, aggi, aggd,
             steal_hops=[int(x) for x in aggi[h0:h0 + nh]],
             node_tasks=[int(x) for x in aggi[t0:t0 + NN]],
             node_remote=[float(x) for x in aggd[r0:r0 + NN]]))
+        if traces is not None and i in traces:
+            out[-1]["trace"] = TraceBuffer.from_arrays(traces[i])
     return out
 
 
@@ -296,76 +396,254 @@ def _device(device):
     return dev
 
 
-def run_batch(ctxs, device) -> list:
+def _deadline_ns(timeout: "float | None") -> int:
+    """The kernel's deadline argument for ``timeout`` seconds: -1 (no
+    deadline) for None or <= 0, as ``runtime.resolve_timeout`` reads them;
+    else the nanoseconds, rounded down (so a timeout under 1 ns is a 0 ns
+    deadline, which every cell has passed at its first check)."""
+    return -1 if timeout is None or timeout <= 0 else int(timeout * 1e9)
+
+
+def run_batch(ctxs, device, timeout: "float | None" = None) -> list:
     """Run prepared contexts on the CUDA ``device``: one entry per
     context, its result dict or, for a cell that overflowed, the
-    ``RuntimeError`` naming it.
+    ``RuntimeError`` naming it (past ``timeout`` seconds of its own, a
+    ``CellTimeout``).
 
     Every cell runs in the kernel, ``CELLS_PER_WARP`` cells a warp, in as
     few waves as ``WAVE_SHARE`` of the device's free memory allows
-    (``MAX_WAVE_BYTES``, where set, caps a wave further). A build or
-    launch failure raises: nothing falls back to the host.
+    (``MAX_WAVE_BYTES``, where set, caps a wave further); the traced
+    cells of a batch (``ctx["trace"]``) in launches of the traced
+    instantiation of their own. A build or launch failure raises:
+    nothing falls back to the host.
     """
     import torch
     if torch.device(device).type != "cuda":
         raise ValueError(f"the sim kernel runs on a CUDA device, not "
                          f"{device}")
     dev = _device(device)
-    global launches
     ctxs = list(ctxs)
     if not ctxs:
         return []
-    cpw = CELLS_PER_WARP
     with _build.on_device(dev):
-        free, _ = torch.cuda.mem_get_info(dev)
-        cap = int(free * WAVE_SHARE)
-        if MAX_WAVE_BYTES is not None:
-            cap = min(cap, int(MAX_WAVE_BYTES))
-        t0 = time.perf_counter()
-        packed = pack(ctxs, cap)
-        t1 = time.perf_counter()
-        n = len(ctxs)
-
-        def up(a):
-            return torch.from_numpy(a).to(dev)
-        desc, dbuf, ibuf = up(packed["desc"]), up(packed["dbuf"]), \
-            up(packed["ibuf"])
-        aggi, aggd = up(packed["aggi"]), up(packed["aggd"])
-        dout = torch.zeros((n, 6), dtype=torch.float64, device=dev)
-        iout = torch.zeros((n, 7), dtype=torch.int64, device=dev)
-        rc = torch.zeros(n, dtype=torch.int64, device=dev)
-        ws = torch.empty(max(packed["wave_bytes"]), dtype=torch.uint8,
-                         device=dev)
-        launch = _build.kernel_function("sim", "sim_run_batch",
-                                        _RUN_ARGTYPES)
-        stream = torch.cuda.current_stream(dev)
-        events = []
-        for (a, b), nbytes in zip(packed["waves"], packed["wave_bytes"]):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record(stream)
-            launch(b - a, desc[a:b].data_ptr(), dbuf.data_ptr(),
-                   ibuf.data_ptr(), ws.data_ptr(), nbytes, dout.data_ptr(),
-                   iout.data_ptr(), aggi.data_ptr(), aggd.data_ptr(),
-                   rc.data_ptr(), cpw, stream.cuda_stream)
-            e1.record(stream)
-            launches += 1
-            events.append((e0, e1))
-        outs = [t.cpu().numpy() for t in (dout, iout, rc, aggi, aggd)]
-        cores = ibuf[:packed["n_cores"]].cpu().numpy()
-        kernel_ms = sum(e0.elapsed_time(e1) for e0, e1 in events)
-        t2 = time.perf_counter()
-    out = unpack(ctxs, packed, *outs, cores)
+        out, stats = _drive(ctxs, _Card(dev), timeout)
     last_run.clear()
-    last_run.update(
-        cells=n, waves=len(packed["waves"]), cells_per_warp=cpw,
+    last_run.update(stats)
+    return out
+
+
+class _Card:
+    """The card's side of :func:`_drive`: torch buffers on ``dev``, the
+    ``sim_run_batch`` entry on the current stream, timed by CUDA events,
+    and the launch counts."""
+
+    def __init__(self, dev):
+        import torch
+        self.torch, self.dev = torch, dev
+        self.stream = torch.cuda.current_stream(dev)
+        self.entry = _build.kernel_function("sim", "sim_run_batch",
+                                            _RUN_ARGTYPES)
+
+    def wave_cap(self) -> int:
+        free, _ = self.torch.cuda.mem_get_info(self.dev)
+        cap = int(free * WAVE_SHARE)
+        return cap if MAX_WAVE_BYTES is None else min(cap,
+                                                      int(MAX_WAVE_BYTES))
+
+    def up(self, a):
+        return self.torch.from_numpy(a).to(self.dev)
+
+    def alloc(self, shape, dtype, zero: bool = True):
+        t = self.torch
+        dt = t.from_numpy(np.empty(0, dtype)).dtype
+        return (t.zeros if zero else t.empty)(shape, dtype=dt,
+                                              device=self.dev)
+
+    @staticmethod
+    def ptr(t) -> int:
+        return t.data_ptr()
+
+    @staticmethod
+    def down(t) -> np.ndarray:
+        return t.cpu().numpy()
+
+    @staticmethod
+    def take(cols, idx):
+        return cols.index_select(1, idx)
+
+    def launch(self, n, bufs, nbytes, traced, deadline, targs):
+        global launches
+        e0 = self.torch.cuda.Event(enable_timing=True)
+        e1 = self.torch.cuda.Event(enable_timing=True)
+        e0.record(self.stream)
+        desc, dbuf, ibuf, ws, dout, iout, aggi, aggd, rc = (
+            t.data_ptr() for t in bufs)
+        self.entry(n, desc, dbuf, ibuf, ws, nbytes, dout, iout, aggi, aggd,
+                   rc, CELLS_PER_WARP, int(traced), deadline,
+                   None if targs is None else targs.ctypes.data,
+                   self.stream.cuda_stream)
+        e1.record(self.stream)
+        launches += 1
+        route_launches["traced" if traced else "untraced"] += 1
+        return e0, e1
+
+    @staticmethod
+    def wait(tok) -> None:
+        tok[1].synchronize()
+
+    @staticmethod
+    def ms(tok) -> float:
+        return tok[0].elapsed_time(tok[1])
+
+
+class _Host:
+    """The host build's side of :func:`_drive`: numpy buffers and ``lib``'s
+    ``sim_run_batch_host``, timed on the host's clock, no launch counted."""
+
+    def __init__(self, lib, max_wave_bytes):
+        self.lib, self.max_wave_bytes = lib, max_wave_bytes
+
+    def wave_cap(self):
+        return self.max_wave_bytes
+
+    @staticmethod
+    def up(a):
+        return a
+
+    @staticmethod
+    def alloc(shape, dtype, zero: bool = True):
+        return np.zeros(shape, dtype)
+
+    @staticmethod
+    def ptr(a) -> int:
+        return a.ctypes.data
+
+    @staticmethod
+    def down(a) -> np.ndarray:
+        return a
+
+    @staticmethod
+    def take(cols, idx):
+        return np.take(cols, idx, axis=1)
+
+    def launch(self, n, bufs, nbytes, traced, deadline, targs):
+        desc, dbuf, ibuf, ws, dout, iout, aggi, aggd, rc = (
+            a.ctypes.data for a in bufs)
+        t0 = time.perf_counter()
+        self.lib.sim_run_batch_host(
+            n, desc, dbuf, ibuf, ws, nbytes, dout, iout, aggi, aggd, rc,
+            int(traced), deadline,
+            None if targs is None else targs.ctypes.data)
+        return t0, time.perf_counter()
+
+    @staticmethod
+    def wait(tok) -> None:
+        pass
+
+    @staticmethod
+    def ms(tok) -> float:
+        return (tok[1] - tok[0]) * 1e3
+
+
+def _drive(ctxs, side, timeout) -> tuple:
+    """Run prepared contexts through ``side`` (:class:`_Card` or
+    :class:`_Host`): the untraced cells in launches of the untraced
+    instantiation, the traced ones (``ctx["trace"]``) in launches of the
+    traced one. Returns (one entry per context, the batch's stats)."""
+    out: list = [None] * len(ctxs)
+    stats: dict = {}
+    for traced in (False, True):
+        idx = [i for i, c in enumerate(ctxs) if bool(c.get("trace")) == traced]
+        if not idx:
+            continue
+        res, run = _run_group([ctxs[i] for i in idx], side, traced, timeout)
+        for i, r in zip(idx, res):
+            out[i] = r
+        for k, v in run.items():
+            stats[k] = v if k == "cells_per_warp" else stats.get(k, 0) + v
+    return out, stats
+
+
+def _run_group(ctxs, side, traced: bool, timeout) -> tuple:
+    """One instantiation's waves over ``ctxs``: (results, stats)."""
+    t0 = time.perf_counter()
+    packed = pack(ctxs, side.wave_cap(), traced=traced)
+    t1 = time.perf_counter()
+    n = len(ctxs)
+    desc, dbuf, ibuf, aggi, aggd = (side.up(packed[k]) for k in (
+        "desc", "dbuf", "ibuf", "aggi", "aggd"))
+    dout = side.alloc((n, 6), np.float64)
+    iout = side.alloc((n, 7), np.int64)
+    rc = side.alloc(n, np.int64)
+    ws = side.alloc(max(packed["wave_bytes"]), np.uint8, zero=False)
+    cols, counts, targs = None, None, None
+    if traced:
+        # one set of columns, as long as the longest wave's, reused
+        lens = [max(max(w[j] for w in packed["wave_trace"]), 1)
+                for j in range(3)]
+        cols = [(side.alloc((ki, L), np.int64, zero=False),
+                 side.alloc((kd, L), np.float64, zero=False))
+                for (_, ki, kd), L in zip(_TRACE_FAMILIES, lens)]
+        counts = side.alloc((n, 3), np.int64)
+        targs = np.array([side.ptr(t) for pair in cols for t in pair]
+                         + lens + [side.ptr(counts)], dtype=np.int64)
+    deadline = _deadline_ns(timeout)
+    toks, traces = [], {}
+    trace_s, trace_bytes = 0.0, 0
+    for (a, b), nbytes in zip(packed["waves"], packed["wave_bytes"]):
+        tok = side.launch(b - a, (desc[a:b], dbuf, ibuf, ws, dout, iout,
+                                  aggi, aggd, rc), nbytes, traced, deadline,
+                          targs)
+        toks.append(tok)
+        if traced:
+            # copy this wave's events off before the next one writes
+            side.wait(tok)
+            t2 = time.perf_counter()
+            got, nb = _gather_wave(packed["desc"][a:b], counts, cols, side)
+            traces.update(got)
+            trace_bytes += nb
+            trace_s += time.perf_counter() - t2
+    outs = [side.down(t) for t in (dout, iout, rc, aggi, aggd)]
+    cores = side.down(ibuf[:packed["n_cores"]])
+    kernel_ms = sum(side.ms(tok) for tok in toks)
+    t2 = time.perf_counter()
+    res = unpack(ctxs, packed, *outs, cores, traces if traced else None,
+                 timeout)
+    run = dict(
+        cells=n, waves=len(packed["waves"]), cells_per_warp=CELLS_PER_WARP,
         kernel_ms=kernel_ms, workspace_bytes=int(sum(packed["wave_bytes"])),
-        wave_workspace_bytes=int(ws.numel()),
+        wave_workspace_bytes=int(max(packed["wave_bytes"])),
         input_bytes=int(8 * (packed["dbuf"].size + packed["ibuf"].size
                              + packed["desc"].size)),
         steps=int(outs[1][:, 5].sum()), pack_s=t1 - t0,
-        device_s=t2 - t1, unpack_s=time.perf_counter() - t2)
-    return out
+        device_s=t2 - t1, unpack_s=time.perf_counter() - t2,
+        traced_cells=n if traced else 0, trace_bytes=trace_bytes,
+        trace_cap_bytes=int(sum(_trace_bytes(w)
+                                for w in packed["wave_trace"])),
+        trace_copy_s=trace_s)
+    return res, run
+
+
+def _gather_wave(desc, counts, cols, side) -> tuple:
+    """The events of one wave's cells (``desc``, their descriptor rows),
+    gathered where they were written into one run per family (cell after
+    cell) and brought to the host: ({slot: columns}, bytes copied)."""
+    slots = desc[:, _D["out"]]
+    cnt = side.down(counts)[slots]
+    offs, cnts, host, nbytes = [], [], [], 0
+    for j, (f, _, _) in enumerate(_TRACE_FAMILIES):
+        c = cnt[:, j]
+        starts = np.cumsum(c) - c
+        src = side.up(np.repeat(desc[:, _D[f + "_off"]] - starts, c)
+                      + np.arange(int(c.sum())))
+        ints, dbls = cols[j]
+        hi = side.down(side.take(ints, src))
+        hd = side.down(side.take(dbls, src))
+        nbytes += hi.nbytes + hd.nbytes
+        offs.append(starts)
+        cnts.append(c)
+        host.append((hi, hd))
+    return _cell_columns(slots, offs, cnts, host), nbytes
 
 
 def _rng_state(dev):
@@ -429,3 +707,43 @@ def set_selftest(ops, max_key: int, device) -> list:
         if k < 0:
             raise RuntimeError("set self-test: keys outgrew the tables")
         return out[:k].cpu().tolist()
+
+
+# --------------------------------------------------------------------
+# the kernel's loop built for the host (tests, no card)
+# --------------------------------------------------------------------
+
+def build_host(out_dir) -> ctypes.CDLL:
+    """Compile ``csrc/sim.cu`` as host C++ (``-O2 -ffp-contract=off``, as
+    the JAX package's C engine is built) into ``out_dir`` and load it:
+    the kernel's loop, every instantiation, run on the CPU."""
+    cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("no C++ compiler found")
+    out = Path(out_dir) / "libsim_host.so"
+    src = Path(__file__).resolve().parent / "csrc" / "sim.cu"
+    subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O2",
+                    "-ffp-contract=off", "-shared", "-fPIC", "-o", str(out),
+                    str(src)], check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(out))
+    for name, res, args in (
+            ("sim_run_batch_host", None,
+             [_I64] + [_P] * 4 + [_I64] + [_P] * 5 + [_I, _I64, _P]),
+            ("sim_workspace_bytes", _I64, [_I64, _I64]),
+            ("sim_mt_selftest_host", None, [ctypes.c_uint32, _I64, _P]),
+            ("sim_shuffle_selftest_host", None,
+             [ctypes.c_uint32, _I64, _I64, _P]),
+            ("sim_set_selftest_host", _I64, [_I64, _P, _I64, _P, _P]),
+            ("sim_set_workspace_bytes", _I64, [_I64])):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+    return lib
+
+
+def run_batch_host(ctxs, lib, timeout: "float | None" = None,
+                   max_wave_bytes: "int | None" = None) -> list:
+    """:func:`run_batch` through the host build ``lib`` (:func:`build_host`):
+    the same code (packing, instantiations, waves, trace columns and
+    their gather, unpacking) with numpy buffers in place of the card's and
+    ``sim_run_batch_host`` in place of the launch."""
+    return _drive(list(ctxs), _Host(lib, max_wave_bytes), timeout)[0]

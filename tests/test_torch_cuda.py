@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import moe_gmm as gmm_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from _torch_sim_cache import port_compile_cache  # noqa: E402,F401
 
 
 def _card():
@@ -627,3 +628,59 @@ def test_sim_kernel_matches_golden_on_card():
         assert r.engine == "cuda"
         for m, want in gold[key].items():
             assert getattr(r, m) == want, (key, m)
+
+
+def _sim_cells(trace: bool):
+    """Six prepared cells of the port's simulator (every scheduler, the
+    baseline context with migration and a preempt fault on half)."""
+    from repro_torch.core import topology
+    from repro_torch.core.sim import (Machine, SimParams, bots, policy,
+                                      runtime)
+    m = Machine(topology.sunfire_x4600(), SimParams(trace=trace),
+                device="cpu")
+    wl = bots.fft(n=1 << 12, cutoff=8)
+    out = []
+    for i, sched in enumerate(("bf", "cilk", "wf", "dfwspt", "dfwsrpt",
+                               "dfwshier")):
+        ectx = m.context(16, binding="linear", placement="spill:2@0",
+                         runtime_data=0, migration_rate=0.15,
+                         faults=("preempt:2",) if i % 2 else ())
+        out.append(runtime._prepare_ctx(ectx, wl, policy.get_spec(sched), i))
+    return out
+
+
+@pytest.mark.cuda
+def test_sim_traced_kernel_matches_plain_on_card():
+    """The traced instantiation of csrc/sim.cu against the plain version
+    on six cells: every metric and every event, launched on its route."""
+    from repro_torch.core.sim import _engine_py
+    from repro_torch.kernels import sim
+    _card()
+    before = dict(sim.route_launches)
+    got = sim.run_batch(_sim_cells(True), "cuda")
+    assert sim.route_launches["traced"] == before["traced"] + 1
+    assert sim.route_launches["untraced"] == before["untraced"]
+    untraced = sim.run_batch(_sim_cells(False), "cuda")
+    for g, u, ctx in zip(got, untraced, _sim_cells(True)):
+        want = _engine_py.run(ctx)
+        tg, tw = g.pop("trace"), want.pop("trace")
+        assert g == want == u
+        assert tg == tw and tg.n_exec == g["executed"]
+
+
+@pytest.mark.cuda
+def test_sim_deadline_zero_on_card():
+    """A deadline under a nanosecond (0 ns at the kernel) stops every
+    cell at its first check, traced or not, each a CellTimeout in its own
+    slot; ``timeout=0`` is no deadline, as in ``resolve_timeout``."""
+    from repro_torch.core.sim import CellTimeout
+    from repro_torch.kernels import sim
+    _card()
+    outs = sim.run_batch(_sim_cells(False)[:3] + _sim_cells(True)[3:],
+                         "cuda", timeout=1e-12)
+    assert len(outs) == 6
+    assert all(isinstance(o, CellTimeout) and o.engine == "cuda"
+               for o in outs)
+    untimed = sim.run_batch(_sim_cells(False)[:3], "cuda")
+    assert sim.run_batch(_sim_cells(False)[:3], "cuda",
+                         timeout=0.0) == untimed

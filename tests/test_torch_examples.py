@@ -31,6 +31,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.checkpoint import latest_step  # noqa: E402
 from repro_torch.examples import (elastic_failover, quickstart,  # noqa: E402
                                   serve_batch, train_lm)
+from _torch_sim_cache import port_compile_cache  # noqa: E402,F401
 
 
 def _jax_stub_events() -> tuple[list, list]:

@@ -35,6 +35,7 @@ from repro_torch.runtime import (HeartbeatMonitor, RemeshPlan,  # noqa: E402
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
+from _torch_sim_cache import port_compile_cache  # noqa: E402,F401
 
 MULTI_POD_CASES = [(seed, n) for seed in range(4) for n in range(1, 21)]
 POD_2X2_FAILURES = [list(c) for k in (1, 2)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -37,6 +38,7 @@ from repro_torch.core.sim import _engine_py  # noqa: E402
 from repro_torch.core.sim.table import table_from_arrays  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import sim as sim_kernel  # noqa: E402
+from _torch_sim_cache import port_compile_cache  # noqa: E402,F401
 
 TOPOS = {"sunfire": (topology.sunfire_x4600, jtopology.sunfire_x4600, ()),
          "tpu2x4": (topology.tpu_pod_2d, jtopology.tpu_pod_2d, (2, 4))}
@@ -242,18 +244,21 @@ def test_grid_and_aggregate_equal_jax():
             assert math.isfinite(a.mean)
 
 
-def test_grid_rejects_what_the_port_lacks():
+def test_grid_rejects_what_the_port_lacks(tmp_path):
+    """Nothing is left that the port lacks: the durable journal, per-cell
+    timeouts and event traces, which raised before they were ported, now
+    run on the host and agree with the plain run."""
     topo, _ = _topos("sunfire")
     m = Machine(topo, device="cpu")
     wl = bots.fft(n=1 << 8, cutoff=8)
     grid = m.grid(workloads=[wl], schedulers="wf", threads=4)
-    with pytest.raises(NotImplementedError, match="store"):
-        run_sweep(grid.plan, store="journal.jsonl", device="cpu")
-    with pytest.raises(NotImplementedError, match="timeout"):
-        run_sweep(grid.plan, timeout=5.0, device="cpu")
+    (want,) = run_sweep(grid.plan, device="cpu")
+    journal = str(tmp_path / "journal.jsonl")
+    assert run_sweep(grid.plan, store=journal, device="cpu") == [want]
+    assert run_sweep(grid.plan, timeout=5.0, device="cpu") == [want]
     traced = Machine(topo, SimParams(trace=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="trac"):
-        traced.run(wl, "wf", threads=4)
+    r = traced.run(wl, "wf", threads=4)
+    assert r == want and r.trace.n_exec == r.tasks
 
 
 # ----------------------------------------------------------------------
@@ -264,7 +269,7 @@ def _fake_card(monkeypatch, outs, calls, fail=None):
     """A CUDA device without a card: default_device passes "cuda" through,
     the kernel's wrapper returns ``outs`` (or raises ``fail``) and records
     its calls, and the plain version raises if anything reaches it."""
-    def run_batch(ctxs, device):
+    def run_batch(ctxs, device, timeout=None):
         calls.append((len(ctxs), torch.device(device).type))
         if fail is not None:
             raise fail
@@ -354,7 +359,7 @@ def test_card_overflow_fails_only_its_cell(monkeypatch):
     calls = []
     _fake_card(monkeypatch, [], calls)
 
-    def run_batch(ctxs, device):
+    def run_batch(ctxs, device, timeout=None):
         calls.append((len(ctxs), torch.device(device).type))
         outs = [_engine_py_run(ctx) for ctx in ctxs]
         packed, dout, iout, aggi, aggd = _kernel_outputs(ctxs, outs)
@@ -408,6 +413,43 @@ def test_sim_source_alone_builds_without_fma_contraction():
         assert ("--fmad=false" in cmd) == (name == "sim"), name
         assert cmd[-1].endswith(f"csrc/{name}.cu")
     assert _build._target("sim") != _build._target("rmsnorm")
+
+
+PTXAS_SIM = """\
+ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__f40d40ef_6_sim_cu_2ad464c916sim_batch_kernelILb0ELb0EEEvlPKlPKdPlPhPdS5_S5_S7_S5_iNS_9TraceColsEl' for 'sm_90a'
+ptxas info    : Function properties for _ZN38_GLOBAL__N__f40d40ef_6_sim_cu_2ad464c916sim_batch_kernelILb0ELb0EEEvlPKlPKdPlPhPdS5_S5_S7_S5_iNS_9TraceColsEl
+    80 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 234 registers, used 0 barriers, 80 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__f40d40ef_6_sim_cu_2ad464c916sim_batch_kernelILb1ELb0EEEvlPKlPKdPlPhPdS5_S5_S7_S5_iNS_9TraceColsEl' for 'sm_90a'
+ptxas info    : Function properties for _ZN38_GLOBAL__N__f40d40ef_6_sim_cu_2ad464c916sim_batch_kernelILb1ELb0EEEvlPKlPKdPlPhPdS5_S5_S7_S5_iNS_9TraceColsEl
+    88 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 240 registers, used 0 barriers, 88 bytes cumulative stack size
+"""
+
+
+def test_build_reads_back_the_log_of_a_library_built_before(
+        tmp_path, monkeypatch):
+    """A library built by an earlier process keeps its compiler log beside
+    it: build() in a new process fills build_logs from it without nvcc,
+    and chip_smoke reads the registers and spills from it; a library
+    without its log is built again."""
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    monkeypatch.setattr(_build, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "build_logs", {})
+
+    def no_nvcc():
+        raise RuntimeError("nvcc called")
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    lib = _build._target("sim")
+    lib.write_bytes(b"")
+    with pytest.raises(RuntimeError, match="nvcc called"):
+        _build.build(["sim"])
+    lib.with_suffix(".log").write_text(PTXAS_SIM)
+    _build.build(["sim"])
+    assert _build.build_logs == {"sim": PTXAS_SIM}
+    assert chip_smoke.sim_registers() == {
+        "untraced/untimed": (234, 0, 0), "traced/untimed": (240, 8, 12)}
 
 
 def test_sweep_plan_add_validates_cells():

@@ -16,13 +16,10 @@ About 20 s in one process."""
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import random
-import shutil
 import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -43,6 +40,7 @@ from repro_torch.core.sim import (SweepPlan, bots, context, policy,  # noqa: E40
                                   runtime, simulate)
 from repro_torch.core.sim import _engine_py  # noqa: E402
 from repro_torch.kernels import sim as sim_kernel  # noqa: E402
+from _torch_sim_cache import port_compile_cache  # noqa: E402,F401
 
 GOLD = json.load(open(os.path.join(os.path.dirname(__file__), "data",
                                    "sim_golden.json")))
@@ -99,52 +97,11 @@ def test_plain_version_matches_golden_batched():
 # host build
 # ----------------------------------------------------------------------
 
-_P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _HOST = {}
-
-
-def build_host(out_dir) -> ctypes.CDLL:
-    """Compile ``csrc/sim.cu`` as host C++ (``-O2 -ffp-contract=off``, as
-    the C engine is built) into ``out_dir`` and load it: the kernel's
-    loop, run on the CPU."""
-    cxx = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("no C++ compiler found")
-    out = Path(out_dir) / "libsim_host.so"
-    src = Path(sim_kernel.__file__).resolve().parent / "csrc" / "sim.cu"
-    subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O2",
-                    "-ffp-contract=off", "-shared", "-fPIC", "-o", str(out),
-                    str(src)], check=True, capture_output=True, timeout=300)
-    lib = ctypes.CDLL(str(out))
-    for name, res, args in (
-            ("sim_run_batch_host", None, [_I64] + [_P] * 9),
-            ("sim_workspace_bytes", _I64, [_I64, _I64]),
-            ("sim_mt_selftest_host", None, [ctypes.c_uint32, _I64, _P]),
-            ("sim_shuffle_selftest_host", None,
-             [ctypes.c_uint32, _I64, _I64, _P]),
-            ("sim_set_selftest_host", _I64, [_I64, _P, _I64, _P, _P]),
-            ("sim_set_workspace_bytes", _I64, [_I64])):
-        fn = getattr(lib, name)
-        fn.restype, fn.argtypes = res, args
-    return lib
-
-
-def run_batch_host(ctxs, lib) -> list:
-    """The wrapper's packing and unpacking (``kernels.sim.pack`` /
-    ``unpack``) around the host build of the kernel's loop, one wave."""
-    ctxs = list(ctxs)
-    packed = sim_kernel.pack(ctxs)
-    n = len(ctxs)
-    ws = np.zeros(max(packed["wave_bytes"][0], 8), np.uint8)
-    dout = np.zeros((n, 6), np.float64)
-    iout = np.zeros((n, 7), np.int64)
-    rc = np.zeros(n, np.int64)
-    ibuf, aggi, aggd = packed["ibuf"], packed["aggi"], packed["aggd"]
-    lib.sim_run_batch_host(n, *(a.ctypes.data for a in (
-        packed["desc"], packed["dbuf"], ibuf, ws, dout, iout, aggi, aggd,
-        rc)))
-    return sim_kernel.unpack(ctxs, packed, dout, iout, rc, aggi, aggd,
-                             ibuf[:packed["n_cores"]])
+# the kernel source built as host C++, and the wrapper's packing and
+# unpacking around it (``kernels.sim.pack`` / ``unpack``)
+build_host = sim_kernel.build_host
+run_batch_host = sim_kernel.run_batch_host
 
 
 def _host_lib(tmp_dir):

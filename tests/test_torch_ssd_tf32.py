@@ -45,6 +45,7 @@ from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
+from _torch_sim_cache import port_compile_cache  # noqa: E402,F401
 
 RTOL, ATOL = 2e-3, 2e-4    # tests/test_kernels.py's SSD tolerance (f32)
 MARGIN = 4                 # 3xTF32 must hold a quarter of it

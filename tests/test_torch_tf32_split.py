@@ -29,6 +29,7 @@ from repro_torch.kernels import ref  # noqa: E402
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
+from _torch_sim_cache import port_compile_cache  # noqa: E402,F401
 
 GMM_TOL = 1e-4          # moe_gmm f32 (atol = rtol)
 FWD_TOL = 3e-4          # flash attention forward, f32
