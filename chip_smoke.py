@@ -160,15 +160,21 @@ imports nothing of JAX or of the JAX package. It
     (``csrc/sim.cu``, one thread a cell): its replicas of numpy's
     MT19937 and shuffle and of CPython's set against the originals,
     ``tests/data/sim_golden.json``'s 25 keys exactly (again in forced
-    waves and at the other number of cells a warp), then the paper's
+    waves, at 32 cells a warp and with every cell's hot state in its
+    device workspace instead of shared memory), then the paper's
     figure grid on sunfire_x4600 at full width as one batch (fft and
     sort at 2^15 with cutoff 4, strassen medium; bf/cilk/wf in the
     baseline and NUMA contexts and dfwspt/dfwsrpt/dfwshier in NUMA at
     2-16 threads, 32 seeds; a straggler and a preempt grid of all six at
     16 threads, 4 seeds; 5328 cells, launches counted), 8 of its cells
     bit for bit against the plain version on the host, the grid's kernel
-    time, cells/s, events/s, waves and peak memory, the paper's claims
-    on its means, and the grid again at 1, 4, 8 and 32 cells a warp;
+    time, cells/s, events/s, waves and peak memory beside the first
+    design's (its hot state in device memory), the paper's claims on its
+    means, each instantiation's registers, spills, shared memory and
+    resident cells, the launches by route, and the workspace route (a
+    cell's hot state in device memory) held to the plain version: the 8
+    cells sent there, and 2048-thread cells whose hot state passes a
+    block's shared memory;
 21. [sim_durable], after [sim]: the simulator's traced and durable
     path. The traced sweep behind the analysis layer (fft/sort/strassen
     at [sim]'s scale under wf/dfwspt/dfwsrpt/dfwshier at 2-16 threads,
@@ -482,10 +488,18 @@ FP64_FLOPS = 34e12
 # the launch shape the golden keys run once more at (cells a warp; every
 # lane a cell), against kernels/sim.py's CELLS_PER_WARP: the same bits
 SIM_GOLDEN_CELLS_A_WARP = 32
-# the [sim] grid's kernel ms before sim.cu had its traced and timed
-# instantiations (NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6), printed
-# beside this run's
-SIM_GRID_MS_BEFORE_TRACE = 547.3
+# kernel ms of sim.cu's first design (every cell's hot state in device
+# memory, int64 throughout; NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6),
+# printed beside this run's: the [sim] grid, the forensics grid
+# untraced and traced, and the paper-scale FFT's 4 cells untraced and
+# traced (the lowest and highest of its runs)
+SIM_GRID_MS_BEFORE = 547.3
+DURABLE_MS_BEFORE = ((243.8, 249.4), (257.3, 260.6))
+PAPER_MS_BEFORE = ((8645.9, 8790.4), (9026.1, 9193.2))
+# cells whose hot state passes a block's shared memory: 2048 threads on
+# sunfire_x4600 with 256 cores a node, on a small table
+SIM_WIDE_TOPO, SIM_WIDE_THREADS = (256, 8), 2048
+SIM_WIDE_SCHEDS = ("dfwshier", "bf")
 # bytes a cell must write once besides the batch's distinct inputs (read
 # once, whatever number of cells share them): its per-task state
 # (pending and exec_node int32, phase uint8) and its 13 outputs
@@ -896,9 +910,20 @@ def gmm_backward_phase(gmm) -> dict:
     return results
 
 
+GMM_NO_COPY_RECORDS = 3     # profiler records taken before a lost kernel fails
+PROFILER_MARKER = "spin_kernel"     # the kernel torch.cuda._sleep launches
+
+
 def gmm_backward_copies(gmm, dtype, label: str) -> None:
     """One backward at GMM_CASES' shape ``label`` under torch.profiler:
-    the two moe_gmm kernels and no other kernel (no transposed copy)."""
+    the two moe_gmm kernels and no other kernel (no transposed copy).
+
+    The profiler has been seen to lose the first kernel launched after it
+    starts (a record held only the dw kernel), so a marker kernel
+    (``torch.cuda._sleep``) runs and is waited for first, and its record is
+    left out. Any other kernel fails at once. A record that holds only
+    moe_gmm kernels but fewer than the two launched lost one, says so, and
+    is taken again, up to GMM_NO_COPY_RECORDS records."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     _, Z, C, D, F, P, *_ = next(c for c in GMM_CASES if c[0] == label)
@@ -909,17 +934,29 @@ def gmm_backward_copies(gmm, dtype, label: str) -> None:
          / math.sqrt(D)).to(dtype)
     gmm.moe_gmm_bwd(x, w, gy, P)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        gmm.moe_gmm_bwd(x, w, gy, P)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     dt = str(dtype).removeprefix("torch.")
-    log(f"[kernels] moe_gmm bwd {label} {dt} x({Z},{C},{D}) w({P},{D},{F}) "
-        f"under torch.profiler: "
-        f"{len(names)} device operations: {[n[:60] for n in names]}")
-    if len(names) != 2 or not all("moe_gmm" in n for n in names):
-        raise AssertionError(f"the {dt} moe_gmm backward launched other "
-                             f"device work than its two kernels: {names}")
+    for record in range(1, GMM_NO_COPY_RECORDS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            gmm.moe_gmm_bwd(x, w, gy, P)
+            torch.cuda.synchronize()
+        seen = [e.name for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+        names = [n for n in seen if PROFILER_MARKER not in n]
+        log(f"[kernels] moe_gmm bwd {label} {dt} x({Z},{C},{D}) "
+            f"w({P},{D},{F}) under torch.profiler, record {record}: "
+            f"{len(names)} device operations besides the marker "
+            f"({len(seen) - len(names)} marker): {[n[:60] for n in names]}")
+        if not all("moe_gmm" in n for n in names) or len(names) > 2:
+            raise AssertionError(f"the {dt} moe_gmm backward launched other "
+                                 f"device work than its two kernels: {names}")
+        if len(names) == 2:
+            return
+        log(f"[kernels] moe_gmm bwd {label} {dt}: the profiler lost "
+            f"{2 - len(names)} of the two kernels launched; recording again")
+    raise AssertionError(f"the {dt} moe_gmm backward: {GMM_NO_COPY_RECORDS} "
+                         f"profiler records each lost a kernel of the two")
 
 
 def _mask(Sq, Skv, causal, window, off):
@@ -935,10 +972,14 @@ def _mask(Sq, Skv, causal, window, off):
 
 def sdpa_backend(sdpa, args) -> str:
     """The backend F.scaled_dot_product_attention ran for these inputs,
-    from the names of the kernels one call launches under the profiler."""
+    from the names of the kernels one call launches under the profiler
+    (after the marker kernel that takes the place of a first kernel the
+    profiler may lose, as in gmm_backward_copies)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         sdpa(*args)
         torch.cuda.synchronize()
     names = " ".join(e.name for e in prof.events()
@@ -3703,23 +3744,34 @@ def sim_golden(sim) -> None:
         sim.MAX_WAVE_BYTES = waves
         sim.CELLS_PER_WARP = SIM_GOLDEN_CELLS_A_WARP
         third = plan.run(device="cuda")
+        sim.CELLS_PER_WARP = cpw
+        before = sim.route_launches["untraced_workspace"]
+        sim.SHARED_CELL_MAX = 0
+        fourth = plan.run(device="cuda")
+        if sim.route_launches["untraced_workspace"] != before + 1:
+            raise AssertionError("[sim] golden: the workspace run took "
+                                 f"{sim.last_run['groups']}")
     finally:
         sim.MAX_WAVE_BYTES, sim.CELLS_PER_WARP = waves, cpw
-    for a, b, c, key in zip(res, again, third, keys):
+        sim.SHARED_CELL_MAX = None
+    for a, b, c, d, key in zip(res, again, third, fourth, keys):
         sim_same(f"golden {key} in waves", b, a)
         sim_same(f"golden {key} at {SIM_GOLDEN_CELLS_A_WARP} cells a "
                  "warp", c, a)
+        sim_same(f"golden {key} with its hot state in the workspace", d, a)
     log(f"[sim] golden: all {len(keys)} keys of tests/data/sim_golden.json "
         f"equal on the card ({sum(len(v) for v in gold.values())} metrics); "
-        f"the same bits in {n_waves} waves and at "
-        f"{SIM_GOLDEN_CELLS_A_WARP} cells a warp")
+        f"the same bits in {n_waves} waves, at "
+        f"{SIM_GOLDEN_CELLS_A_WARP} cells a warp and with every hot state "
+        "in the workspace")
 
 
 def sim_phase(sim) -> dict:
     """[sim]: the self-tests, the golden keys, then the figure grid on
-    the card in one batch (the main path, launches counted), 8 of its
-    cells held bit for bit against the plain version on the host, and
-    the kernel timed on those 8 cells beside the plain version."""
+    the card in one batch (the main path, launches counted by route), 8
+    of its cells held bit for bit against the plain version on the host,
+    the kernel timed on those 8 cells beside the plain version, and the
+    workspace route held to the plain version."""
     from repro_torch.core import topology
     from repro_torch.core.sim import GridKey, Machine, run_sweep
     t_phase = time.perf_counter()
@@ -3737,15 +3789,19 @@ def sim_phase(sim) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sim.launches = 0                         # the main path starts here
+    for k in sim.route_launches:
+        sim.route_launches[k] = 0
     t0 = time.perf_counter()
     res = grid.run()
     wall_s = time.perf_counter() - t0
     launches = sim.launches                  # ... and ends here
+    routes = dict(sim.route_launches)
     run = dict(sim.last_run)
     peak = torch.cuda.max_memory_allocated()
-    if launches == 0 or len(res) != len(grid):
-        raise AssertionError(f"[sim] the grid launched {launches} times "
-                             f"for {len(res)} of {len(grid)} cells")
+    if launches == 0 or len(res) != len(grid) or \
+            routes["untraced"] != launches:
+        raise AssertionError(f"[sim] the grid launched {routes} for "
+                             f"{len(res)} of {len(grid)} cells")
     tasks = {name: wl.root.count() for name, wl in wls.items()}
     for k, r in res.items():
         if not (r.engine == "cuda" and r.tasks == tasks[k.workload]
@@ -3819,16 +3875,20 @@ def sim_phase(sim) -> dict:
         f"{SIM_STATE_BYTES} B a task and {SIM_OUT_BYTES} B a cell written "
         f"once), the kernel {grid_ms / grid_bound:.0f}x it: each cell is "
         f"one serial event chain, which the bytes do not see")
-    regs = sim_registers().get("untraced/untimed", ("?", "?", "?"))
     log(f"[sim] the grid's kernel {grid_ms:.1f} ms beside "
-        f"{SIM_GRID_MS_BEFORE_TRACE} ms before sim.cu had its traced and "
-        f"timed instantiations; this untraced one: {regs[0]} registers, "
-        f"spill stores {regs[1]} B, loads {regs[2]} B")
+        f"{SIM_GRID_MS_BEFORE} ms with sim.cu's hot state in device memory "
+        f"({SIM_GRID_MS_BEFORE / grid_ms:.2f}x); launches by route "
+        f"{routes}; {run['cells_per_warp']} cell(s) a warp, "
+        f"{run['hot_bytes']} B of hot state a cell (shared memory a block "
+        f"may have: {run['shared_limit']} B), {run['resident_cells']} "
+        f"cells resident at once for {len(res)}")
+    sim_residency(sim, run["hot_bytes"])
     log(f"[sim] 8 cells ({'; '.join('/'.join(map(str, h)) for h in SIM_HELD)}) "
         f"equal to the plain version on the host bit for bit: kernel "
         f"{ms:.1f} ms, plain version {plain_ms:.1f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}-bound; inputs "
         f"{inputs8 / 2**20:.2f} MiB)")
+    ws_rep = sim_workspace_route(sim, cfgs, plain, ms)
     for name in SIM_WORKLOADS:
         row = ", ".join(
             f"{sch}/{ctx} {means[(name, sch, ctx, 16, 'none')]:.2f}x"
@@ -3846,37 +3906,92 @@ def sim_phase(sim) -> dict:
               "tasks", max_abs_err=err, ms=ms, plain_ms=plain_ms,
         library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
         grid_ms=grid_ms, grid_cells=len(res), grid_waves=run["waves"],
-        grid_bound_ms=grid_bound))
+        grid_bound_ms=grid_bound, routes=routes, workspace=ws_rep))
+
+
+def sim_residency(sim, hot: int) -> None:
+    """Each instantiation's registers and spills (ptxas) and, for cells of
+    ``hot`` bytes of hot state, its shared memory a block and resident
+    cells at 1 and 2 cells a warp (CUDA's occupancy)."""
+    regs = sim_registers()
+    rows = []
+    for in_ws in (False, True):
+        for traced in (False, True):
+            for timed in (False, True):
+                name = (("traced" if traced else "untraced") + "/"
+                        + ("timed" if timed else "untimed")
+                        + ("/workspace" if in_ws else ""))
+                r, st, ld = regs.get(name, ("?", "?", "?"))
+                res = [sim.resident_cells("cuda", traced, timed, cpw, hot,
+                                          in_ws) for cpw in (1, 2)]
+                smem = "none" if in_ws else f"{4 * hot} / {8 * hot} B"
+                rows.append(f"{name} {r} registers, spill stores {st} B, "
+                            f"loads {ld} B, shared memory a block {smem}, "
+                            f"{res[0]} / {res[1]} cells resident")
+                if (st, ld) != (0, 0):
+                    raise AssertionError(f"[sim] {name} spills: {regs}")
+    log("[sim] csrc/sim.cu (--fmad=false) at 1 / 2 cells a warp: "
+        + "; ".join(rows))
+
+
+def sim_workspace_route(sim, cfgs, plain, shared_ms: float) -> dict:
+    """The workspace route (each cell's hot state in its device workspace)
+    held to the plain version: the 8 held cells sent there, timed beside
+    the shared route's ``shared_ms``, and cells of 2048 threads, whose
+    hot state passes a block's shared memory, taken there by the batch."""
+    from repro_torch.core import topology
+    from repro_torch.core.sim import Machine, bots, run_sweep
+    before = dict(sim.route_launches)
+    ms = math.inf
+    try:
+        sim.SHARED_CELL_MAX = 0
+        for _ in range(3):
+            got = run_sweep(cfgs, device="cuda")
+            ms = min(ms, sim.last_run["kernel_ms"])
+    finally:
+        sim.SHARED_CELL_MAX = None
+    for c, g, p in zip(cfgs, got, plain):
+        sim_same(f"cell {c.scheduler}/T={len(c.thread_cores)} on the "
+                 "workspace route vs the plain version", g, p)
+    wide = topology.sunfire_x4600(*SIM_WIDE_TOPO)
+    wl = {"fft-wide": bots.fft(n=1 << 9, cutoff=8)}
+    kw = dict(workloads=wl, schedulers=SIM_WIDE_SCHEDS,
+              threads=SIM_WIDE_THREADS,
+              contexts={"base": dict(binding="linear")}, seeds=(1,),
+              serial_reference={"fft-wide": 1.0})
+    t0 = time.perf_counter()
+    wplain = Machine(wide, device="cpu").grid(**kw).run()
+    wplain_s = time.perf_counter() - t0
+    wgot = Machine(wide, device="cuda").grid(**kw).run()
+    wide_ms = sim.last_run["kernel_ms"]
+    groups = [g["route"] for g in sim.last_run["groups"]]
+    for k, r in wgot.items():
+        sim_same(f"{k} vs the plain version", r, wplain[k])
+    launched = {k: sim.route_launches[k] - before[k] for k in before}
+    if groups != ["untraced_workspace"] or \
+            launched["untraced_workspace"] != 4 or launched["untraced"]:
+        raise AssertionError(f"[sim] the workspace route launched "
+                             f"{launched} ({groups})")
+    hot = sim.last_run["hot_bytes"]
+    log(f"[sim] workspace route: the 8 cells with their hot state in "
+        f"device memory equal to the plain version bit for bit, kernel "
+        f"{ms:.1f} ms ({ms / shared_ms:.2f}x the shared route's "
+        f"{shared_ms:.1f}); {len(wgot)} cells of {SIM_WIDE_THREADS} threads "
+        f"({hot} B of hot state, past the {sim.last_run['shared_limit']} B "
+        f"a block may have) took it by themselves and equal the plain "
+        f"version ({wide_ms:.1f} ms; plain {wplain_s:.1f} s); launches "
+        f"{launched}")
+    return dict(ms=ms, wide_ms=wide_ms, launches=launched)
 
 
 def sim_registers() -> dict:
     """{kernel instantiation: (registers, spill store bytes, spill load
-    bytes)} of ``csrc/sim.cu`` from its ``-Xptxas -v`` log, which the
-    build keeps beside the library (so a checkout that built it in an
-    earlier run reads the same); an instantiation is named by its
-    template flags, "untraced"/"traced" and "untimed"/"timed"."""
-    import re
-    from repro_torch.kernels import _build
+    bytes)} of ``csrc/sim.cu`` (``kernels.sim.ptxas_registers``) from its
+    ``-Xptxas -v`` log, which the build keeps beside the library (so a
+    checkout that built it in an earlier run reads the same)."""
+    from repro_torch.kernels import _build, sim
     _build.build(["sim"])
-    out, name = {}, None
-    for line in _build.build_logs["sim"].splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            flags = re.search(r"sim_batch_kernelILb([01])ELb([01])E", m[1])
-            name = None if flags is None else (
-                ("traced" if flags[1] == "1" else "untraced") + "/"
-                + ("timed" if flags[2] == "1" else "untimed"))
-            continue
-        if name is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            out.setdefault(name, [0, 0, 0])[1:] = [int(m[1]), int(m[2])]
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out.setdefault(name, [0, 0, 0])[0] = int(m[1])
-    return {k: tuple(v) for k, v in out.items()}
+    return sim.ptxas_registers(_build.build_logs["sim"])
 
 
 def durable_grid(machine, wls: dict, serial: dict):
@@ -3943,9 +4058,9 @@ def sim_durable_phase(sim) -> dict:
     log("[sim_durable] ptxas (csrc/sim.cu, --fmad=false): " + "; ".join(
         f"{k} {r} registers, spill stores {st} B, loads {ld} B"
         for k, (r, st, ld) in sorted(regs.items())))
-    if regs.get("untraced/untimed", (0, 1, 1))[1:] != (0, 0):
-        raise AssertionError("[sim_durable] the untraced instantiation "
-                             f"spills or is missing: {regs}")
+    if len(regs) != 8 or any(v[1:] != (0, 0) for v in regs.values()):
+        raise AssertionError("[sim_durable] an instantiation spills or is "
+                             f"missing: {regs}")
     topo = topology.sunfire_x4600()
     plain_m = Machine(topo, device="cpu")
     card = Machine(topo, device="cuda")
@@ -4065,6 +4180,12 @@ def sim_durable_phase(sim) -> dict:
         f"s; every result equal to the "
         f"untraced grid's, every trace's counts and histograms equal to "
         f"the metrics")
+    (u0, u1), (v0, v1) = DURABLE_MS_BEFORE
+    log(f"[sim_durable] forensics grid kernel {untraced_run['kernel_ms']:.1f} "
+        f"ms untraced, {run['kernel_ms']:.1f} ms traced, beside {u0}-{u1} "
+        f"and {v0}-{v1} ms with sim.cu's hot state in device memory; "
+        f"{run['cells_per_warp']} cell(s) a warp, {run['resident_cells']} "
+        f"resident; traced launches by route {launches}")
     held_names = "; ".join("/".join(map(str, h)) for h in DURABLE_HELD)
     log(f"[sim_durable] {len(held)} cells ({held_names}) traced equal to "
         f"the plain version event for event: kernel {ms:.1f} ms, plain "
@@ -4129,6 +4250,11 @@ def sim_durable_phase(sim) -> dict:
             f"{'/'.join(map(str, PAPER_HELD))} equal to the plain version "
             f"bit for bit and event for event ({pplain_s:.1f} s on the "
             f"host, traced)")
+        (u0, u1), (v0, v1) = PAPER_MS_BEFORE
+        log(f"[sim_durable] paper-scale fft kernel {paper_ms:.1f} ms "
+            f"untraced, {paper_traced_ms:.1f} ms traced, beside {u0}-{u1} "
+            f"and {v0}-{v1} ms with sim.cu's hot state in device memory "
+            f"({u0 / paper_ms:.2f}x-{u1 / paper_ms:.2f}x untraced)")
 
         # the timeout: long for the medium cells, short for the paper one
         mix = list(pgrid.plan.configs[i:i + 1])

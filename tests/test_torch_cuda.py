@@ -630,6 +630,67 @@ def test_sim_kernel_matches_golden_on_card():
             assert getattr(r, m) == want, (key, m)
 
 
+@pytest.mark.cuda
+def test_sim_kernel_placements_on_card():
+    """The golden fixture's 25 keys with every cell's hot state in shared
+    memory (the main route) and again in its device workspace
+    (``SHARED_CELL_MAX = 0``): each a launch on its own route, the same
+    bits, every recorded metric exactly; a 2048-thread cell, whose hot
+    state passes a block's shared memory, takes the workspace route by
+    itself and equals the plain version."""
+    import json
+    import os
+
+    from repro_torch.core import placement, topology
+    from repro_torch.core.sim import (SweepPlan, _engine_py, bots, policy,
+                                      runtime)
+    from repro_torch.kernels import sim
+    _card()
+    gold = json.load(open(os.path.join(os.path.dirname(__file__), "data",
+                                       "sim_golden.json")))
+    plan, keys = SweepPlan(), []
+    wls = {"fft_small": bots.fft(n=1 << 10, cutoff=8),
+           "sparselu_small": bots.sparselu(n=8)}
+    for tn, topo in (("sunfire", topology.sunfire_x4600()),
+                     ("tpu2x4", topology.tpu_pod_2d(2, 4))):
+        for wn, wl in wls.items():
+            for sched in ("bf", "cilk", "wf", "dfwspt", "dfwsrpt",
+                          "dfwshier"):
+                plan.add(topo, list(range(8)), wl, sched, seed=7)
+                keys.append(f"{tn}/{wn}/{sched}")
+    sf = topology.sunfire_x4600()
+    plan.add(sf, list(range(16)), wls["fft_small"], "wf", seed=3,
+             root_data_nodes=placement.first_touch_spill(sf, 0, 2),
+             runtime_data_node=0, migration_rate=0.15)
+    keys.append("sunfire/fft_small/wf+baseline-numa")
+    before = dict(sim.route_launches)
+    shared = plan.run(device="cuda")
+    keep = sim.SHARED_CELL_MAX
+    try:
+        sim.SHARED_CELL_MAX = 0
+        in_ws = plan.run(device="cuda")
+    finally:
+        sim.SHARED_CELL_MAX = keep
+    assert sim.route_launches["untraced"] == before["untraced"] + 1
+    assert sim.route_launches["untraced_workspace"] == \
+        before["untraced_workspace"] + 1
+    for a, b, key in zip(shared, in_ws, keys):
+        assert a == b, key
+        for m, want in gold[key].items():
+            assert getattr(a, m) == want, (key, m)
+    big = topology.sunfire_x4600(256, 8)
+    ctx = runtime._prepare_ctx(
+        runtime.ExecContext.compile(big, runtime.SimParams(), 2048,
+                                    binding="linear"),
+        bots.fft(n=1 << 9, cutoff=8), policy.get_spec("dfwshier"), 1)
+    want = _engine_py.run(dict(ctx, cores=list(ctx["cores"])))
+    before = dict(sim.route_launches)
+    assert sim.run_batch([ctx], "cuda") == [want]
+    assert sim.route_launches["untraced_workspace"] == \
+        before["untraced_workspace"] + 1
+    assert sim.route_launches["untraced"] == before["untraced"]
+
+
 def _sim_cells(trace: bool):
     """Six prepared cells of the port's simulator (every scheduler, the
     baseline context with migration and a preempt fault on half)."""

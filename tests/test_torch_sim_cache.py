@@ -171,7 +171,7 @@ def test_mmap_tables_same_bits_on_both_engines(cache_root, monkeypatch,
             m.context(16, binding="paper", placement="spill:2"), wl,
             policy.get_spec("dfwsrpt"), 3)
     a, b = sim_kernel.pack([ctx(fresh)]), sim_kernel.pack([ctx(restored)])
-    for name in ("desc", "dbuf", "ibuf", "aggi", "aggd"):
+    for name in ("desc", "tab", "dbuf", "ibuf", "aggi", "aggd"):
         assert a[name].dtype == b[name].dtype
         assert a[name].tobytes() == b[name].tobytes(), name
     try:

@@ -10,9 +10,14 @@
   (:func:`build_host`, where a C++ compiler is found), reached through
   the wrapper's own packing and unpacking;
 * the kernel source's replicas of numpy's MT19937 and shuffle and of
-  CPython's set, and its workspace layout, in that host build.
+  CPython's set, and its hot-state and workspace layouts, in that host
+  build; its two placements of a cell's hot state (the shared-memory
+  slice, stood in for by a garbage-filled host buffer, and the
+  workspace) equal on drawn cells, cells of 64 and 256 threads equal to
+  JAX's C engine, 2048-thread cells taking the workspace route by
+  themselves, and ``pack`` refusing tables past int32 task ids.
 
-About 20 s in one process."""
+About 40 s in one process."""
 
 from __future__ import annotations
 
@@ -240,6 +245,142 @@ def test_engines_agree_on_drawn_cells_with_faults(tmp_dir):
     _with_faults(tmp_dir)
 
 
+def _placements_agree(tree_seed, depth, topo_name, sched, T, ctx_i,
+                      fault_i, seed, tmp_dir):
+    """One drawn cell through the kernel's host build with its hot state
+    in the shared slice layout (a garbage-filled host buffer) and in its
+    workspace: the same results and bindings, and the plain version's."""
+    lib = _host_lib(tmp_dir)
+    if lib is None:
+        return
+    want = _check_drawn(tree_seed, depth, topo_name, sched, T, ctx_i,
+                        fault_i, seed, tmp_dir)
+    mk, _, args = _TOPOS[topo_name]
+    topo = mk(*args)
+    T = min(T, topo.num_cores)
+    faults = _FAULTS[fault_i]
+    if "fail:1" in faults and T < 2:
+        T = 2
+    ctx_kw = _CONTEXTS[ctx_i]
+    if topo.num_nodes < 2:
+        ctx_kw = dict(ctx_kw, placement="first_touch")
+    wl = runtime.Workload("drawn", _tree(runtime.TaskSpec, tree_seed, depth),
+                          0.7)
+    got, cores = [], []
+    for limit in (None, 0):
+        ctx = _prepared(context, runtime, policy, topo, wl, sched, T, ctx_kw,
+                        faults, seed, runtime.SimParams())
+        got += run_batch_host([ctx], lib, limit=limit)
+        cores.append(list(ctx["cores"]))
+    assert got[0] == got[1] == want
+    assert cores[0] == cores[1]
+
+
+@settings(max_examples=25, deadline=None, derandomize=True)
+@given(ctx_i=st.integers(0, len(_CONTEXTS) - 1), **_DRAW)
+def _placements_fault_free(tmp_dir, tree_seed, depth, topo_name, sched, T,
+                           ctx_i, seed):
+    _placements_agree(tree_seed, depth, topo_name, sched, T, ctx_i, 0, seed,
+                      tmp_dir)
+
+
+@settings(max_examples=25, deadline=None, derandomize=True)
+@given(ctx_i=st.integers(0, len(_CONTEXTS) - 1),
+       fault_i=st.integers(1, len(_FAULTS) - 1), **_DRAW)
+def _placements_with_faults(tmp_dir, tree_seed, depth, topo_name, sched, T,
+                            ctx_i, fault_i, seed):
+    _placements_agree(tree_seed, depth, topo_name, sched, T, ctx_i, fault_i,
+                      seed, tmp_dir)
+
+
+def test_kernel_placements_agree_on_drawn_fault_free_cells(tmp_dir):
+    _lib_or_skip(tmp_dir)
+    _placements_fault_free(tmp_dir)
+
+
+def test_kernel_placements_agree_on_drawn_cells_with_faults(tmp_dir):
+    _lib_or_skip(tmp_dir)
+    _placements_with_faults(tmp_dir)
+
+
+@pytest.mark.parametrize("T", [64, 256])
+@pytest.mark.parametrize("sched,faults", [
+    ("wf", ()), ("cilk", ("preempt:2@5",)), ("bf", ()),
+    ("dfwsrpt", ("straggler:0.3", "fail:1")), ("dfwshier", ())])
+def test_kernel_many_threads_match_jax_c_engine(tmp_dir, T, sched, faults):
+    """Cells at 64 and 256 threads (sunfire with 32 cores a node, its 8
+    nodes, the baseline context with migration) on a small table: the
+    kernel's host build, its hot state in the shared layout and in the
+    workspace, field for field against JAX's C engine (its py engine where
+    no C compiler loads it) and the port's plain version."""
+    lib = _lib_or_skip(tmp_dir)
+    topo, jtopo = (topology.sunfire_x4600(32, 8),
+                   jtopology.sunfire_x4600(32, 8))
+    kw = dict(binding="linear", placement="spill:2@0", runtime_data=0,
+              migration_rate=0.15)
+
+    def ctx():
+        return _prepared(context, runtime, policy, topo,
+                         bots.fft(n=1 << 11, cutoff=8), sched, T, kw,
+                         faults, 5, runtime.SimParams())
+    jctx = _prepared(jcontext, jruntime, jpolicy, jtopo,
+                     jbots.fft(n=1 << 11, cutoff=8), sched, T, kw, faults, 5,
+                     jruntime.SimParams())
+    engine = jcsim.run if jcsim.load() is not None else jengine.run
+    want = engine(jctx)
+    want.pop("trace", None)
+    assert sim_kernel.hot_bytes(T, 8, len(want["steal_hops"])) \
+        <= sim_kernel.HOST_SHARED_LIMIT
+    for limit in (None, 0):
+        c = ctx()
+        (got,) = run_batch_host([c], lib, limit=limit)
+        assert got == want, (limit, got, want)
+        assert c["cores"] == jctx["cores"]
+    assert _engine_py.run(ctx()) == want
+
+
+def test_kernel_cells_past_shared_memory_take_the_workspace_route(tmp_dir):
+    """2048 threads on sunfire with 256 cores a node: the cell's hot state
+    (about 243 KB) passes the 227 KB a block may have on an H100, so the
+    batch runs it on the workspace route, on its own, beside a 16-thread
+    cell on the shared one; both equal the plain version."""
+    lib = _lib_or_skip(tmp_dir)
+    topo = topology.sunfire_x4600(256, 8)
+    wl = bots.fft(n=1 << 9, cutoff=8)
+
+    def ctxs():
+        return [runtime._prepare_ctx(
+            context.ExecContext.compile(topo, runtime.SimParams(), T,
+                                        binding="linear"),
+            wl, policy.get_spec(sched), 1)
+            for T, sched in ((2048, "dfwshier"), (16, "wf"), (2048, "bf"))]
+    assert sim_kernel.hot_bytes(2048, 8, 4) > sim_kernel.HOST_SHARED_LIMIT
+    got, stats = sim_kernel._drive(ctxs(), sim_kernel._Host(lib, None), None)
+    assert [g["route"] for g in stats["groups"]] == ["untraced",
+                                                     "untraced_workspace"]
+    assert [g["cells"] for g in stats["groups"]] == [1, 2]
+    assert got == [_engine_py.run(c) for c in ctxs()]
+
+
+def test_pack_refuses_tables_past_int32_ids():
+    """A table of 2^31 tasks or more cannot be packed (task ids are
+    int32): pack raises naming the cell's table before it touches an
+    array (a stub table stands in for a huge one)."""
+    topo = topology.sunfire_x4600()
+    ectx = context.ExecContext.compile(topo, runtime.SimParams(), 4)
+    ctx = runtime._prepare_ctx(ectx, bots.fft(n=64, cutoff=8),
+                               policy.get_spec("wf"), 1)
+
+    class Huge:
+        n = 2 ** 31
+    for n in (2 ** 31, 2 ** 40):
+        Huge.n = n
+        with pytest.raises(ValueError, match=r"task table of cell 1 .* "
+                                             r"fewer than 2\^31"):
+            sim_kernel.pack([ctx, dict(ctx, table=Huge())])
+    assert sim_kernel.pack([ctx])["desc"].shape == (1, len(sim_kernel.DESC))
+
+
 def test_engines_agree_on_a_stall(tmp_dir):
     """A watchdog budget too small for the run: status 1 and its last
     event time, equal across the engines, become SimStalled."""
@@ -293,12 +434,30 @@ def test_kernel_host_build_matches_golden(tmp_dir):
 
 
 def test_kernel_workspace_layout_matches_wrapper(tmp_dir):
+    """The hot-state and workspace layouts the kernel carves equal the
+    wrapper's sizes, for both placements, over thread counts up to 256
+    (and one past CPython's 50 000-key resize rule), node counts and hop
+    bins; the task records are the sizes the wrapper packs."""
     lib = _lib_or_skip(tmp_dir)
-    for n in (1, 511, 45_055, 1_000_000):
-        for T in (1, 2, 3, 8, 16, 64, 300):
-            assert lib.sim_workspace_bytes(n, T) == \
-                sim_kernel.workspace_bytes(n, T), (n, T)
-            assert sim_kernel.workspace_bytes(n, T) % 8 == 0
+    assert lib.sim_task_record_bytes() == sim_kernel.TASK_RECORD.itemsize \
+        == 64
+    assert lib.sim_task_state_bytes() == sim_kernel.TASK_STATE_BYTES == 16
+    for T in (1, 2, 3, 8, 16, 64, 256, 300, 60_000):
+        for nodes, bins in ((1, 1), (8, 4), (64, 7)):
+            hot = sim_kernel.hot_bytes(T, nodes, bins)
+            assert lib.sim_hot_bytes(T, nodes, bins) == hot, (T, nodes, bins)
+            assert hot % 16 == 0
+            for n in (1, 511, 45_055, 1_000_000):
+                for in_ws in (False, True):
+                    got = lib.sim_workspace_bytes(n, T, nodes, bins,
+                                                  int(in_ws))
+                    want = sim_kernel.workspace_bytes(n, T, nodes, bins,
+                                                      in_ws)
+                    assert got == want, (n, T, nodes, bins, in_ws)
+                    assert want % 16 == 0
+                    assert want == 16 * n + (hot if in_ws else 0)
+    # the paper's 16 threads on sunfire (8 nodes, 4 hop bins): ~5 KB
+    assert sim_kernel.hot_bytes(16, 8, 4) < 5 * 1024
 
 
 def test_kernel_mt19937_matches_numpy(tmp_dir):
@@ -359,13 +518,17 @@ def test_pack_shares_tables_and_splits_waves():
     packed = sim_kernel.pack(ctxs)
     d = {name: i for i, name in enumerate(sim_kernel.DESC)}
     desc = packed["desc"]
-    # two tables, each uploaded once; cells in launch order by workload
-    assert len(set(desc[:, d["wp"]])) == 2
+    # two tables, each uploaded once; cells in launch order longest
+    # first (the fft table has the more tasks)
+    assert len(set(desc[:, d["tab"]])) == 2
+    assert len(packed["tab"]) == sum(w.root.count() for w in wls) + 1
     assert list(desc[:3, d["out"]] % 2) == [0, 0, 0]
     assert sorted(desc[:, d["out"]]) == list(range(6))
     assert packed["waves"] == [(0, 6)]
     sizes = [sim_kernel.workspace_bytes(c["table"].n, c["T"])
              for c in ctxs]
+    assert packed["wave_hot"] == [max(sim_kernel.hot_bytes(
+        c["T"], c["num_nodes"], c["max_hop"] + 1) for c in ctxs)]
     cap = max(sizes) + 8
     waved = sim_kernel.pack(ctxs, max_wave_bytes=cap)
     assert len(waved["waves"]) > 1
